@@ -1,0 +1,143 @@
+"""Single-image inference API (deeplabv3p_tpu/inference.py:28-150).
+
+`DeepLab` takes the JAX class's configuration keys and adds an explicit
+`device` (default `cuda`) and compute `dtype` (default bf16, the JAX class's
+compute type). Like the JAX class it builds with the fused ASPP kernel on
+and the fused decoder kernel off; both flags can be overridden. A request
+is `preprocess_image` (PIL bicubic resize + [-1, 1] normalise, on the host)
+-> model forward -> argmax -> cv2-nearest `mask_resize`, the last three on
+the device.
+
+Weights come from an `.npz` of the JAX variables tree (`utils/weights.py`),
+or, with no path, from a seeded init. PIL is imported only where an image
+is decoded or drawn, so `import deeplabv3p_torch.inference` works without it.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from deeplabv3p_torch.models.factory import build_deeplab_model
+from deeplabv3p_torch.models.layers import init_parameters
+from deeplabv3p_torch.postprocess import mask_argmax, mask_resize
+from deeplabv3p_torch.utils.config import get_classes
+from deeplabv3p_torch.utils.weights import from_jax_variables, load_npz
+
+DEFAULT_CONFIG = {
+    # reference default_config (deeplab.py:31-40)
+    "model_type": "mobilenetv2_lite",
+    "classes_path": None,
+    "class_names": None,
+    "model_input_shape": (512, 512),
+    "output_stride": 16,
+    "weights_path": None,
+    "do_crf": False,
+    "mesh": None,
+}
+
+
+def preprocess_image(image, model_input_shape) -> np.ndarray:
+    """PIL bicubic resize + [-1, 1] normalize + batch dim (reference
+    common/data_utils.py:436-454)."""
+    from PIL import Image
+
+    resized = image.resize(tuple(reversed(model_input_shape)), Image.BICUBIC)
+    data = np.asarray(resized).astype("float32") / 127.5 - 1.0
+    return np.expand_dims(data, 0)
+
+
+class DeepLab:
+    """Inference wrapper with overridable defaults (`DeepLab(**overrides)`,
+    reference deeplab.py:53-58)."""
+
+    def __init__(
+        self,
+        device="cuda",
+        dtype: torch.dtype = torch.bfloat16,
+        fused_aspp: bool = True,
+        fused_decoder: bool = False,
+        **kwargs,
+    ):
+        self.__dict__.update(DEFAULT_CONFIG)
+        self.__dict__.update(kwargs)
+        if self.do_crf:
+            raise NotImplementedError(
+                "do_crf: the dense CRF is not ported yet (ROADMAP Queue A item 10)"
+            )
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "mesh: multi-GPU inference is not ported yet (ROADMAP Queue A item 11)"
+            )
+        if self.class_names is None:
+            if self.classes_path is None:
+                raise ValueError("need class_names or classes_path")
+            self.class_names = get_classes(self.classes_path)
+        if len(self.class_names) >= 254:
+            raise ValueError("PNG image label only support less than 254 classes.")
+        self.num_classes = len(self.class_names)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            # nothing moves to the CPU behind the caller's back
+            raise RuntimeError(
+                "device='cuda' but torch.cuda.is_available() is False; "
+                "pass device='cpu' to run the plain PyTorch path"
+            )
+        self.dtype = dtype
+        self.model = build_deeplab_model(
+            self.model_type,
+            self.num_classes,
+            output_stride=self.output_stride,
+            fused_aspp=fused_aspp,
+            fused_decoder=fused_decoder,
+            dtype=dtype,
+            device=self.device,
+        )
+        if self.weights_path:
+            path = os.path.expanduser(self.weights_path)
+            if not path.endswith(".npz"):
+                raise NotImplementedError(
+                    f"{path}: only .npz weights load in the port so far; the "
+                    ".h5 and .ckpt readers wait (ROADMAP Queue A item 1)"
+                )
+            self.model.load_state_dict(
+                from_jax_variables(load_npz(path), self.model), strict=True
+            )
+        else:  # seeded random init (smoke/demo use)
+            init_parameters(self.model, torch.Generator().manual_seed(0))
+
+    @torch.inference_mode()
+    def predict(self, image_data: np.ndarray, image_shape) -> np.ndarray:
+        """image_data: (1, H, W, 3) normalized; image_shape: origin (h, w).
+        Returns the (h, w) int32 mask (reference deeplab.py:96-109)."""
+        x = torch.from_numpy(np.ascontiguousarray(image_data, np.float32))
+        x = x.to(self.device).permute(0, 3, 1, 2)  # NHWC -> channels_last NCHW
+        logits = self.model(x)
+        mask = mask_argmax(logits, dim=1)[0]
+        return mask_resize(mask, tuple(image_shape)).cpu().numpy()
+
+    def segment_image(self, image):
+        """Segment a PIL image, return the overlay visualization
+        (reference deeplab.py:81-93)."""
+        from PIL import Image
+
+        from deeplabv3p_torch.utils.visualize import visualize_segmentation
+
+        image_data = preprocess_image(image, self.model_input_shape)
+        image_shape = tuple(reversed(image.size))  # (h, w)
+        start = time.time()
+        out_mask = self.predict(image_data, image_shape)
+        print(f"Inference time: {time.time() - start:.8f}s")
+        image_array = visualize_segmentation(
+            np.array(image), out_mask, class_names=self.class_names
+        )
+        return Image.fromarray(image_array)
+
+    def segment_video(self, video_path: str, output_path: Optional[str] = None) -> None:
+        raise NotImplementedError(
+            "segment_video is not ported yet (ROADMAP Queue A item 6)"
+        )

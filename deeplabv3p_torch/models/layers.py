@@ -1,0 +1,362 @@
+"""Shared DeepLabV3+ building blocks as `nn.Module`s
+(deeplabv3p_tpu/models/layers.py:40-491).
+
+Module and parameter names follow the flax scopes, minus flax's wrapper
+scopes `dw` (DepthwiseConv) and `bn` (BatchNorm), so
+`aspp/aspp1/depthwise/dw/kernel` is `aspp.aspp1.depthwise.weight` here
+(utils/weights.py does the mapping). Parameters are float32; each module
+computes in its `dtype` (bf16 for serving), casting weights and input at
+use as flax's `dtype=` does. Tensors are NCHW, run in channels_last.
+
+Inference only in this port slice: `BatchNorm` uses its running
+statistics and refuses training mode, and dropout is left out.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from deeplabv3p_torch.ops.conv import atrous_explicit_pad, conv2d_same
+from deeplabv3p_torch.ops.resize import resize_bilinear
+
+
+def _dtype(dtype: Optional[torch.dtype]) -> torch.dtype:
+    return torch.float32 if dtype is None else dtype
+
+
+def channels_last(x: torch.Tensor) -> torch.Tensor:
+    """x in channels_last memory (a no-op when it already is)."""
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+class BatchNorm(nn.Module):
+    """Inference-mode batch norm with a per-site epsilon (flax scope `bn`).
+
+    `weight`/`bias`/`running_mean`/`running_var` are flax's
+    `scale`/`bias`/`mean`/`var`. Like flax with `dtype=bf16`, it normalises
+    in f32 and returns the compute dtype. Keras defaults eps=1e-3; the
+    MobileNet bodies use 1e-3, the heads 1e-5.
+    """
+
+    def __init__(self, num_features: int, epsilon: float = 1e-3,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = _dtype(dtype)
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean", torch.zeros(num_features, device=device))
+        self.register_buffer("running_var", torch.ones(num_features, device=device))
+
+    def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(scale, bias) with BN(x) == x * scale + bias, in f32."""
+        inv = self.weight * torch.rsqrt(self.running_var + self.epsilon)
+        return inv, self.bias - self.running_mean * inv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "BatchNorm training mode is not ported yet (ROADMAP Queue A "
+                "item 5, train step); call .eval()"
+            )
+        y = F.batch_norm(
+            x.float(), self.running_mean, self.running_var, self.weight,
+            self.bias, False, 0.0, self.epsilon,
+        )
+        return y.to(self.dtype)
+
+
+class Conv(nn.Module):
+    """flax `nn.Conv` with TF-'SAME' padding (or an explicit one).
+
+    weight is OIHW (flax HWIO kernel transposed); computes in `dtype`.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        features: int,
+        kernel_size: int,
+        *,
+        strides: int = 1,
+        rate: int = 1,
+        padding: Optional[Sequence[tuple[int, int]]] = None,
+        use_bias: bool = False,
+        groups: int = 1,
+        dtype: Optional[torch.dtype] = None,
+        device=None,
+    ):
+        super().__init__()
+        self.strides, self.rate, self.groups = strides, rate, groups
+        self.padding = padding
+        self.dtype = _dtype(dtype)
+        self.weight = nn.Parameter(torch.zeros(
+            features, in_channels // groups, kernel_size, kernel_size,
+            device=device,
+        ))
+        self.bias = (
+            nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return conv2d_same(
+            x.to(dt), self.weight.to(dt), bias, self.strides, self.rate,
+            self.groups, self.padding,
+        )
+
+
+class DepthwiseConv(Conv):
+    """Keras DepthwiseConv2D: a grouped conv with groups == channels
+    (flax scope `dw`; kernel (kh,kw,1,C) here (C,1,kh,kw))."""
+
+    def __init__(self, channels: int, kernel_size: int = 3, strides: int = 1,
+                 rate: int = 1, padding=None, dtype=None, device=None):
+        super().__init__(
+            channels, channels, kernel_size, strides=strides, rate=rate,
+            padding=padding, groups=channels, dtype=dtype, device=device,
+        )
+
+
+class SepConvBN(nn.Module):
+    """Depthwise-separable conv with BN between depthwise & pointwise
+    (reference SepConv_BN, layers.py:74-111): stride 1 pads TF-'SAME',
+    stride > 1 pads explicitly by the effective kernel."""
+
+    def __init__(self, in_channels: int, filters: int, stride: int = 1,
+                 kernel_size: int = 3, rate: int = 1,
+                 depth_activation: bool = False, epsilon: float = 1e-3,
+                 dtype=None, device=None):
+        super().__init__()
+        self.depth_activation = depth_activation
+        padding = None if stride == 1 else atrous_explicit_pad(kernel_size, rate)
+        kw = dict(dtype=dtype, device=device)
+        self.depthwise = DepthwiseConv(
+            in_channels, kernel_size, stride, rate, padding, **kw
+        )
+        self.depthwise_BN = BatchNorm(in_channels, epsilon, **kw)
+        self.pointwise = Conv(in_channels, filters, 1, **kw)
+        self.pointwise_BN = BatchNorm(filters, epsilon, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.depth_activation:
+            x = torch.relu(x)
+        x = self.depthwise_BN(self.depthwise(x))
+        if self.depth_activation:
+            x = torch.relu(x)
+        x = self.pointwise_BN(self.pointwise(x))
+        if self.depth_activation:
+            x = torch.relu(x)
+        return x
+
+
+def aspp_rates(output_stride: int) -> tuple[int, int, int]:
+    """Atrous rates per output stride (reference layers.py:118-126)."""
+    if output_stride == 8:
+        return (12, 24, 36)
+    if output_stride == 16:
+        return (6, 12, 18)
+    if output_stride == 32:
+        return (3, 6, 9)
+    raise ValueError(f"invalid output stride {output_stride}")
+
+
+class ImagePoolingBranch(nn.Module):
+    """ASPP image-feature branch: global mean -> 1x1 conv/BN/ReLU on the
+    1x1 map -> broadcast (reference AveragePooling2D + resize,
+    layers.py:131-138)."""
+
+    def __init__(self, in_channels: int, features: int = 256, dtype=None,
+                 device=None):
+        super().__init__()
+        self.features = features
+        self.image_pooling = Conv(in_channels, features, 1, dtype=dtype, device=device)
+        self.image_pooling_BN = BatchNorm(features, 1e-5, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, _, h, w = x.shape
+        pooled = x.mean(dim=(2, 3), keepdim=True)
+        pooled = torch.relu(self.image_pooling_BN(self.image_pooling(pooled)))
+        return pooled.expand(n, self.features, h, w)
+
+
+def _fold_pointwise(branch: SepConvBN, dw: torch.Tensor, dt: torch.dtype,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """Pointwise 1x1 in the compute dtype, then the folded f32 BN + ReLU
+    (layers.py:316-326 / :446-455). `dw` is NHWC."""
+    y = F.conv2d(channels_last(dw.permute(0, 3, 1, 2).to(dt)),
+                 branch.pointwise.weight.to(dt))
+    inv, b = branch.pointwise_BN.folded()
+    y = y.float() * inv.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
+    return torch.relu(y).to(out_dtype)
+
+
+def _dw_kernel(branch: SepConvBN) -> torch.Tensor:
+    """(C,1,3,3) depthwise weight -> the kernels' (3,3,C) layout."""
+    return branch.depthwise.weight[:, 0].permute(1, 2, 0)
+
+
+class ASPP(nn.Module):
+    """Atrous Spatial Pyramid Pooling (reference ASPP_block, layers.py:114-163):
+    image pooling, 1x1, and three atrous separable convs at
+    `aspp_rates(OS)`, concatenated [b4, b0, b1, b2, b3] and projected to 256.
+
+    `fused_inference`: the three branches' depthwise+BN+ReLU run as ONE
+    `multirate_atrous_depthwise` call (CUDA kernel on the card), fed f32
+    like the JAX path, then each pointwise+BN+ReLU in the compute dtype.
+    Same parameters as the standard path.
+    """
+
+    def __init__(self, in_channels: int, output_stride: int = 16,
+                 fused_inference: bool = False, dtype=None, device=None):
+        super().__init__()
+        self.rates = aspp_rates(output_stride)
+        self.fused_inference = fused_inference
+        self.dtype = _dtype(dtype)
+        kw = dict(dtype=dtype, device=device)
+        self.image_pool_branch = ImagePoolingBranch(in_channels, **kw)
+        self.aspp0 = Conv(in_channels, 256, 1, **kw)
+        self.aspp0_BN = BatchNorm(256, 1e-5, **kw)
+        for i, rate in enumerate(self.rates, start=1):
+            self.add_module(f"aspp{i}", SepConvBN(
+                in_channels, 256, rate=rate, depth_activation=True,
+                epsilon=1e-5, **kw,
+            ))
+        self.concat_projection = Conv(5 * 256, 256, 1, **kw)
+        self.concat_projection_BN = BatchNorm(256, 1e-5, **kw)
+
+    def _branches(self) -> list[SepConvBN]:
+        return [self.aspp1, self.aspp2, self.aspp3]
+
+    def _fused_branches(self, x: torch.Tensor) -> list[torch.Tensor]:
+        from deeplabv3p_torch.ops.kernels.aspp import multirate_atrous_depthwise
+
+        branches = self._branches()
+        folds = [br.depthwise_BN.folded() for br in branches]
+        dw_outs = multirate_atrous_depthwise(
+            x.float().permute(0, 2, 3, 1).contiguous(),
+            torch.stack([_dw_kernel(br) for br in branches]).float().contiguous(),
+            self.rates,
+            scale=torch.stack([s for s, _ in folds]).contiguous(),
+            bias=torch.stack([b for _, b in folds]).contiguous(),
+        )
+        return [
+            _fold_pointwise(br, dw, self.dtype, x.dtype)
+            for br, dw in zip(branches, dw_outs)
+        ]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b4 = self.image_pool_branch(x)
+        b0 = torch.relu(self.aspp0_BN(self.aspp0(x)))
+        if self.fused_inference:
+            b1, b2, b3 = self._fused_branches(x)
+        else:
+            b1, b2, b3 = (br(x) for br in self._branches())
+        # branch order of reference Concatenate([b4, b0, b1, b2, b3]) (:155)
+        x = channels_last(torch.cat([b4, b0, b1, b2, b3], dim=1))
+        x = self.concat_projection_BN(self.concat_projection(x))
+        return torch.relu(x)
+
+
+class ASPPLite(nn.Module):
+    """Image pooling + 1x1 branches only (reference ASPP_Lite_block,
+    layers.py:166-196)."""
+
+    def __init__(self, in_channels: int, dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.image_pool_branch = ImagePoolingBranch(in_channels, **kw)
+        self.aspp0 = Conv(in_channels, 256, 1, **kw)
+        self.aspp0_BN = BatchNorm(256, 1e-5, **kw)
+        self.concat_projection = Conv(2 * 256, 256, 1, **kw)
+        self.concat_projection_BN = BatchNorm(256, 1e-5, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b4 = self.image_pool_branch(x)
+        b0 = torch.relu(self.aspp0_BN(self.aspp0(x)))
+        x = channels_last(torch.cat([b4, b0], dim=1))
+        return torch.relu(self.concat_projection_BN(self.concat_projection(x)))
+
+
+class Decoder(nn.Module):
+    """DeepLabV3+ decoder (reference Decoder_block, layers.py:199-219):
+    upsample to the skip's size, project the skip to 48 channels, concat
+    [upsampled, skip48], refine with two separable convs.
+
+    `fused_inference`: upsample + concat + decoder_conv0's depthwise/BN/ReLU
+    run as ONE `fused_decoder_frontend` call (CUDA kernel on the card) in
+    the compute dtype, then the pointwise+BN+ReLU. Same parameters.
+    """
+
+    def __init__(self, in_channels: int, skip_channels: int,
+                 fused_inference: bool = False, dtype=None, device=None):
+        super().__init__()
+        self.fused_inference = fused_inference
+        self.dtype = _dtype(dtype)
+        kw = dict(dtype=dtype, device=device)
+        self.feature_projection0 = Conv(skip_channels, 48, 1, **kw)
+        self.feature_projection0_BN = BatchNorm(48, 1e-5, **kw)
+        self.decoder_conv0 = SepConvBN(
+            in_channels + 48, 256, depth_activation=True, epsilon=1e-5, **kw
+        )
+        self.decoder_conv1 = SepConvBN(
+            256, 256, depth_activation=True, epsilon=1e-5, **kw
+        )
+
+    def _fused_frontend(self, x: torch.Tensor, skip48: torch.Tensor) -> torch.Tensor:
+        from deeplabv3p_torch.ops.kernels.decoder import fused_decoder_frontend
+
+        conv0 = self.decoder_conv0
+        scale, bias = conv0.depthwise_BN.folded()
+        # the model dtype on the kernel's in/out (layers.py:435-444)
+        y = fused_decoder_frontend(
+            x.permute(0, 2, 3, 1).contiguous(),
+            skip48.to(x.dtype).permute(0, 2, 3, 1).contiguous(),
+            _dw_kernel(conv0).float().contiguous(),
+            scale.float().contiguous(),
+            bias.float().contiguous(),
+        )
+        return _fold_pointwise(conv0, y, self.dtype, x.dtype)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        skip_hw = (skip.shape[2], skip.shape[3])
+        skip = torch.relu(self.feature_projection0_BN(self.feature_projection0(skip)))
+        if self.fused_inference:
+            x = self._fused_frontend(x, skip)
+        else:
+            x = resize_bilinear(x.float(), skip_hw).to(x.dtype)
+            x = self.decoder_conv0(channels_last(torch.cat([x, skip], dim=1)))
+        return self.decoder_conv1(x)
+
+
+@torch.no_grad()
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init: conv kernels ~ N(0, 1/fan_in) (flax's lecun_normal
+    scale), conv biases 0. BN scale and variance ~ U(0.5, 1.5), bias and
+    mean ~ N(0, 0.1): unlike flax's identity BN init, every folded-BN path
+    sees non-trivial statistics. Drawn on the CPU from `generator`, so the
+    same seed gives the same weights on every device."""
+
+    def draw(shape, kind):
+        if kind == "normal":
+            return torch.randn(shape, generator=generator)
+        return torch.rand(shape, generator=generator)
+
+    for m in module.modules():
+        if isinstance(m, Conv):
+            fan_in = m.weight[0].numel()
+            m.weight.copy_(draw(m.weight.shape, "normal") / math.sqrt(fan_in))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            c = m.weight.shape
+            m.weight.copy_(0.5 + draw(c, "uniform"))
+            m.bias.copy_(0.1 * draw(c, "normal"))
+            m.running_mean.copy_(0.1 * draw(c, "normal"))
+            m.running_var.copy_(0.5 + draw(c, "uniform"))

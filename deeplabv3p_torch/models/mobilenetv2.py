@@ -1,0 +1,140 @@
+"""MobileNetV2 backbone with output-stride-aware dilation
+(deeplabv3p_tpu/models/mobilenetv2.py:26-169).
+
+17 inverted-residual blocks whose strides collapse to dilation once the
+requested output stride is reached, plus the skip feature at OS4. Block
+and channel schedule, the OS -> (stride, rate) table and the Keras layer
+names (`Conv`, `expanded_conv_{i}_expand`, ...) are those of the JAX body,
+so its variables map 1:1. Strided convs (the stem; blocks 1, 3, 6, and 13
+at OS32) pad TF-'SAME', (0, 1) on even inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from deeplabv3p_torch.models.layers import BatchNorm, Conv, DepthwiseConv
+from deeplabv3p_torch.ops.activations import relu6
+
+
+def make_divisible(v: float, divisor: int, min_value: Optional[int] = None) -> int:
+    """Channel rounding used by all MobileNet family backbones
+    (reference deeplabv3p_mobilenetv2.py:28-35)."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def os_control_table(output_stride: int) -> dict[str, int]:
+    """OS -> stride/dilation schedule for the two late down-sampling stages
+    (reference deeplabv3p_mobilenetv2.py:82-98)."""
+    if output_stride == 8:
+        return dict(os16_stride=1, os16_rate=2, os32_stride=1, os32_rate=4)
+    if output_stride == 16:
+        return dict(os16_stride=2, os16_rate=1, os32_stride=1, os32_rate=2)
+    if output_stride == 32:
+        return dict(os16_stride=2, os16_rate=1, os32_stride=2, os32_rate=1)
+    raise ValueError(f"invalid output stride {output_stride}")
+
+
+class InvertedResBlock(nn.Module):
+    """MobileNetV2 inverted residual (reference _inverted_res_block,
+    deeplabv3p_mobilenetv2.py:38-74): optional 1x1 expand -> 3x3 depthwise
+    (stride/dilation) -> 1x1 linear project, with identity skip."""
+
+    def __init__(self, in_channels: int, expansion: int, stride: int,
+                 alpha: float, filters: int, block_id: int,
+                 skip_connection: bool, rate: int = 1, dtype=None, device=None):
+        super().__init__()
+        self.skip_connection = skip_connection
+        self.out_channels = make_divisible(int(filters * alpha), 8)
+        self.prefix = f"expanded_conv_{block_id}_" if block_id else "expanded_conv_"
+        kw = dict(dtype=dtype, device=device)
+        ch = in_channels
+        self.has_expand = bool(block_id)
+        if self.has_expand:
+            ch = expansion * in_channels
+            self.add_module(self.prefix + "expand", Conv(in_channels, ch, 1, **kw))
+            self.add_module(self.prefix + "expand_BN", BatchNorm(ch, 1e-3, **kw))
+        self.add_module(self.prefix + "depthwise", DepthwiseConv(
+            ch, 3, strides=stride, rate=rate, **kw
+        ))
+        self.add_module(self.prefix + "depthwise_BN", BatchNorm(ch, 1e-3, **kw))
+        self.add_module(self.prefix + "project", Conv(ch, self.out_channels, 1, **kw))
+        self.add_module(self.prefix + "project_BN", BatchNorm(self.out_channels, 1e-3, **kw))
+
+    def _sub(self, name: str) -> nn.Module:
+        return getattr(self, self.prefix + name)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        x = inputs
+        if self.has_expand:
+            x = relu6(self._sub("expand_BN")(self._sub("expand")(x)))
+        x = relu6(self._sub("depthwise_BN")(self._sub("depthwise")(x)))
+        x = self._sub("project_BN")(self._sub("project")(x))
+        if self.skip_connection:
+            x = x + inputs
+        return x
+
+
+# (filters, stride key or int, expansion, block_id, skip, rate key or int)
+_BLOCKS = [
+    (16, 1, 1, 0, False, 1),
+    (24, 2, 6, 1, False, 1),
+    (24, 1, 6, 2, True, 1),
+    (32, 2, 6, 3, False, 1),
+    (32, 1, 6, 4, True, 1),
+    (32, 1, 6, 5, True, 1),
+    (64, "os16_stride", 6, 6, False, 1),
+    (64, 1, 6, 7, True, "os16_rate"),
+    (64, 1, 6, 8, True, "os16_rate"),
+    (64, 1, 6, 9, True, "os16_rate"),
+    (96, 1, 6, 10, False, "os16_rate"),
+    (96, 1, 6, 11, True, "os16_rate"),
+    (96, 1, 6, 12, True, "os16_rate"),
+    (160, "os32_stride", 6, 13, False, "os16_rate"),
+    (160, 1, 6, 14, True, "os32_rate"),
+    (160, 1, 6, 15, True, "os32_rate"),
+    (320, 1, 6, 16, False, "os32_rate"),
+]
+SKIP_BLOCK = 2  # the OS4 skip feature is block 2's output (reference :116-117)
+
+
+class MobileNetV2Body(nn.Module):
+    """Feature extractor returning (features, skip@OS4)
+    (reference MobileNetV2_body, deeplabv3p_mobilenetv2.py:77-199)."""
+
+    def __init__(self, output_stride: int = 16, alpha: float = 1.0,
+                 dtype=None, device=None):
+        super().__init__()
+        tab = os_control_table(output_stride)
+        kw = dict(dtype=dtype, device=device)
+        first = make_divisible(32 * alpha, 8)
+        self.Conv = Conv(3, first, 3, strides=2, **kw)
+        self.Conv_BN = BatchNorm(first, 1e-3, **kw)
+        ch = first
+        for filters, stride, expansion, block_id, skip, rate in _BLOCKS:
+            block = InvertedResBlock(
+                ch, expansion, tab.get(stride, stride), alpha, filters,
+                block_id, skip, rate=tab.get(rate, rate), **kw,
+            )
+            self.add_module(f"block_{block_id}", block)
+            ch = block.out_channels
+            if block_id == SKIP_BLOCK:
+                self.skip_channels = ch
+        self.out_channels = ch
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        x = relu6(self.Conv_BN(self.Conv(x)))
+        skip = None
+        for i in range(len(_BLOCKS)):
+            x = getattr(self, f"block_{i}")(x)
+            if i == SKIP_BLOCK:
+                skip = x
+        return x, skip

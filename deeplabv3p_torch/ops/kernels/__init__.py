@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
+PyTorch version.
+
+| wrapper                       | CUDA source       | replaces (Pallas TPU kernel)                         |
+|-------------------------------|-------------------|------------------------------------------------------|
+| `multirate_atrous_depthwise`  | `csrc/aspp.cu`    | `deeplabv3p_tpu/ops/pallas/aspp.py` `multirate_atrous_depthwise` |
+| `fused_decoder_frontend`      | `csrc/decoder.cu` | `deeplabv3p_tpu/ops/pallas/decoder.py` `fused_decoder_frontend` |
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises. Nothing here touches CUDA or nvcc at import.
+"""
+
+from deeplabv3p_torch.ops.kernels._build import (  # noqa: F401
+    launch_counts,
+    reset_launch_counts,
+)
+from deeplabv3p_torch.ops.kernels.aspp import (  # noqa: F401
+    multirate_atrous_depthwise,
+    multirate_atrous_depthwise_reference,
+)
+from deeplabv3p_torch.ops.kernels.decoder import (  # noqa: F401
+    fused_decoder_frontend,
+    fused_decoder_reference,
+)

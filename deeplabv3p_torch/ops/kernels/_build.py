@@ -1,0 +1,144 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+`ops/kernels/csrc/*.cu` are compiled with `nvcc` for sm_90a into ONE shared
+library with a plain C interface, at first use, into `<repo>/build/kernels/
+<hash>/` (listed in .gitignore). The hash covers the sources and the
+flags, so an edit rebuilds and an unchanged tree reuses the library. The
+library is loaded with `ctypes`; nothing here includes PyTorch's headers,
+which keeps the build to seconds.
+
+Every kernel wrapper is registered with `launch_counter`: it carries a
+plain integer `launches` that the wrapper increments where it launches its
+kernel (CUDA tensors only), so a run can show the main path went through
+the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Callable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+LIB_NAME = "libdeeplabv3p_kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lib = None
+build_info: dict = {}
+_counted: list[Callable] = []
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        if cand.exists():
+            nvcc = str(cand)
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels are "
+            "built from source at first use on a machine with the toolkit"
+        )
+    return nvcc
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels (if this source hash has no library yet) and
+    return the library's path. Records timing and ptxas output in
+    `build_info`."""
+    sources = _sources()
+    out_dir = BUILD_ROOT / _digest(sources)
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        build_info.update(path=str(lib_path), seconds=0.0, cached=True)
+        return lib_path
+    nvcc = _find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or none
+    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    build_info.update(
+        path=str(lib_path), seconds=seconds, cached=False,
+        command=" ".join(cmd), ptxas=proc.stdout + proc.stderr,
+    )
+    return lib_path
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library, declaring
+    every exported function's argument types."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.multirate_atrous_depthwise.argtypes = [
+            p, p, p, p, p,           # x, kernels, scale, bias, out
+            i, i, i, i, i, i,        # dtype, n, h, w, c, num_rates
+            i, i, i, i,              # rates[0..3]
+            i, p,                    # fuse_bn_relu, stream
+        ]
+        lib.multirate_atrous_depthwise.restype = i
+        lib.fused_decoder_frontend.argtypes = [
+            p, p, p, p, p, p,        # x_enc, skip, dw_kernel, scale, bias, out
+            i, i, i, i, i, i, i, i,  # dtype, n, he, we, ce, hs, ws, cs
+            f, f,                    # row / column source scale (in / out)
+            p,                       # stream
+        ]
+        lib.fused_decoder_frontend.restype = i
+        _lib = lib
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a launch function returned a nonzero cudaError_t."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed, cudaError_t={status}")
+
+
+def launch_counter(fn: Callable) -> Callable:
+    """Give a kernel wrapper its launch count (a plain int attribute)."""
+    fn.launches = 0
+    _counted.append(fn)
+    return fn
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in _counted}
+
+
+def reset_launch_counts() -> None:
+    for fn in _counted:
+        fn.launches = 0

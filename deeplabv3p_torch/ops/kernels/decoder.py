@@ -1,0 +1,110 @@
+"""Fused DeepLabV3+ decoder front-end.
+
+Counterpart of deeplabv3p_tpu/ops/pallas/decoder.py. The decoder starts
+with the most memory-hostile sequence of the network:
+
+    x_up = bilinear_resize(x_enc, skip size)    # writes 4-16x the data
+    cat  = concat([x_up, skip48], channels)      # re-read + re-write
+    dw0  = relu(BN(depthwise3x3(cat)))           # re-read again
+
+`fused_decoder_frontend` produces `dw0` directly from the encoder-resolution
+features and the projected skip (CUDA kernel `csrc/decoder.cu`);
+`fused_decoder_reference` is the plain chain above in PyTorch.
+
+Layout at this interface is the JAX one, NHWC. Unlike the TPU kernel there
+is no `Ce % 128` rule: the CUDA kernel takes any channel count.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from deeplabv3p_torch.ops.kernels._build import check, launch_counter, load_library
+from deeplabv3p_torch.ops.resize import resize_bilinear
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_decoder_reference(
+    x_enc: torch.Tensor,
+    skip48: torch.Tensor,
+    dw_kernel: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version: f32 bilinear resize -> concat -> depthwise SAME ->
+    scale/bias -> ReLU, cast to x_enc's dtype. NHWC in, NHWC out."""
+    hs, ws = skip48.shape[1], skip48.shape[2]
+    up = resize_bilinear(x_enc.permute(0, 3, 1, 2).float(), (hs, ws))
+    cat = torch.cat([up, skip48.permute(0, 3, 1, 2).float()], dim=1)
+    c = cat.shape[1]
+    w = dw_kernel.float().permute(2, 0, 1).unsqueeze(1)  # (C,1,3,3)
+    y = F.conv2d(cat, w, padding=1, groups=c)
+    y = y * scale.float().view(1, c, 1, 1) + bias.float().view(1, c, 1, 1)
+    return torch.relu(y).to(x_enc.dtype).permute(0, 2, 3, 1)
+
+
+def _check_args(x_enc, skip48, dw_kernel, scale, bias) -> None:
+    if x_enc.ndim != 4 or skip48.ndim != 4:
+        raise ValueError("x_enc and skip48 must be NHWC")
+    if x_enc.dtype not in _DTYPE_CODES or skip48.dtype != x_enc.dtype:
+        raise TypeError(
+            f"x_enc/skip48 must share float32 or bfloat16, got "
+            f"{x_enc.dtype}/{skip48.dtype}"
+        )
+    if skip48.shape[0] != x_enc.shape[0]:
+        raise ValueError("x_enc and skip48 batch sizes differ")
+    c = x_enc.shape[-1] + skip48.shape[-1]
+    if tuple(dw_kernel.shape) != (3, 3, c):
+        raise ValueError(f"dw_kernel must be {(3, 3, c)}, got {tuple(dw_kernel.shape)}")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if tuple(t.shape) != (c,):
+            raise ValueError(f"{name} must be {(c,)}, got {tuple(t.shape)}")
+
+
+@launch_counter
+def fused_decoder_frontend(
+    x_enc: torch.Tensor,
+    skip48: torch.Tensor,
+    dw_kernel: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+) -> torch.Tensor:
+    """relu(BN(depthwise3x3(concat([upsample(x_enc), skip48])))) without
+    materialising the upsample or the concat.
+
+    x_enc (N,he,we,Ce) and skip48 (N,hs,ws,Cs) in float32 or bfloat16 (the
+    same); dw_kernel (3,3,Ce+Cs), scale/bias (Ce+Cs,) float32. Returns
+    (N,hs,ws,Ce+Cs) in x_enc's dtype, accumulated in f32. CPU tensors run
+    the plain version; CUDA tensors launch csrc/decoder.cu.
+    """
+    _check_args(x_enc, skip48, dw_kernel, scale, bias)
+    if x_enc.device.type == "cpu":
+        return fused_decoder_reference(x_enc, skip48, dw_kernel, scale, bias)
+    if x_enc.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x_enc.device}")
+    if skip48.device != x_enc.device:
+        raise ValueError("skip48 must be on x_enc's device")
+    for t in (dw_kernel, scale, bias):
+        if t.device != x_enc.device or t.dtype != torch.float32:
+            raise ValueError("dw_kernel/scale/bias must be float32 on x_enc's device")
+    for t in (x_enc, skip48, dw_kernel, scale, bias):
+        if not t.is_contiguous():
+            raise ValueError("fused_decoder_frontend needs contiguous inputs")
+    n, he, we, ce = x_enc.shape
+    _, hs, ws, cs = skip48.shape
+    if max(x_enc.numel(), n * hs * ws * (ce + cs)) >= 2**31:
+        raise ValueError("fused_decoder_frontend: tensors of 2^31 elements or more")
+    out = torch.empty((n, hs, ws, ce + cs), dtype=x_enc.dtype, device=x_enc.device)
+    lib = load_library()
+    with torch.cuda.device(x_enc.device):
+        status = lib.fused_decoder_frontend(
+            x_enc.data_ptr(), skip48.data_ptr(), dw_kernel.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[x_enc.dtype], n, he, we, ce, hs, ws, cs,
+            he / hs, we / ws, torch.cuda.current_stream(x_enc.device).cuda_stream,
+        )
+    check(status, "fused_decoder_frontend")
+    fused_decoder_frontend.launches += 1
+    return out

@@ -1,0 +1,21 @@
+"""Prediction post-processing: argmax and mask resize
+(deeplabv3p_tpu/postprocess.py:39-47). The dense CRF is not ported yet
+(ROADMAP Queue A item 10)."""
+
+from __future__ import annotations
+
+import torch
+
+from deeplabv3p_torch.ops.resize import resize_nearest
+
+
+def mask_argmax(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Class axis `dim` -> int32 mask; the lowest index wins ties, as
+    jnp.argmax (reference deeplab.py:99)."""
+    return torch.argmax(logits, dim=dim).to(torch.int32)
+
+
+def mask_resize(mask: torch.Tensor, target_hw: tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of an (H, W) mask to target size, cv2 convention
+    (reference common/data_utils.py:457-477)."""
+    return resize_nearest(mask, target_hw, convention="cv2")

@@ -1,0 +1,125 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and nvcc, and skips without them. On a
+machine with the card run
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
+
+(`--noconftest` because tests/conftest.py sets up JAX, which neither this
+file nor the port imports). Shapes cover the main path's, ragged ones, 1 to
+4 rates, and both storage types. The plain side runs on the card too, with
+TF32 off, so only summation order and the final rounding differ:
+f32 max|kernel - plain| <= 1e-5 * max|plain| + 1e-5; bf16 (one rounding of
+the f32 accumulator, at most one bf16 ulp = 2^-7 relative)
+<= 2e-2 * max(1, max|plain|).
+"""
+
+import pytest
+import torch
+
+from deeplabv3p_torch.ops.kernels import (
+    fused_decoder_frontend,
+    fused_decoder_reference,
+    multirate_atrous_depthwise,
+    multirate_atrous_depthwise_reference,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card (see module docstring)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(gen, shape, scale=1.0, offset=0.0, uniform=False):
+    draw = torch.rand if uniform else torch.randn
+    return offset + scale * draw(shape, generator=gen)
+
+
+def _assert_close(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    if want.dtype == torch.float32:
+        tol = 1e-5 * ref + 1e-5
+    else:
+        tol = 2e-2 * max(1.0, ref)
+    assert err <= tol, f"max|kernel - plain| = {err:.3g} > {tol:.3g} (max|plain| {ref:.3g})"
+
+
+ASPP_CASES = [
+    ((1, 32, 32, 320), (6, 12, 18)),  # main path: 512 px, OS16
+    ((2, 37, 29, 136), (12, 24, 36)),
+    ((1, 9, 13, 33), (1, 2)),
+    ((3, 5, 4, 7), (3, 6, 9, 1)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fuse", [True, False], ids=["bn_relu", "bare"])
+@pytest.mark.parametrize("shape,rates", ASPP_CASES)
+def test_aspp_kernel_matches_plain(dev, shape, rates, fuse, dtype):
+    gen = torch.Generator().manual_seed(0)
+    r, c = len(rates), shape[-1]
+    x = _rand(gen, shape).to(dev, dtype)
+    k = (_rand(gen, (r, 3, 3, c)) / 3.0).to(dev)
+    scale = _rand(gen, (r, c), 1.0, 0.5, uniform=True).to(dev) if fuse else None
+    bias = (_rand(gen, (r, c)) * 0.1).to(dev) if fuse else None
+    before = multirate_atrous_depthwise.launches
+    got = multirate_atrous_depthwise(x, k, rates, scale, bias)
+    torch.cuda.synchronize()
+    assert multirate_atrous_depthwise.launches == before + 1
+    want = multirate_atrous_depthwise_reference(x, k, rates, scale, bias)
+    assert len(got) == r
+    for g, w in zip(got, want):
+        assert g.shape == x.shape and g.dtype == dtype
+        _assert_close(g, w)
+
+
+DECODER_CASES = [
+    ((1, 32, 32, 256), (1, 128, 128, 48)),  # main path: 512 px, OS16
+    ((2, 13, 11, 200), (2, 50, 41, 48)),    # ragged: non-integer scales
+    ((1, 8, 8, 64), (1, 8, 8, 48)),         # no upsample
+    ((1, 3, 5, 16), (1, 7, 11, 8)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("enc_shape,skip_shape", DECODER_CASES)
+def test_decoder_kernel_matches_plain(dev, enc_shape, skip_shape, dtype):
+    gen = torch.Generator().manual_seed(1)
+    c = enc_shape[-1] + skip_shape[-1]
+    x = _rand(gen, enc_shape).to(dev, dtype)
+    skip = _rand(gen, skip_shape).relu().to(dev, dtype)
+    k = (_rand(gen, (3, 3, c)) / 3.0).to(dev)
+    scale = _rand(gen, (c,), 1.0, 0.5, uniform=True).to(dev)
+    bias = (_rand(gen, (c,)) * 0.1).to(dev)
+    before = fused_decoder_frontend.launches
+    got = fused_decoder_frontend(x, skip, k, scale, bias)
+    torch.cuda.synchronize()
+    assert fused_decoder_frontend.launches == before + 1
+    want = fused_decoder_reference(x, skip, k, scale, bias)
+    assert got.shape == (*skip_shape[:3], c) and got.dtype == dtype
+    _assert_close(got, want)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(1, 8, 8, 16, device=dev)
+    k = torch.zeros(3, 3, 3, 16, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        multirate_atrous_depthwise(x.transpose(1, 2), k, (1, 2, 3))
+    with pytest.raises(ValueError, match="float32"):
+        multirate_atrous_depthwise(x, k.half(), (1, 2, 3))
+    with pytest.raises(ValueError, match="float32 on x's device"):
+        multirate_atrous_depthwise(x, k.cpu(), (1, 2, 3))
+    skip = torch.zeros(1, 16, 16, 8, device=dev)
+    dwk = torch.zeros(3, 3, 24, device=dev)
+    vec = torch.zeros(24, device=dev)
+    with pytest.raises(TypeError):
+        fused_decoder_frontend(x, skip.bfloat16(), dwk, vec, vec)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_decoder_frontend(x, skip.transpose(1, 2), dwk, vec, vec)
