@@ -5,6 +5,11 @@ resolution, NCHW (channels_last memory): backbone -> ASPP[/Lite] ->
 [Decoder] -> 1x1 `conv_upsample` -> bilinear upsample. The input is cast
 to the compute dtype first and the logits to f32 before the final resize,
 where the JAX model casts (factory.py:86-87, :179-183).
+
+Training: `set_train_mode` puts a model in training mode by freeze level,
+and `trainable_parameters` names what the optimizer trains at that level
+(JAX `freeze_level` in `DeeplabV3Plus.__call__` and `make_trainable_mask`,
+factory.py:63-90, :284-308).
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ class DeeplabV3Plus(nn.Module):
 
     `fused_aspp` / `fused_decoder` route the ASPP depthwise stage and the
     decoder front-end through the hand-written kernels (ops/kernels) —
-    inference only, same parameters as the standard path.
+    inference only, same parameters as the standard path: a module in
+    training mode takes the standard path, as JAX does.
     """
 
     def __init__(
@@ -97,8 +103,8 @@ def build_deeplab_model(
     dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> DeeplabV3Plus:
-    """Construct a DeepLabV3+ model in eval mode (inference is all this
-    port slice runs). Weights: utils/weights.py or `init_parameters`.
+    """Construct a DeepLabV3+ model in eval mode (`set_train_mode` puts it
+    in training mode). Weights: utils/weights.py or `init_parameters`.
     The subpixel head is not ported yet (ROADMAP Queue A item 7)."""
     if model_type not in DEEPLAB_MODEL_REGISTRY:
         raise NotImplementedError(
@@ -112,3 +118,45 @@ def build_deeplab_model(
         dtype=dtype, device=device,
     )
     return model.eval()
+
+
+def _check_freeze_level(freeze_level: int) -> None:
+    if freeze_level not in (0, 1, 2):
+        raise ValueError(f"invalid freeze_level {freeze_level}")
+
+
+def set_train_mode(model: DeeplabV3Plus, freeze_level: int = 0) -> DeeplabV3Plus:
+    """Training mode by freeze level (JAX factory.py:89-90:
+    `backbone_train = train and freeze_level < 1`,
+    `head_train = train and freeze_level < 2`).
+
+    A frozen part stays in eval mode: its BatchNorms run on the running
+    statistics and leave them alone (TF2 BN with trainable=False), and at
+    level 2 the head's dropout is off. `conv_upsample` has neither."""
+    _check_freeze_level(freeze_level)
+    model.train()
+    if freeze_level >= 1:
+        model.backbone.eval()
+    if freeze_level >= 2:
+        model.aspp.eval()
+        if not model.lite:
+            model.decoder.eval()
+    return model
+
+
+def trainable_parameters(
+    model: nn.Module, freeze_level: int
+) -> list[tuple[str, nn.Parameter]]:
+    """(name, parameter) pairs the optimizer trains at `freeze_level`, the
+    counterpart of JAX `make_trainable_mask` (factory.py:284-308): 0 trains
+    everything, 1 all but `backbone.*`, 2 only `conv_upsample.*`."""
+    _check_freeze_level(freeze_level)
+
+    def trainable(name: str) -> bool:
+        if freeze_level == 0:
+            return True
+        if freeze_level == 1:
+            return not name.startswith("backbone.")
+        return name.startswith("conv_upsample.")
+
+    return [(n, p) for n, p in model.named_parameters() if trainable(n)]

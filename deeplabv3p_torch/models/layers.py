@@ -8,8 +8,11 @@ scopes `dw` (DepthwiseConv) and `bn` (BatchNorm), so
 computes in its `dtype` (bf16 for serving), casting weights and input at
 use as flax's `dtype=` does. Tensors are NCHW, run in channels_last.
 
-Inference only in this port slice: `BatchNorm` uses its running
-statistics and refuses training mode, and dropout is left out.
+Training mode follows flax: `BatchNorm` normalises with the batch's biased
+statistics and moves its running buffers by its Keras momentum, and the
+ASPP heads' `Dropout(0.5)` draws its mask from a generator the trainer
+owns. `.eval()` (or a frozen part, see `factory.set_train_mode`) runs on
+the running statistics without dropout.
 """
 
 from __future__ import annotations
@@ -35,18 +38,29 @@ def channels_last(x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode batch norm with a per-site epsilon (flax scope `bn`).
+    """Batch norm with a per-site epsilon and momentum (flax scope `bn`,
+    JAX models/layers.py:40-62).
 
     `weight`/`bias`/`running_mean`/`running_var` are flax's
     `scale`/`bias`/`mean`/`var`. Like flax with `dtype=bf16`, it normalises
-    in f32 and returns the compute dtype. Keras defaults eps=1e-3; the
-    MobileNet bodies use 1e-3, the heads 1e-5.
+    in f32 and returns the compute dtype. Keras defaults eps=1e-3 and
+    momentum 0.99; the MobileNet bodies use 1e-3 and 0.999, the heads 1e-5.
+
+    Training mode computes flax's statistics
+    (`flax.linen.normalization._compute_stats`): per channel, in f32, the
+    mean and the fast biased variance E[x^2] - E[x]^2 clipped at 0, which
+    both normalise the batch and move the running buffers,
+    `r = m * r + (1 - m) * batch`, in place. (`F.batch_norm` would put the
+    unbiased variance into the buffer.) Gradients flow through the batch
+    statistics, as in JAX.
     """
 
     def __init__(self, num_features: int, epsilon: float = 1e-3,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 momentum: float = 0.99):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.dtype = _dtype(dtype)
         self.weight = nn.Parameter(torch.ones(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
@@ -60,15 +74,51 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm training mode is not ported yet (ROADMAP Queue A "
-                "item 5, train step); call .eval()"
-            )
+            return self._train_forward(x)
+        dt = torch.promote_types(x.dtype, torch.float32)
         y = F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight,
-            self.bias, False, 0.0, self.epsilon,
+            x.to(dt), self.running_mean.to(dt), self.running_var.to(dt),
+            self.weight.to(dt), self.bias.to(dt), False, 0.0, self.epsilon,
         )
         return y.to(self.dtype)
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        axes = (0, 2, 3)
+        mean = xf.mean(dim=axes)
+        var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout`: in training, keep each element with probability
+    1 - rate and scale it by 1 / (1 - rate); the identity in eval mode.
+
+    The mask comes from `generator` (a `torch.Generator` on the input's
+    device that the trainer owns and seeds), or from torch's default
+    generator when it is None. JAX's dropout bits cannot be reproduced, so
+    parity tests run with `rate = 0`.
+    """
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.empty_like(x, dtype=torch.float32).bernoulli_(
+            keep, generator=self.generator)
+        return (x * (mask / keep)).to(x.dtype)
 
 
 class Conv(nn.Module):
@@ -230,6 +280,7 @@ class ASPP(nn.Module):
             ))
         self.concat_projection = Conv(5 * 256, 256, 1, **kw)
         self.concat_projection_BN = BatchNorm(256, 1e-5, **kw)
+        self.dropout = Dropout(0.5)
 
     def _branches(self) -> list[SepConvBN]:
         return [self.aspp1, self.aspp2, self.aspp3]
@@ -254,14 +305,16 @@ class ASPP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b4 = self.image_pool_branch(x)
         b0 = torch.relu(self.aspp0_BN(self.aspp0(x)))
-        if self.fused_inference:
+        # the kernel carries no gradient: training takes the standard
+        # branches (JAX layers.py:340-345)
+        if self.fused_inference and not self.training:
             b1, b2, b3 = self._fused_branches(x)
         else:
             b1, b2, b3 = (br(x) for br in self._branches())
         # branch order of reference Concatenate([b4, b0, b1, b2, b3]) (:155)
         x = channels_last(torch.cat([b4, b0, b1, b2, b3], dim=1))
         x = self.concat_projection_BN(self.concat_projection(x))
-        return torch.relu(x)
+        return self.dropout(torch.relu(x))
 
 
 class ASPPLite(nn.Module):
@@ -276,12 +329,14 @@ class ASPPLite(nn.Module):
         self.aspp0_BN = BatchNorm(256, 1e-5, **kw)
         self.concat_projection = Conv(2 * 256, 256, 1, **kw)
         self.concat_projection_BN = BatchNorm(256, 1e-5, **kw)
+        self.dropout = Dropout(0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b4 = self.image_pool_branch(x)
         b0 = torch.relu(self.aspp0_BN(self.aspp0(x)))
         x = channels_last(torch.cat([b4, b0], dim=1))
-        return torch.relu(self.concat_projection_BN(self.concat_projection(x)))
+        x = self.concat_projection_BN(self.concat_projection(x))
+        return self.dropout(torch.relu(x))
 
 
 class Decoder(nn.Module):
@@ -327,7 +382,7 @@ class Decoder(nn.Module):
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         skip_hw = (skip.shape[2], skip.shape[3])
         skip = torch.relu(self.feature_projection0_BN(self.feature_projection0(skip)))
-        if self.fused_inference:
+        if self.fused_inference and not self.training:  # JAX layers.py:469-476
             x = self._fused_frontend(x, skip)
         else:
             x = resize_bilinear(x.float(), skip_hw).to(x.dtype)
@@ -336,12 +391,15 @@ class Decoder(nn.Module):
 
 
 @torch.no_grad()
-def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+def init_parameters(module: nn.Module, generator: torch.Generator,
+                    bn_identity: bool = False) -> None:
     """Seeded init: conv kernels ~ N(0, 1/fan_in) (flax's lecun_normal
     scale), conv biases 0. BN scale and variance ~ U(0.5, 1.5), bias and
     mean ~ N(0, 0.1): unlike flax's identity BN init, every folded-BN path
-    sees non-trivial statistics. Drawn on the CPU from `generator`, so the
-    same seed gives the same weights on every device."""
+    sees non-trivial statistics. `bn_identity` gives flax's BN init instead
+    (scale and variance 1, bias and mean 0), as a model trained from
+    scratch starts. Drawn on the CPU from `generator`, so the same seed
+    gives the same weights on every device."""
 
     def draw(shape, kind):
         if kind == "normal":
@@ -354,6 +412,11 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.copy_(draw(m.weight.shape, "normal") / math.sqrt(fan_in))
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, BatchNorm) and bn_identity:
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
         elif isinstance(m, BatchNorm):
             c = m.weight.shape
             m.weight.copy_(0.5 + draw(c, "uniform"))

@@ -6,11 +6,13 @@ requested output stride is reached, plus the skip feature at OS4. Block
 and channel schedule, the OS -> (stride, rate) table and the Keras layer
 names (`Conv`, `expanded_conv_{i}_expand`, ...) are those of the JAX body,
 so its variables map 1:1. Strided convs (the stem; blocks 1, 3, 6, and 13
-at OS32) pad TF-'SAME', (0, 1) on even inputs.
+at OS32) pad TF-'SAME', (0, 1) on even inputs. Every BN of the body has
+epsilon 1e-3 and momentum 0.999 (JAX mobilenetv2.py:76,86,93,128).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -18,6 +20,8 @@ import torch.nn as nn
 
 from deeplabv3p_torch.models.layers import BatchNorm, Conv, DepthwiseConv
 from deeplabv3p_torch.ops.activations import relu6
+
+BodyBN = partial(BatchNorm, epsilon=1e-3, momentum=0.999)
 
 
 def make_divisible(v: float, divisor: int, min_value: Optional[int] = None) -> int:
@@ -61,13 +65,13 @@ class InvertedResBlock(nn.Module):
         if self.has_expand:
             ch = expansion * in_channels
             self.add_module(self.prefix + "expand", Conv(in_channels, ch, 1, **kw))
-            self.add_module(self.prefix + "expand_BN", BatchNorm(ch, 1e-3, **kw))
+            self.add_module(self.prefix + "expand_BN", BodyBN(ch, **kw))
         self.add_module(self.prefix + "depthwise", DepthwiseConv(
             ch, 3, strides=stride, rate=rate, **kw
         ))
-        self.add_module(self.prefix + "depthwise_BN", BatchNorm(ch, 1e-3, **kw))
+        self.add_module(self.prefix + "depthwise_BN", BodyBN(ch, **kw))
         self.add_module(self.prefix + "project", Conv(ch, self.out_channels, 1, **kw))
-        self.add_module(self.prefix + "project_BN", BatchNorm(self.out_channels, 1e-3, **kw))
+        self.add_module(self.prefix + "project_BN", BodyBN(self.out_channels, **kw))
 
     def _sub(self, name: str) -> nn.Module:
         return getattr(self, self.prefix + name)
@@ -117,7 +121,7 @@ class MobileNetV2Body(nn.Module):
         kw = dict(dtype=dtype, device=device)
         first = make_divisible(32 * alpha, 8)
         self.Conv = Conv(3, first, 3, strides=2, **kw)
-        self.Conv_BN = BatchNorm(first, 1e-3, **kw)
+        self.Conv_BN = BodyBN(first, **kw)
         ch = first
         for filters, stride, expansion, block_id, skip, rate in _BLOCKS:
             block = InvertedResBlock(

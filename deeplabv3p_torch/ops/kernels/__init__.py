@@ -5,6 +5,11 @@ PyTorch version.
 |-------------------------------|-------------------|------------------------------------------------------|
 | `multirate_atrous_depthwise`  | `csrc/aspp.cu`    | `deeplabv3p_tpu/ops/pallas/aspp.py` `multirate_atrous_depthwise` |
 | `fused_decoder_frontend`      | `csrc/decoder.cu` | `deeplabv3p_tpu/ops/pallas/decoder.py` `fused_decoder_frontend` |
+| `upsample_ce_forward`         | `csrc/upsample_ce.cu` | `deeplabv3p_tpu/ops/pallas/upsample_ce.py` `_fwd_kernel` |
+| `upsample_ce_backward`        | `csrc/upsample_ce.cu` | `deeplabv3p_tpu/ops/pallas/upsample_ce.py` `_bwd_kernel` |
+
+`fused_upsample_ce` (in `upsample_ce.py`) is the differentiable loss tail
+that launches the last two.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Nothing here touches CUDA or nvcc at import.
@@ -21,4 +26,11 @@ from deeplabv3p_torch.ops.kernels.aspp import (  # noqa: F401
 from deeplabv3p_torch.ops.kernels.decoder import (  # noqa: F401
     fused_decoder_frontend,
     fused_decoder_reference,
+)
+from deeplabv3p_torch.ops.kernels.upsample_ce import (  # noqa: F401
+    fused_upsample_ce,
+    upsample_ce_backward,
+    upsample_ce_backward_reference,
+    upsample_ce_forward,
+    upsample_ce_reference,
 )

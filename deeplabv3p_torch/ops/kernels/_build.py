@@ -118,6 +118,19 @@ def load_library() -> ctypes.CDLL:
             p,                       # stream
         ]
         lib.fused_decoder_frontend.restype = i
+        lib.upsample_ce_forward.argtypes = [
+            p, p, p,                 # logits, labels, wpx
+            p, p, p, p,              # preds, lse, partial sums, loss
+            i, i, i, i, i, i,        # b, h, w, c, H, W
+            p,                       # stream
+        ]
+        lib.upsample_ce_forward.restype = i
+        lib.upsample_ce_backward.argtypes = [
+            p, p, p, p, p,           # logits, labels, wpx, lse, d_logits
+            i, i, i, i, i, i,        # b, h, w, c, H, W
+            p,                       # stream
+        ]
+        lib.upsample_ce_backward.restype = i
         _lib = lib
     return _lib
 

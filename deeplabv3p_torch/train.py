@@ -1,0 +1,609 @@
+"""Training engine and CLI (deeplabv3p_tpu/train.py and the root train.py).
+
+    python -m deeplabv3p_torch.train --model_type mobilenetv2 \
+        --dataset_path VOC2012/ --dataset_file VOC2012/train.txt \
+        --classes_path configs/voc_classes.txt --fused_loss --no_augment
+
+* `make_train_step`: forward (bf16 activations, f32 parameters, BN
+  statistics and loss), loss, backward, optimizer and weight averaging.
+  With `fused_loss` the model stops at its low-resolution logits and the
+  loss tail is `fused_upsample_ce` (the CUDA kernels of
+  `ops/kernels/csrc/upsample_ce.cu`), whose preds feed the train jaccard.
+* `make_eval_step`: uint8 batch -> normalise -> forward -> argmax ->
+  bincount confusion matrix, on the device.
+* `Trainer.fit`: the reference's two stages, a frozen-backbone transfer
+  stage with a constant LR and fine-tuning with a decayed LR and optional
+  weight averaging (reference train.py:172-244), with ReduceLROnPlateau
+  through `lr_scale`, early stop, NaN stop, val / online eval, checkpoint
+  retention and `history.jsonl`.
+
+PyTorch runs eagerly, so model, optimizer and averages are updated in
+place; `TrainState` carries the rest. Frozen parameters stay out of the
+optimizer and need no gradient (JAX zeroes their updates: the same
+parameters result). The trainer runs where it is told: `--device cuda`
+without a card is an error, not a CPU run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import os
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from deeplabv3p_torch import losses as losses_lib
+from deeplabv3p_torch import metrics as metrics_lib
+from deeplabv3p_torch import optimizers as opt_lib
+from deeplabv3p_torch.data.augment import preprocess_eval_batch
+from deeplabv3p_torch.data.pipeline import device_feed
+from deeplabv3p_torch.models.factory import set_train_mode, trainable_parameters
+from deeplabv3p_torch.models.layers import Dropout
+from deeplabv3p_torch.utils.weights import to_jax_variables
+
+
+@dataclasses.dataclass(frozen=True)
+class StageConfig:
+    """One training stage (JAX train.py:55-74)."""
+
+    freeze_level: int = 0
+    optim_type: str = "sgd"
+    learning_rate: float = 1e-2
+    decay_type: Optional[str] = None
+    decay_steps: int = 100000
+    average_type: Optional[str] = None
+    epochs: int = 1
+    # accumulate gradients over k micro-batches before each optimizer
+    # update (the mean of the gradients, as optax.MultiSteps); the schedule
+    # counts APPLIED updates
+    grad_accum: int = 1
+    # storage dtype of the optimizer state: f32 only so far
+    state_dtype: Optional[str] = None
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a step reads and advances besides the model's own tensors."""
+
+    optimizer: torch.optim.Optimizer
+    schedule: opt_lib.Schedule
+    avg: opt_lib.AverageState
+    params: dict  # name -> parameter, all of the model's
+    grad_accum: int = 1
+    step: int = 0  # micro-steps taken
+    updates: int = 0  # optimizer updates applied: the schedule's count
+
+
+def make_train_step(
+    model,
+    loss_fn: Callable,
+    *,
+    num_classes: int,
+    freeze_level: int = 0,
+    use_sample_weights: bool = False,
+    l2_factor: float = 2e-5,  # reference layers.py:12
+    average_type: Optional[str] = None,
+    fused_loss: bool = False,
+    fused_class_weights=None,
+):
+    """The train step, `(state, images, labels, weights, lr_scale) ->
+    metrics` (JAX train.py:77-209). images (B, H, W, 3) f32 in [-1, 1],
+    labels (B, H, W) int32, weights (B, H, W) f32 or None, all on the
+    model's device. `lr_scale` multiplies the scheduled LR
+    (ReduceLROnPlateau). Returns {'loss', 'jaccard'} as device scalars.
+    `step_fn.forward_loss(images, labels, weights)` is its forward and loss
+    without the backward and the update.
+
+    `fused_loss` replaces the model's final upsample, `loss_fn` and the
+    metric's argmax by `fused_upsample_ce`: (class-weighted) CE with the
+    ignore index, which the caller must only enable for those losses.
+    """
+    from deeplabv3p_torch.ops.kernels.upsample_ce import fused_upsample_ce
+
+    def forward_loss(images, labels, weights):
+        """(loss, metric input): the train-mode forward and the loss,
+        L2 included (JAX `loss_of`); the metric input is the fused
+        kernel's preds or the full-resolution NHWC logits."""
+        set_train_mode(model, freeze_level)
+        x = images.permute(0, 3, 1, 2)  # NHWC -> channels_last NCHW, free
+        sw = weights if use_sample_weights else None
+        if fused_loss:
+            logits_lr = model(x, skip_final_resize=True)
+            loss_sum, metric_aux = fused_upsample_ce(
+                logits_lr.permute(0, 2, 3, 1), labels, labels.shape[1:3],
+                sample_weights=sw, class_weights=fused_class_weights,
+            )
+            loss = loss_sum / labels.numel()  # reduce_loss's Keras mean
+        else:
+            metric_aux = model(x).permute(0, 2, 3, 1)
+            loss = losses_lib.reduce_loss(loss_fn(labels, metric_aux), sw)
+        if l2_factor:
+            loss = loss + losses_lib.l2_penalty(model, l2_factor)
+        return loss, metric_aux
+
+    def step_fn(state: TrainState, images, labels, weights, lr_scale: float = 1.0):
+        loss, metric_aux = forward_loss(images, labels, weights)
+        (loss / state.grad_accum if state.grad_accum > 1 else loss).backward()
+        state.step += 1
+        if state.step % state.grad_accum == 0:
+            opt_lib.set_learning_rate(
+                state.optimizer, state.schedule(state.updates) * lr_scale)
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
+            state.updates += 1
+        state.avg = opt_lib.apply_average(average_type, state.avg, state.params, state.step)
+
+        with torch.no_grad():
+            jac = (metrics_lib.jaccard_from_preds(labels, metric_aux, num_classes)
+                   if fused_loss else metrics_lib.jaccard(labels, metric_aux))
+        return {"loss": loss.detach(), "jaccard": jac}
+
+    step_fn.forward_loss = forward_loss
+    return step_fn
+
+
+def make_eval_step(model, num_classes: int):
+    """`(images_u8, labels_u8) -> (C, C)` int64 confusion delta on the
+    device (JAX train.py:221-247): normalise, forward, argmax, bincount.
+    The model must be in eval mode."""
+
+    @torch.no_grad()
+    def step_fn(images_u8, labels_u8):
+        images, labels = preprocess_eval_batch(images_u8, labels_u8, num_classes=num_classes)
+        logits = model(images.permute(0, 3, 1, 2))
+        return metrics_lib.confusion_matrix(labels, torch.argmax(logits, dim=1), num_classes)
+
+    return step_fn
+
+
+@contextlib.contextmanager
+def swapped_parameters(params: dict, values: dict):
+    """Temporarily copy `values` into the parameters `params` (name ->
+    tensor), e.g. averaged weights for an evaluation."""
+    if values is params:
+        yield
+        return
+    with torch.no_grad():
+        saved = {k: p.detach().clone() for k, p in params.items()}
+        for k, p in params.items():
+            p.copy_(values[k])
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(saved[k])
+
+
+class Trainer:
+    """Two-stage transfer trainer (JAX train.py:332-721) on one device.
+
+    Stage 1 trains with the backbone frozen and an undecayed optimizer,
+    stage 2 unfreezes and rebuilds the optimizer with LR decay and optional
+    averaging. The dropout masks come from a generator on `device` seeded
+    with `seed`, which the trainer owns.
+    """
+
+    def __init__(
+        self,
+        model,
+        num_classes: int,
+        loss_fn,
+        *,
+        device,
+        use_sample_weights: bool = False,
+        l2_factor: float = 2e-5,
+        log_dir: str = "logs/000",
+        seed: int = 0,
+        fused_loss: bool = False,
+        fused_class_weights=None,
+    ):
+        self.model = model
+        self.num_classes = num_classes
+        self.loss_fn = loss_fn
+        self.device = torch.device(device)
+        self.use_sample_weights = use_sample_weights
+        self.l2_factor = l2_factor
+        self.log_dir = log_dir
+        self.fused_loss = fused_loss
+        self.fused_class_weights = (
+            None if fused_class_weights is None else
+            torch.as_tensor(np.asarray(fused_class_weights), dtype=torch.float32,
+                            device=self.device))
+        self.history: list[dict] = []
+        self._best_eval_miou = -np.inf
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(seed)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.generator = self.dropout_generator
+        self._eval_step = make_eval_step(model, num_classes)
+        os.makedirs(log_dir, exist_ok=True)
+
+    def build_stage_state(self, stage: StageConfig) -> TrainState:
+        """Freeze, optimizer, schedule and averages of a stage (the
+        reference's recompile with a new optimizer, train.py:192-231)."""
+        trainable = dict(trainable_parameters(self.model, stage.freeze_level))
+        params = dict(self.model.named_parameters())
+        for name, p in params.items():
+            p.requires_grad_(name in trainable)
+            p.grad = None
+        return TrainState(
+            optimizer=opt_lib.build_optimizer(
+                stage.optim_type, trainable.values(), stage.state_dtype),
+            schedule=opt_lib.get_lr_schedule(
+                stage.learning_rate, stage.decay_type, stage.decay_steps),
+            avg=opt_lib.init_average(stage.average_type, params),
+            params=params,
+            grad_accum=stage.grad_accum,
+        )
+
+    def make_train_step(self, stage: StageConfig):
+        return make_train_step(
+            self.model, self.loss_fn, num_classes=self.num_classes,
+            freeze_level=stage.freeze_level,
+            use_sample_weights=self.use_sample_weights, l2_factor=self.l2_factor,
+            average_type=stage.average_type, fused_loss=self.fused_loss,
+            fused_class_weights=self.fused_class_weights,
+        )
+
+    def fit(
+        self,
+        train_data,
+        stages: list[StageConfig],
+        *,
+        augment_fn=None,
+        val_data=None,
+        eval_data=None,
+        eval_every: int = 0,
+        ckpt_manager=None,
+        reduce_lr_patience: int = 5,
+        reduce_lr_factor: float = 0.5,
+        early_stop_patience: int = 100,
+    ) -> Optional[TrainState]:
+        """Run the staged schedule (JAX train.py:507-680). `train_data`
+        yields host batches (images u8, labels u8, orig_hw);
+        `augment_fn(images_u8, labels_u8, orig_hw)` on device tensors
+        returns (images, labels, weights). Records stream to
+        <log_dir>/history.jsonl."""
+        state = None
+        epoch_base = 0
+        for stage in stages:
+            state = self.build_stage_state(stage)
+            train_step = self.make_train_step(stage)
+            lr_scale = 1.0
+            best_metric, plateau_wait, early_wait = -np.inf, 0, 0
+            for epoch in range(stage.epochs):
+                t0 = time.time()
+                step_metrics: list[dict] = []
+                feed = device_feed(train_data.epoch_batches(), self.device)
+                try:
+                    for batch in feed:
+                        if augment_fn is not None:
+                            images, labels, weights = augment_fn(*batch)
+                        else:
+                            images, labels = preprocess_eval_batch(
+                                batch[0], batch[1], num_classes=self.num_classes)
+                            weights = torch.ones(labels.shape, device=labels.device)
+                        # metrics stay on the device: no sync a step
+                        step_metrics.append(train_step(state, images, labels, weights, lr_scale))
+                finally:
+                    feed.close()
+
+                if step_metrics:  # one host fetch an epoch
+                    means = {k: torch.stack([m[k] for m in step_metrics]).mean()
+                             for k in step_metrics[0]}
+                    epoch_loss = float(means["loss"])
+                    epoch_jac = float(means["jaccard"])
+                else:
+                    epoch_loss = epoch_jac = 0.0
+                global_epoch = epoch_base + epoch
+                record = {"epoch": global_epoch, "loss": epoch_loss, "jaccard": epoch_jac,
+                          "lr_scale": lr_scale, "sec": time.time() - t0,
+                          "steps": len(step_metrics)}
+
+                if not np.isfinite(epoch_loss):  # TerminateOnNaN (train.py:64)
+                    record["terminated"] = "nan"
+                    self.history.append(record)
+                    return state
+
+                monitored = epoch_jac
+                if val_data is not None:
+                    val = self.evaluate(state, val_data, stage.average_type)
+                    record["val_miou"] = val.miou
+                    monitored = val.miou
+
+                if eval_data is not None and eval_every and (global_epoch + 1) % eval_every == 0:
+                    ev = self.evaluate(state, eval_data, stage.average_type)
+                    record["eval_miou"] = ev.miou
+                    if ev.miou > self._best_eval_miou:
+                        self._best_eval_miou = ev.miou
+                        if ckpt_manager is not None:
+                            ckpt_manager.save_eval_best(
+                                self.eval_variables(state, stage), global_epoch, ev.miou)
+
+                if monitored > best_metric:
+                    best_metric = monitored
+                    plateau_wait = early_wait = 0
+                    if ckpt_manager is not None:
+                        ckpt_manager.save_epoch(
+                            self.eval_variables(state, stage), global_epoch, record)
+                else:
+                    plateau_wait += 1
+                    early_wait += 1
+                    if plateau_wait >= reduce_lr_patience:  # ReduceLROnPlateau (train.py:60)
+                        lr_scale *= reduce_lr_factor
+                        plateau_wait = 0
+                    if early_wait >= early_stop_patience:
+                        record["terminated"] = "early_stop"
+                        self.history.append(record)
+                        return state
+
+                self.history.append(record)
+                self._log_record(record)
+            epoch_base += stage.epochs
+        return state
+
+    def eval_variables(self, state: TrainState, stage: StageConfig) -> dict:
+        """JAX-layout variables to checkpoint, with the averaged weights when
+        averaging is active (tfa AverageModelCheckpoint, reference
+        train.py:198-211)."""
+        params = opt_lib.average_params(stage.average_type, state.avg, state.params)
+        with swapped_parameters(state.params, params):
+            return to_jax_variables(self.model)
+
+    def _log_record(self, record: dict) -> None:
+        try:
+            with open(os.path.join(self.log_dir, "history.jsonl"), "a") as f:
+                f.write(json.dumps(record) + "\n")
+        except OSError:
+            pass
+
+    def evaluate(self, state: TrainState, val_data, average_type: Optional[str] = None):
+        """Streaming confusion-matrix evaluation with the (averaged) weights
+        in eval mode; only the final (C, C) matrix reaches the host."""
+        params = opt_lib.average_params(average_type, state.avg, state.params)
+        was_training = self.model.training
+        cm = torch.zeros((self.num_classes, self.num_classes), dtype=torch.int64,
+                         device=self.device)
+        self.model.eval()
+        try:
+            with swapped_parameters(state.params, params):
+                for host_batch in val_data.epoch_batches():
+                    images = torch.from_numpy(host_batch[0]).to(self.device)
+                    labels = torch.from_numpy(host_batch[1]).to(self.device)
+                    cm += self._eval_step(images, labels)
+        finally:
+            self.model.train(was_training)
+        return metrics_lib.segment_metrics_from_confusion(cm.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# CLI (root train.py)
+# ---------------------------------------------------------------------------
+
+
+def parse_input_shape(spec):
+    """'512' -> (512, 512); '1024x512' -> (1024, 512)."""
+    parts = str(spec).lower().split("x")
+    if len(parts) == 1:
+        v = int(parts[0])
+        return (v, v)
+    return (int(parts[0]), int(parts[1]))
+
+
+def _refuse_unported(args) -> None:
+    """Flags of the root train.py the port does not run yet: each raises,
+    naming its ROADMAP item; none is ignored."""
+    unported = [
+        (args.augment, "the stochastic augmentation (the default --augment; pass "
+                       "--no_augment)", "Queue A item 8"),
+        (args.device_cache, "--device_cache", "Queue A item 8"),
+        (args.spatial_partition > 1, "--spatial_partition > 1", "Queue A item 11"),
+        (args.num_devices > 1, "--num_devices > 1", "Queue A item 11"),
+        (args.remat != "off", "--remat", "Queue A item 14"),
+        (args.bn_recalibrate, "--bn_recalibrate", "Queue A item 5"),
+        (args.optim_state_dtype not in (None, "float32"), "--optim_state_dtype bfloat16",
+         "Queue A item 5"),
+        (bool(args.weights_path) and not args.weights_path.endswith(".npz"),
+         "--weights_path other than a port .npz (.h5 / .ckpt)", "Queue A items 1 and 5"),
+    ]
+    for hit, what, item in unported:
+        if hit:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def main(args):
+    from deeplabv3p_torch.data.augment import AugmentConfig, augment_batch
+    from deeplabv3p_torch.data.pipeline import SegmentationDataset
+    from deeplabv3p_torch.data.shards import ShardedDataset, is_packed_dataset
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.utils.checkpoint import CheckpointManager
+    from deeplabv3p_torch.utils.config import (
+        calculate_weights_labels,
+        get_classes,
+        get_data_list,
+        load_class_weights,
+    )
+    from deeplabv3p_torch.utils.weights import from_jax_variables, load_npz
+
+    _refuse_unported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but torch.cuda.is_available() is False; "
+                           "pass --device cpu to train on the CPU")
+    class_names = get_classes(args.classes_path)
+    num_classes = len(class_names)
+    assert num_classes < 254, "PNG label only supports < 254 classes"
+    input_shape = parse_input_shape(args.model_input_shape)
+
+    if is_packed_dataset(args.dataset_path):
+        train_ds = ShardedDataset(args.dataset_path, batch_size=args.batch_size)
+        if tuple(train_ds.input_shape) != tuple(input_shape):
+            raise SystemExit(f"packed dataset resolution {train_ds.input_shape} != "
+                             f"--model_input_shape {input_shape}; re-pack or adjust")
+        train_list = train_ds.ids
+    else:
+        train_list = get_data_list(args.dataset_file)
+        train_ds = SegmentationDataset(
+            args.dataset_path, train_list, batch_size=args.batch_size,
+            num_classes=num_classes, input_shape=input_shape, augment=args.augment)
+
+    val_ds = None
+    if args.val_dataset_file and is_packed_dataset(args.val_dataset_file):
+        val_ds = ShardedDataset(args.val_dataset_file, batch_size=args.batch_size,
+                                shuffle=False, drop_remainder=False)
+    elif args.val_dataset_file:
+        val_list = get_data_list(args.val_dataset_file)
+        if val_list:
+            val_ds = SegmentationDataset(
+                args.dataset_path, val_list, batch_size=args.batch_size,
+                num_classes=num_classes, input_shape=input_shape, augment=False,
+                shuffle=False, drop_remainder=False)
+
+    class_weights = None
+    if args.weighted_type == "balanced":
+        wpath = os.path.join(args.dataset_path, "classes_weights.txt")
+        if os.path.exists(wpath):
+            class_weights = load_class_weights(wpath)
+        else:
+            print("computing balanced class weights over the dataset ...")
+            if is_packed_dataset(args.dataset_path):
+                stat_ds = ShardedDataset(args.dataset_path, batch_size=args.batch_size,
+                                         shuffle=False)
+            else:
+                stat_ds = SegmentationDataset(
+                    args.dataset_path, train_list, batch_size=args.batch_size,
+                    num_classes=num_classes, input_shape=input_shape, augment=False,
+                    shuffle=False)
+            class_weights = calculate_weights_labels(stat_ds, num_classes, save_path=wpath)
+    loss_fn = losses_lib.get_loss_fn(
+        args.loss, weighted_type=args.weighted_type,
+        class_weights=(None if class_weights is None else
+                       torch.as_tensor(class_weights, dtype=torch.float32, device=device)))
+
+    if args.fused_loss and args.loss != "crossentropy":
+        raise SystemExit("--fused_loss supports --loss crossentropy only")
+    model = build_deeplab_model(
+        args.model_type, num_classes, output_stride=args.output_stride,
+        dtype=torch.bfloat16 if args.mixed_precision else None, device=device)
+    if args.weights_path:
+        model.load_state_dict(
+            from_jax_variables(load_npz(args.weights_path), model), strict=True)
+    else:
+        init_parameters(model, torch.Generator().manual_seed(args.seed), bn_identity=True)
+
+    trainer = Trainer(
+        model, num_classes, loss_fn, device=device,
+        use_sample_weights=(args.weighted_type == "adaptive"),
+        l2_factor=2e-5, log_dir=args.log_dir, seed=args.seed,
+        fused_loss=args.fused_loss,
+        fused_class_weights=class_weights if args.weighted_type == "balanced" else None,
+    )
+
+    total_steps = max(1, len(train_ds)) * max(args.total_epoch - args.transfer_epoch, 1)
+    stages = []
+    if args.transfer_epoch > args.init_epoch:
+        stages.append(StageConfig(
+            freeze_level=args.freeze_level, optim_type=args.optimizer,
+            learning_rate=args.learning_rate, decay_type=None,
+            epochs=args.transfer_epoch - args.init_epoch, grad_accum=args.grad_accum,
+            state_dtype=args.optim_state_dtype))
+    stages.append(StageConfig(
+        freeze_level=0, optim_type=args.optimizer, learning_rate=args.learning_rate,
+        decay_type=args.decay_type, decay_steps=max(total_steps // args.grad_accum, 1),
+        average_type=args.weights_average_type,
+        epochs=args.total_epoch - max(args.transfer_epoch, args.init_epoch),
+        grad_accum=args.grad_accum, state_dtype=args.optim_state_dtype))
+
+    ckpt = CheckpointManager(args.log_dir)
+    aug_cfg = AugmentConfig.identity()  # --augment raised above
+    aug_generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+
+    def augment_fn(images, labels, orig_hw):
+        return augment_batch(aug_generator, images, labels, orig_hw, aug_cfg,
+                             num_classes=num_classes)
+
+    trainer.fit(
+        train_ds, stages, augment_fn=augment_fn, val_data=val_ds,
+        eval_data=val_ds if args.eval_online else None,
+        eval_every=args.eval_epoch_interval if args.eval_online else 0,
+        ckpt_manager=ckpt)
+    path = ckpt.save_final(to_jax_variables(model))  # the live weights, as JAX
+    print(f"saved final model to {path}")
+    for rec in trainer.history:
+        print(rec)
+    return trainer
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    # model (reference train.py:253-266)
+    p.add_argument("--model_type", default="mobilenetv3large_lite",
+                   help="ported: mobilenetv2, mobilenetv2_lite")
+    p.add_argument("--model_input_shape", default="512x512",
+                   help="HxW (e.g. 512x512 or 1024x512) or a single int")
+    p.add_argument("--output_stride", type=int, default=16, choices=[8, 16, 32])
+    p.add_argument("--weights_path", default=None,
+                   help="a port .npz of the JAX variables tree (.h5/.ckpt not ported)")
+    # data
+    p.add_argument("--dataset_path", default="VOC2012/")
+    p.add_argument("--dataset_file", default="VOC2012/train.txt")
+    p.add_argument("--val_dataset_file", default=None)
+    p.add_argument("--classes_path", default="configs/voc_classes.txt")
+    # training (reference train.py:268-315)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--optimizer", default="sgd", choices=["adam", "rmsprop", "sgd"])
+    p.add_argument("--optim_state_dtype", default=None, choices=["float32", "bfloat16"],
+                   help="float32 only: bfloat16 state is not ported")
+    p.add_argument("--learning_rate", type=float, default=1e-2)
+    p.add_argument("--decay_type", default="cosine",
+                   choices=["none", "cosine", "exponential", "polynomial",
+                            "piecewise_constant"])
+    p.add_argument("--weights_average_type", default=None,
+                   choices=[None, "ema", "swa", "lookahead"])
+    p.add_argument("--loss", default="crossentropy", choices=["crossentropy", "focal"])
+    p.add_argument("--weighted_type", default=None, choices=[None, "adaptive", "balanced"])
+    p.add_argument("--init_epoch", type=int, default=0)
+    p.add_argument("--transfer_epoch", type=int, default=10)
+    p.add_argument("--total_epoch", type=int, default=150)
+    p.add_argument("--freeze_level", type=int, default=1, choices=[0, 1, 2])
+    p.add_argument("--eval_online", action="store_true",
+                   help="periodic full-mIOU eval (reference --eval_online)")
+    p.add_argument("--eval_epoch_interval", type=int, default=10)
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="one device only: more is not ported")
+    p.add_argument("--spatial_partition", type=int, default=1,
+                   help="1 only: spatial partitioning is not ported")
+    p.add_argument("--bn_recalibrate", action="store_true", help="not ported")
+    p.add_argument("--device_cache", action="store_true", help="not ported")
+    p.add_argument("--augment", dest="augment", action="store_true", default=True,
+                   help="the default; the stochastic ops are not ported, so it "
+                        "raises: pass --no_augment")
+    p.add_argument("--no_augment", dest="augment", action="store_false",
+                   help="normalise and compute the adaptive weights only")
+    p.add_argument("--mixed_precision", action="store_true", default=True,
+                   help="bf16 activations, f32 parameters (always on, as in train.py)")
+    p.add_argument("--fused_loss", action="store_true",
+                   help="fuse upsample + CE + metric argmax into the CUDA kernels of "
+                        "ops/kernels/csrc/upsample_ce.cu (CE loss)")
+    p.add_argument("--remat", nargs="?", const="full", default="off",
+                   choices=["off", "full", "block"], help="off only: not ported")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="accumulate gradients over k micro-batches before each update")
+    p.add_argument("--log_dir", default="logs/000")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda (the default) needs a card; cpu runs the plain versions")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seeds the initial weights (without --weights_path) and dropout")
+    return p.parse_args(argv)
+
+
+if __name__ == "__main__":
+    main(parse_args())

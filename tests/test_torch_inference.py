@@ -31,7 +31,7 @@ from deeplabv3p_torch import inference as tinf
 from deeplabv3p_torch.utils import config as tconfig
 from deeplabv3p_torch.utils import visualize as tvis
 from deeplabv3p_torch.utils.weights import save_npz
-from test_torch_model import jax_variables
+from test_torch_model import jax_variables, one_torch_thread  # noqa: F401 (a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOC = os.path.join(REPO, "configs", "voc_classes.txt")

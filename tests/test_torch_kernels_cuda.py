@@ -12,6 +12,12 @@ TF32 off, so only summation order and the final rounding differ:
 f32 max|kernel - plain| <= 1e-5 * max|plain| + 1e-5; bf16 (one rounding of
 the f32 accumulator, at most one bf16 ulp = 2^-7 relative)
 <= 2e-2 * max(1, max|plain|).
+
+The loss-tail kernels (csrc/upsample_ce.cu) are held to: the loss sum
+within 1e-5 relative (f32 sums in another order over up to 4 M pixels),
+preds equal wherever the plain logits' top-2 gap exceeds 1e-5 (the two
+sides interpolate in another order, so a nearer tie may flip), and the
+gradient within 1e-5 * max|plain| + 1e-7.
 """
 
 import pytest
@@ -20,9 +26,15 @@ import torch
 from deeplabv3p_torch.ops.kernels import (
     fused_decoder_frontend,
     fused_decoder_reference,
+    fused_upsample_ce,
     multirate_atrous_depthwise,
     multirate_atrous_depthwise_reference,
+    upsample_ce_backward,
+    upsample_ce_backward_reference,
+    upsample_ce_forward,
+    upsample_ce_reference,
 )
+from deeplabv3p_torch.ops.kernels.upsample_ce import pixel_weights
 
 pytestmark = pytest.mark.cuda
 
@@ -123,3 +135,70 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused_decoder_frontend(x, skip.bfloat16(), dwk, vec, vec)
     with pytest.raises(ValueError, match="contiguous"):
         fused_decoder_frontend(x, skip.transpose(1, 2), dwk, vec, vec)
+
+
+# (B, h, w, C) -> (H, W): the training slice (512 px, OS4 logits after the
+# decoder), the lite head's OS16 logits, and a ragged case
+UPSAMPLE_CE_CASES = [
+    ((16, 128, 128, 21), (512, 512)),
+    ((2, 32, 32, 21), (512, 512)),
+    ((3, 29, 37, 21), (116, 148)),
+]
+
+
+def upsample_ce_case(shape, out_hw, dev, seed=0):
+    """Logits, labels with an ignore band and labels >= C, sample and
+    class weights."""
+    gen = torch.Generator().manual_seed(seed)
+    b, _, _, c = shape
+    logits = (2.0 * torch.randn(shape, generator=gen)).to(dev)
+    labels = torch.randint(0, c, (b, *out_hw), generator=gen, dtype=torch.int32)
+    labels[:, : out_hw[0] // 8] = 255
+    labels[0, -3:, : out_hw[1] // 2] = c
+    labels[-1, -2:, out_hw[1] // 2:] = c + 7
+    sw = (0.2 + 1.8 * torch.rand((b, *out_hw), generator=gen)).to(dev)
+    cw = (0.5 + 1.5 * torch.rand((c,), generator=gen)).to(dev)
+    return logits, labels.to(dev), sw, cw
+
+
+@pytest.mark.parametrize("shape,out_hw", UPSAMPLE_CE_CASES)
+def test_upsample_ce_kernels_match_plain(dev, shape, out_hw):
+    logits, labels, sw, cw = upsample_ce_case(shape, out_hw, dev)
+    before = (upsample_ce_forward.launches, upsample_ce_backward.launches)
+    z = logits.clone().requires_grad_(True)
+    loss, preds = fused_upsample_ce(z, labels, out_hw, sample_weights=sw, class_weights=cw)
+    (loss * 0.37).backward()
+    torch.cuda.synchronize()
+    assert (upsample_ce_forward.launches, upsample_ce_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_loss, want_preds = upsample_ce_reference(logits, labels, out_hw, sw, cw)
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    full = torch.nn.functional.interpolate(
+        logits.permute(0, 3, 1, 2), size=out_hw, mode="bilinear", align_corners=False)
+    top2 = full.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-5
+    assert preds.dtype == torch.int32 and preds.shape == (shape[0], *out_hw)
+    assert torch.equal(preds[clear], want_preds[clear])
+    wpx = pixel_weights(labels, shape[-1], sw, cw)
+    want_grad = upsample_ce_backward_reference(logits, labels, wpx, out_hw) * 0.37
+    err = (z.grad - want_grad).abs().max().item()
+    assert err <= 1e-5 * want_grad.abs().max().item() + 1e-7, err
+
+
+def test_upsample_ce_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    logits, labels, sw, cw = upsample_ce_case((2, 8, 8, 5), (32, 32), dev)
+    wpx = pixel_weights(labels, 5, sw, cw)
+    with pytest.raises(TypeError, match="float32"):
+        upsample_ce_forward(logits.bfloat16(), labels, wpx, (32, 32))
+    with pytest.raises(TypeError, match="labels"):
+        upsample_ce_forward(logits, labels.long(), wpx, (32, 32))
+    with pytest.raises(ValueError, match="contiguous"):
+        upsample_ce_forward(logits.transpose(1, 2), labels, wpx, (32, 32))
+    with pytest.raises(ValueError, match="is on cpu"):
+        upsample_ce_forward(logits, labels.cpu(), wpx, (32, 32))
+    with pytest.raises(ValueError, match="integer upsample"):
+        fused_upsample_ce(logits, labels[:, :30], (30, 32))
+    lse = torch.zeros_like(wpx)
+    with pytest.raises(ValueError, match="contiguous"):
+        wpx_t = wpx.transpose(1, 2).contiguous().transpose(1, 2)
+        upsample_ce_backward(logits, labels, wpx_t, lse, (32, 32))

@@ -34,6 +34,20 @@ from deeplabv3p_torch.utils.weights import (
 RTOL = ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread while a module runs (the port's test files
+    import this fixture). With several pytest workers on the machine's
+    cores, torch's OpenMP threads wait at each barrier for threads the
+    other workers hold off the cores: the f64 model tests of
+    test_torch_train.py ran ~50x slower than alone, and slowed every other
+    worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def random_variables(variables, seed: int) -> dict:
     """numpy-seeded values for a JAX `{'params', 'batch_stats'}` tree (or
     its `jax.eval_shape`): kernels N(0, 1/fan_in), conv biases N(0, 0.2),
@@ -245,9 +259,13 @@ def test_registry_and_modes():
         build_deeplab_model("xception", 21)
     model = build_deeplab_model("mobilenetv2_lite", 21, device="cpu")
     assert not model.training
+    # training mode runs (batch statistics, moving the running buffers);
+    # its parity with flax is in test_torch_train.py
     model.train()
-    with pytest.raises(NotImplementedError, match="training"):
-        model(torch.zeros(1, 3, 32, 32))
+    before = model.aspp.aspp0_BN.running_var.clone()
+    logits = model(torch.randn(2, 3, 32, 32))
+    assert logits.shape == (2, 21, 32, 32) and torch.isfinite(logits).all()
+    assert not torch.equal(model.aspp.aspp0_BN.running_var, before)
 
 
 def test_seeded_init_is_deterministic():

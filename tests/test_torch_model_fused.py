@@ -11,7 +11,7 @@ kernels' plain versions (CPU tensors). Weights, inputs and the tolerance
 
 import pytest
 
-from test_torch_model import check_logits_match_jax_f32
+from test_torch_model import check_logits_match_jax_f32, one_torch_thread  # noqa: F401 (a fixture)
 
 
 @pytest.mark.parametrize("model_type,output_stride,px,fused", [

@@ -1,0 +1,132 @@
+"""The port's fused upsample + CE loss tail (deeplabv3p_torch.ops.kernels.
+upsample_ce) on the CPU, where its wrappers run the plain versions, against
+the JAX package: `fused_upsample_ce(..., interpret=True)` (the Pallas
+kernels in interpret mode) and `upsample_ce_reference`.
+
+Same numpy inputs on both sides: b=2, 8x8 -> 32x32, C=5, with an ignore
+band, the literal-C label and other out-of-range labels. Tolerances: the
+loss sum rtol 1e-5 (f32 sums in another order), preds equal; gradients
+rtol 1e-5 / atol 1e-6.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplabv3p_tpu.ops.pallas import upsample_ce as jce
+from deeplabv3p_torch.ops.kernels import upsample_ce as tce
+
+
+def case(b=2, h=8, w=8, c=5, scale=4, seed=0):
+    rng = np.random.RandomState(seed)
+    logits = (2.0 * rng.randn(b, h, w, c)).astype(np.float32)
+    ho, wo = h * scale, w * scale
+    labels = rng.randint(0, c, (b, ho, wo)).astype(np.int32)
+    labels[:, :3, :] = 255  # ignore band
+    labels[0, 4, :4] = c  # the literal-C bin
+    labels[-1, 5, :4] = c + 3  # other out of range
+    sw = rng.uniform(0.0, 2.0, (b, ho, wo)).astype(np.float32)
+    cw = rng.uniform(0.5, 2.0, (c,)).astype(np.float32)
+    return logits, labels, (ho, wo), sw, cw
+
+
+def t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["no_cw", "cw"])
+@pytest.mark.parametrize("sampled", [False, True], ids=["no_sw", "sw"])
+def test_forward_matches_jax_kernel_and_reference(weighted, sampled):
+    logits, labels, out_hw, sw, cw = case()
+    sw = sw if sampled else None
+    cw = cw if weighted else None
+    loss, preds = tce.fused_upsample_ce(t(logits), t(labels), out_hw, t(sw), t(cw))
+    j_loss, j_preds = jce.fused_upsample_ce(
+        j(logits), j(labels), out_hw, sample_weights=j(sw), class_weights=j(cw),
+        interpret=True)
+    r_loss, r_preds = jce.upsample_ce_reference(j(logits), j(labels), out_hw, j(sw), j(cw))
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-5)
+    np.testing.assert_allclose(loss.item(), float(r_loss), rtol=1e-5)
+    assert preds.dtype == torch.int32
+    np.testing.assert_array_equal(preds.numpy(), np.asarray(j_preds))
+    np.testing.assert_array_equal(preds.numpy(), np.asarray(r_preds))
+    # the port's plain forward is the same function
+    p_loss, p_preds = tce.upsample_ce_reference(t(logits), t(labels), out_hw, t(sw), t(cw))
+    np.testing.assert_allclose(p_loss.item(), float(r_loss), rtol=1e-5)
+    assert torch.equal(p_preds, preds)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["no_cw", "cw"])
+def test_gradient_matches_jax_custom_vjp(weighted):
+    logits, labels, out_hw, sw, cw = case(seed=5)
+    cw = cw if weighted else None
+    n = labels.size
+
+    def f_jax(z):
+        loss, _ = jce.fused_upsample_ce(z, j(labels), out_hw, sample_weights=j(sw),
+                                        class_weights=j(cw), interpret=True)
+        return loss / n * 3.25  # a scaled mean, like the trainer
+
+    want = np.asarray(jax.grad(f_jax)(j(logits)))
+    z = t(logits).clone().requires_grad_(True)
+    loss, _ = tce.fused_upsample_ce(z, t(labels), out_hw, t(sw), t(cw))
+    (loss / n * 3.25).backward()
+    np.testing.assert_allclose(z.grad.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_plain_backward_matches_autograd_of_plain_forward():
+    logits, labels, out_hw, sw, cw = case(seed=7)
+    z = t(logits).clone().requires_grad_(True)
+    loss, _ = tce.upsample_ce_reference(z, t(labels), out_hw, t(sw), t(cw))
+    loss.backward()
+    wpx = tce.pixel_weights(t(labels), 5, t(sw), t(cw))
+    got = tce.upsample_ce_backward_reference(t(logits), t(labels), wpx, out_hw)
+    np.testing.assert_allclose(got.numpy(), z.grad.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_pixel_weights_fold_like_jax():
+    """Validity, class and sample weights in one map, 0 off [0, C)."""
+    _, labels, _, sw, cw = case(seed=3)
+    wpx = tce.pixel_weights(t(labels), 5, t(sw), t(cw)).numpy()
+    valid = (labels >= 0) & (labels < 5)
+    want = np.where(valid, cw[np.clip(labels, 0, 4)] * sw, 0.0)
+    np.testing.assert_array_equal(wpx, want.astype(np.float32))
+
+
+def test_interp_matrix_is_the_jax_one():
+    for out_size, in_size in ((32, 8), (512, 128), (116, 29), (7, 7)):
+        np.testing.assert_array_equal(tce.interp_matrix(out_size, in_size),
+                                      jce.interp_matrix(out_size, in_size))
+
+
+def test_uneven_tile_and_os8_shape():
+    """OS8-like 8x upsample at 6x6 -> 48x48, C=3 (the JAX kernel picks an
+    uneven row tile here)."""
+    logits, labels, out_hw, _, _ = case(b=1, h=6, w=6, c=3, scale=8, seed=9)
+    loss, preds = tce.fused_upsample_ce(t(logits), t(labels), out_hw)
+    j_loss, j_preds = jce.fused_upsample_ce(j(logits), j(labels), out_hw, interpret=True)
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-5)
+    np.testing.assert_array_equal(preds.numpy(), np.asarray(j_preds))
+
+
+def test_rejects_non_integer_or_identity_resize():
+    logits, labels, out_hw, _, _ = case()
+    with pytest.raises(ValueError, match="integer upsample"):
+        tce.fused_upsample_ce(t(logits), t(labels), (8, 8))
+    with pytest.raises(ValueError, match="integer upsample"):
+        tce.fused_upsample_ce(t(logits), t(labels), (out_hw[0] + 3, out_hw[1]))
+
+
+def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
+    logits, labels, out_hw, sw, cw = case(seed=11)
+    before = (tce.upsample_ce_forward.launches, tce.upsample_ce_backward.launches)
+    z = t(logits).clone().requires_grad_(True)
+    loss, _ = tce.fused_upsample_ce(z, t(labels), out_hw, t(sw), t(cw))
+    loss.backward()
+    assert (tce.upsample_ce_forward.launches, tce.upsample_ce_backward.launches) == before
