@@ -10,7 +10,10 @@
    decoder kernels in f32 and bf16, the loss tail's forward and backward
    (csrc/upsample_ce.cu) at the training slice's (16,128,128,21) -> 512^2,
    the lite head's (2,32,32,21) -> 512^2 and a ragged (3,29,37,21) ->
-   (116,148);
+   (116,148); the confusion kernel (csrc/confusion.cu, EQUAL) at the eval
+   slice's (8,512,512,21) in f32 and bf16, a ragged (3,37,41,6) and C = 151;
+   the inverted-residual kernel (csrc/mbconv.cu) at the 13 block shapes of
+   the batch-8 512x512 OS16 body and the JAX tests' four, bf16 and f32;
 4. the serving path: 8 requests through `DeepLab` (mobilenetv2, full ASPP +
    decoder head, 512x512, OS16, 21 VOC classes, bf16, seeded weights) as
    built by default (fused ASPP kernel), then 8 more with the fused decoder
@@ -26,9 +29,19 @@
    .npz must serve a request through `DeepLab`;
 6. the fused against the unfused train step on the same weights and batch
    (f64 and f32 activations with TF32 off, then bf16);
-7. latency of the serving path, train-step time and peak memory fused and
-   unfused in turns, device-time profiles of one request and one train
-   step, and each kernel's time against its plain version.
+7. the evaluation path: `deeplabv3p_torch.eval.main` on the same synthetic
+   set and a seeded .npz, mobilenetv2 OS16 b8 bf16, 4 batches, once as built
+   by default and once with `--fused_mbconv`; the confusion and ASPP kernels
+   must run once a batch, the inverted-residual kernel never and then 13
+   times a batch; the matrix must equal the one `torch.argmax` + `bincount`
+   give on the same logits and count every valid label pixel, and stay
+   within stated bounds of the same weights with every kernel off (bf16 and
+   f32);
+8. latency of the serving path, train-step time and peak memory fused and
+   unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
+   no kernels, in turns), device-time profiles of one request, one train
+   step and one eval batch, and each kernel's time against its plain
+   version, its bound and, where there is one, the library's calls.
 
 Exits non-zero on any failure, and without printing a result when there is
 no CUDA device or no checkout around the script. The line before the last is
@@ -57,6 +70,18 @@ REQUEST_SHAPES = [(375, 500), (480, 640), (333, 517), (600, 400),
                   (512, 384), (281, 419), (720, 1280), (427, 640)]
 WARMUP = 3
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_SEED = 32, 16, 0
+EVAL_BATCH, EVAL_SEED = 8, 4
+# published peaks of one H100 SXM: device memory rate, f32 FMA rate outside
+# the tensor cores (every kernel here multiplies by f32 weights in f32)
+HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# (logits shape, logits dtype name, labels dtype name): the eval slice's call first
+CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
+                   ((8, 512, 512, 21), "bfloat16", "uint8"),
+                   ((3, 37, 41, 6), "float32", "int64"),
+                   ((2, 50, 30, 151), "float32", "uint8")]
+# (n, h, w, cin, cexp, cout, rate, residual) of tests/test_pallas_mbconv.py
+MBCONV_TEST_CASES = [(2, 16, 16, 24, 144, 24, 1, True), (1, 16, 16, 64, 384, 96, 1, False),
+                     (2, 8, 8, 32, 192, 32, 2, True), (1, 32, 16, 16, 96, 24, 1, False)]
 # (B, h, w, C) -> (H, W) loss-tail cases; the first is the training slice's
 UPSAMPLE_CE_CASES = [((16, 128, 128, 21), (512, 512)), ((2, 32, 32, 21), (512, 512)),
                      ((3, 29, 37, 21), (116, 148))]
@@ -109,6 +134,18 @@ def ab_ms(kernel_fn, plain_fn, iters: int = 200) -> tuple[float, float]:
     k2 = event_ms(kernel_fn, iters)
     p2 = event_ms(plain_fn, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+    """(least ms the card could take, which of the two sets it): the bytes
+    (each input read once, each output written once) over the memory rate,
+    or the f32 operations over the f32 FMA rate, whichever is larger."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def aspp_case(torch, shape, rates, dtype, seed):
@@ -173,7 +210,9 @@ def main() -> None:
         from deeplabv3p_torch.ops import kernels
         from deeplabv3p_torch.ops.kernels import _build
         from deeplabv3p_torch.ops.kernels import aspp as kaspp
+        from deeplabv3p_torch.ops.kernels import confusion as kconf
         from deeplabv3p_torch.ops.kernels import decoder as kdec
+        from deeplabv3p_torch.ops.kernels import mbconv as kmb
         from deeplabv3p_torch.ops.kernels import upsample_ce as kce
         from deeplabv3p_torch.postprocess import mask_argmax
         from deeplabv3p_torch.train import main as train_main
@@ -185,11 +224,7 @@ def main() -> None:
         die(f"{classes_path} missing: run from a checkout of the repository")
 
     # -- 1. the card -------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    card = card_line()
     print(card)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
@@ -249,6 +284,18 @@ def main() -> None:
         if shape == UPSAMPLE_CE_CASES[0][0]:  # the training path's call
             records["upsample_ce"] = rec
 
+    # -- 4c. confusion and inverted-residual kernels vs plain ---------------------
+    print("confusion_matrix_fused (csrc/confusion.cu) vs plain, EQUAL:")
+    for i, case in enumerate(CONFUSION_CASES):
+        rec = confusion_check(torch, kconf, *case)
+        if i == 0:  # the eval path's call
+            records["confusion"] = rec
+    print("fused_inverted_residual (csrc/mbconv.cu) vs plain:")
+    body_shapes = body_block_shapes(EVAL_BATCH, INPUT)
+    check(len(body_shapes) == 13, f"the OS16 body has 13 stride-1 expanded blocks: "
+                                  f"{[(s[1], s[3], s[4], s[5], s[6]) for s in body_shapes]}")
+    records["mbconv"] = mbconv_checks(torch, kmb, body_shapes)
+
     # -- 5. the serving path ---------------------------------------------------
     common = dict(model_type="mobilenetv2", classes_path=classes_path,
                   model_input_shape=INPUT, output_stride=16, device="cuda")
@@ -277,11 +324,12 @@ def main() -> None:
     after_first = kernels.launch_counts()
     masks_dec, times_dec = serve(served_dec)
     launches = kernels.launch_counts()               # ... and ends here
-    no_loss = {"upsample_ce_forward": 0, "upsample_ce_backward": 0}
+    no_loss = {"upsample_ce_forward": 0, "upsample_ce_backward": 0,
+               "confusion_matrix_fused": 0, "fused_inverted_residual": 0}
     check(after_first == {"multirate_atrous_depthwise": N_REQUESTS, "fused_decoder_frontend": 0,
                           **no_loss},
-          f"default DeepLab: launch counts {after_first} (ASPP one a request, decoder and "
-          "loss kernels none)")
+          f"default DeepLab: launch counts {after_first} (ASPP one a request, every other "
+          "kernel none)")
     check(launches == {"multirate_atrous_depthwise": 2 * N_REQUESTS,
                        "fused_decoder_frontend": N_REQUESTS, **no_loss},
           f"with fused_decoder=True: launch counts {launches}")
@@ -339,6 +387,9 @@ def main() -> None:
     batch = train_batch(torch, train_dir, classes_path)
     fused_vs_unfused(torch, batch)
 
+    # -- 5c. the evaluation path, through its entry point ---------------------------
+    eval_launches, eval_state = evaluation_path(torch, kernels, classes_path, train_dir)
+
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
         return float(np.percentile(v, q))
@@ -363,6 +414,7 @@ def main() -> None:
     profile_one_request(torch, served, requests[0])
 
     train_step_numbers(torch, batch)
+    eval_numbers(torch, eval_state)
 
     kernels = []
     for key, name, fn, ref_fn, src, replaces in (
@@ -375,6 +427,21 @@ def main() -> None:
          "deeplabv3p_tpu/ops/pallas/decoder.py:81"),
     ):
         args = records[key]["case"]
+        if key == "aspp":
+            # x read once, one output a rate; 9 multiply-adds + the BN fold an output
+            x, k = args[0], args[1]
+            outs = len(args[2]) * x.numel()
+            bound_ms, bound_by = bound(nbytes(x, k, *args[3:]) + outs * x.element_size(),
+                                       outs * (9 * 2 + 2))
+        else:
+            # both inputs read once, the concat's depthwise output written once; each
+            # upsampled element interpolated once (3 lerps) and 9 multiply-adds + the
+            # BN fold an output
+            x, skip = args[0], args[1]
+            pixels = skip.shape[0] * skip.shape[1] * skip.shape[2]
+            outs = pixels * (x.shape[-1] + skip.shape[-1])
+            bound_ms, bound_by = bound(nbytes(*args) + outs * x.element_size(),
+                                       pixels * x.shape[-1] * 6 + outs * (9 * 2 + 2))
         ms, plain_ms = ab_ms(lambda: fn(*args), lambda: ref_fn(*args))
         dev_us, dev_launches = device_us(torch, lambda: fn(*args))
         plain_dev_us, plain_launches = device_us(torch, lambda: ref_fn(*args))
@@ -385,8 +452,17 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name],
                         "max_abs_err": records[key]["max_abs_err"],
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
     kernels += upsample_ce_times(torch, kce, records["upsample_ce"], train_launches)
+    kernels.append(confusion_times(torch, kconf, records["confusion"], eval_launches[0]))
+    kernels.append(mbconv_times(torch, kmb, records["mbconv"], eval_launches[1], eval_state))
+    for row in kernels:
+        print(f"  {row['name']}: {row['ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
+              f"by {row['bound_by']} ({row['bound_ms'] / row['ms']:.3f} of it), plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, library "
+              f"{'none' if row['library_ms'] is None else format(row['library_ms'] * 1e3, '.2f') + ' us'}"
+              f", {row['launches']} launches on its path  [{card}]")
 
     leaked = [m for m in ("jax", "flax", "deeplabv3p_tpu") if m in sys.modules]
     check(not leaked, f"no JAX module imported ({leaked or 'none'})")
@@ -572,9 +648,10 @@ def training_path(torch, kernels, train_main, train_args, classes_path, request)
     print(f"  trained {steps} steps in {wall:.1f} s wall (set-up and first-call cuDNN "
           f"tuning included); launch counts {launches}")
     check(launches == {"multirate_atrous_depthwise": 0, "fused_decoder_frontend": 0,
-                       "upsample_ce_forward": steps, "upsample_ce_backward": steps},
-          f"training: each loss kernel launched once a step ({steps}), ASPP and decoder "
-          "kernels never")
+                       "upsample_ce_forward": steps, "upsample_ce_backward": steps,
+                       "confusion_matrix_fused": 0, "fused_inverted_residual": 0},
+          f"training: each loss kernel launched once a step ({steps}), every other "
+          "kernel never")
     with open(os.path.join(log_dir, "history.jsonl")) as f:
         records = [json.loads(line) for line in f]
     check(len(records) == 2 and all(np.isfinite(r["loss"]) and r["steps"] == 2
@@ -748,14 +825,21 @@ def upsample_ce_times(torch, kce, rec, launches) -> list:
     training slice's shape, and its kernels-JSON row."""
     logits, labels, wpx, out_hw, lse = rec["case"]
     rows = []
-    for name, fn, plain, err, replaces in (
+    pixel_classes = labels.numel() * logits.shape[-1]
+    # forward: logits, labels and weights read, preds (int32) and lse written; a
+    # (pixel, class) costs 3 lerps, an exp, a max and an add. Backward: the same
+    # reads plus lse, the low-resolution gradient written; a (pixel, class) costs
+    # the 3 lerps, an exp, the softmax - onehot and 4 multiply-adds of the scatter
+    fwd_bound = bound(nbytes(logits, labels, wpx, lse) + 4 * labels.numel(), pixel_classes * 10)
+    bwd_bound = bound(nbytes(logits, labels, wpx, lse, logits), pixel_classes * 18)
+    for name, fn, plain, err, replaces, (bound_ms, bound_by) in (
         ("upsample_ce_forward", lambda: kce.upsample_ce_forward(logits, labels, wpx, out_hw),
          lambda: kce.upsample_ce_reference(logits, labels, out_hw, sample_weights=wpx),
-         rec["fwd_err"], "deeplabv3p_tpu/ops/pallas/upsample_ce.py:242"),
+         rec["fwd_err"], "deeplabv3p_tpu/ops/pallas/upsample_ce.py:242", fwd_bound),
         ("upsample_ce_backward",
          lambda: kce.upsample_ce_backward(logits, labels, wpx, lse, out_hw),
          lambda: kce.upsample_ce_backward_reference(logits, labels, wpx, out_hw),
-         rec["bwd_err"], "deeplabv3p_tpu/ops/pallas/upsample_ce.py:267"),
+         rec["bwd_err"], "deeplabv3p_tpu/ops/pallas/upsample_ce.py:267", bwd_bound),
     ):
         ms, plain_ms = ab_ms(fn, plain, iters=20)
         dev_us, dev_launches = device_us(torch, fn, calls=10)
@@ -767,8 +851,402 @@ def upsample_ce_times(torch, kce, rec, launches) -> list:
         rows.append({"name": name, "route": "cuda",
                      "source": "deeplabv3p_torch/ops/kernels/csrc/upsample_ce.cu",
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     return rows
+
+
+# -- the confusion and inverted-residual kernels, and the evaluation path --------
+
+
+def confusion_case(torch, shape, dtype, label_dtype, seed=0):
+    """Seeded logits with planted exact ties and NaNs, labels with a 255
+    band, values above C-1 and, where the type is signed, negatives."""
+    gen = torch.Generator().manual_seed(seed)
+    c = shape[-1]
+    logits = torch.randn(shape, generator=gen)
+    flat = logits.reshape(-1, c)
+    n = flat.shape[0]
+    tie = torch.arange(0, n, 7)
+    flat[tie] = flat[tie].max(dim=1, keepdim=True).values    # every class ties
+    pair = torch.arange(3, n, 11)
+    flat[pair, c - 1] = flat[pair].max(dim=1).values          # the last class ties the max
+    flat[torch.arange(5, n, 13), 0] = float("nan")
+    flat[torch.arange(2, n, 17)] = float("nan")                # all-NaN pixels
+    labels = torch.randint(0, c + 3, shape[:-1], generator=gen, dtype=torch.int64)
+    labels.reshape(-1)[: n // 9] = 255
+    if label_dtype != torch.uint8:
+        labels.reshape(-1)[n // 2: n // 2 + n // 10] = -1
+    return labels.to(label_dtype).cuda(), logits.to(dtype).cuda()
+
+
+def confusion_check(torch, kconf, shape, dtype_name, label_name) -> dict:
+    dtype, label_dtype = getattr(torch, dtype_name), getattr(torch, label_name)
+    labels, logits = confusion_case(torch, shape, dtype, label_dtype)
+    c = shape[-1]
+    got = kconf.confusion_matrix_fused(labels, logits, c)
+    torch.cuda.synchronize()
+    want = kconf.confusion_matrix_fused_reference(labels, logits, c)
+    valid = ((labels.long() >= 0) & (labels.long() < c)).sum().item()
+    diff = (got - want).abs().sum().item()
+    check(diff == 0 and got.sum().item() == valid and got.dtype == torch.int64,
+          f"confusion {shape} {dtype_name} logits, {label_name} labels: sum|kernel - plain| "
+          f"{diff} == 0, counts {got.sum().item()} == valid label pixels {valid}")
+    return {"max_abs_err": float(diff), "case": (labels, logits, c)}
+
+
+def body_block_shapes(batch: int, hw) -> list[tuple]:
+    """(n, h, w, cin, cexp, cout, rate, residual) of every block of the
+    MobileNetV2 OS16 body that `fused_mbconv` routes through the kernel, read
+    off the model itself."""
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+
+    body = build_deeplab_model("mobilenetv2", 21, output_stride=16, device="cpu").backbone
+    h, w = (hw[0] + 1) // 2, (hw[1] + 1) // 2  # the stem's stride 2
+    shapes = []
+    for i in range(17):
+        block = getattr(body, f"block_{i}")
+        if block.stride == 2:
+            h, w = (h + 1) // 2, (w + 1) // 2
+        elif block.has_expand:
+            cexp, cin = block._sub("expand").weight.shape[:2]
+            shapes.append((batch, h, w, cin, cexp, block.out_channels, block.rate,
+                           block.skip_connection))
+    return shapes
+
+
+def mbconv_case(torch, shape, dtype, seed=0):
+    """Seeded block input and parameters as the JAX package's test draws them."""
+    n, h, w, cin, cexp, cout = shape[:6]
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, h, w, cin), generator=gen).cuda().to(dtype)
+    we = (torch.randn((cin, cexp), generator=gen) * 0.2).cuda()
+    wd = (torch.randn((3, 3, cexp), generator=gen) * 0.2).cuda()
+    wp = (torch.randn((cexp, cout), generator=gen) * 0.1).cuda()
+
+    def fold(c):
+        return ((torch.rand((c,), generator=gen) + 0.5).cuda(),
+                torch.randn((c,), generator=gen).cuda())
+
+    (se, be), (sd, bd), (sp, bp) = fold(cexp), fold(cexp), fold(cout)
+    return x, we, se, be, wd, sd, bd, wp, sp, bp
+
+
+def mbconv_checks(torch, kmb, body_shapes) -> dict:
+    """The inverted-residual kernel against its plain version at the body's
+    13 shapes and the JAX tests' four, bf16 and f32. Both store e and d as
+    bf16, and their f32 sums differ in order, so a sum an ulp apart can round
+    to the other bf16 neighbour (2^-8 relative on one of Cexp terms): both x
+    types are held to the bf16 bound of `tolerance`."""
+    worst = 0.0
+    for shape in [*body_shapes, *MBCONV_TEST_CASES]:
+        rate, residual = shape[6], shape[7]
+        for dtype in (torch.bfloat16, torch.float32):
+            args = mbconv_case(torch, shape, dtype)
+            got = kmb.fused_inverted_residual(*args, rate=rate, residual=residual)
+            torch.cuda.synchronize()
+            want = kmb.fused_inverted_residual_reference(*args, rate=rate, residual=residual)
+            err, ref = max_err(got, want)
+            mean = (got.float() - want.float()).abs().mean().item()
+            tol = tolerance(ref, torch.bfloat16)
+            check(err <= tol and got.dtype == dtype and bool(torch.isfinite(got).all()),
+                  f"mbconv {shape} {dtype}: max|err| {err:.3g} <= {tol:.3g} (mean|err| "
+                  f"{mean:.3g}, max|ref| {ref:.3g})")
+            if shape in body_shapes and dtype == torch.bfloat16:
+                worst = max(worst, err)
+            del args, got, want
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "shapes": body_shapes}
+
+
+def eval_argv(weights, root, classes_path, out_dir, *extra):
+    return ["--model_path", weights, "--model_type", "mobilenetv2", "--model_input_shape",
+            f"{INPUT[0]}x{INPUT[1]}", "--output_stride", "16", "--batch_size", str(EVAL_BATCH),
+            "--dataset_path", root, "--dataset_file", os.path.join(root, "list.txt"),
+            "--classes_path", classes_path, "--out_dir", out_dir, *extra]
+
+
+def evaluation_path(torch, kernels, classes_path, root):
+    """`deeplabv3p_torch.eval.main` in-process, twice (as built by default,
+    then `--fused_mbconv`), on the synthetic set and a seeded .npz. Returns
+    the two runs' launch counts and what the timing phase reuses."""
+    import contextlib
+    import io
+
+    from deeplabv3p_torch import eval as eval_cli
+    from deeplabv3p_torch import metrics as metrics_lib
+    from deeplabv3p_torch.data.augment import preprocess_eval_batch
+    from deeplabv3p_torch.data.pipeline import SegmentationDataset
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.train import accumulate_confusion, make_eval_step
+    from deeplabv3p_torch.utils.config import get_data_list
+    from deeplabv3p_torch.utils.weights import (
+        from_jax_variables,
+        load_npz,
+        save_npz,
+        to_jax_variables,
+    )
+
+    out_dir = os.path.join(OUT_DIR, "smoke_eval_result")
+    weights = os.path.join(OUT_DIR, "smoke_eval_weights.npz")
+    seeded = build_deeplab_model("mobilenetv2", 21, device="cpu")
+    init_parameters(seeded, torch.Generator().manual_seed(EVAL_SEED))
+    save_npz(weights, to_jax_variables(seeded))
+    batches = TRAIN_IMAGES // EVAL_BATCH
+    print(f"evaluation path: python -m deeplabv3p_torch.eval on {TRAIN_IMAGES} pairs of {INPUT}, "
+          f"b{EVAL_BATCH}, seeded weights (seed {EVAL_SEED}) in {weights}")
+
+    runs = []
+    for extra in ((), ("--fused_mbconv",)):
+        argv = eval_argv(weights, root, classes_path, out_dir, *extra)
+        print("  " + " ".join(argv))
+        text = io.StringIO()
+        kernels.reset_launch_counts()                # the evaluation path starts here
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            m = eval_cli.main(eval_cli.parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()           # ... and ends here
+        summary = [ln for ln in text.getvalue().splitlines() if "=" in ln and ":" not in ln]
+        print(f"  {wall:.2f} s wall (set-up and first-call cuDNN tuning included); "
+              f"{' '.join(summary)}; launch counts {launches}")
+        check([ln.split("=")[0] for ln in summary[-4:]] == ["mIoU", "FWIoU", "PixelAcc",
+                                                            "mClassAcc"],
+              f"eval CLI {' '.join(extra) or '(default)'} printed its summary (mIoU= ...)")
+        runs.append((m, launches))
+    (m_default, l_default), (m_mbconv, l_mbconv) = runs
+    zeros = {"fused_decoder_frontend": 0, "upsample_ce_forward": 0, "upsample_ce_backward": 0}
+    check(l_default == {"confusion_matrix_fused": batches, "multirate_atrous_depthwise": batches,
+                        "fused_inverted_residual": 0, **zeros},
+          f"eval, default: confusion and ASPP kernels once a batch ({batches}), "
+          "inverted-residual, decoder and loss kernels never")
+    check(l_mbconv == {"confusion_matrix_fused": batches, "multirate_atrous_depthwise": batches,
+                       "fused_inverted_residual": 13 * batches, **zeros},
+          f"eval, --fused_mbconv: the inverted-residual kernel 13 times a batch "
+          f"({13 * batches}), confusion and ASPP once a batch")
+
+    # -- references from the same weights, on the same batches -------------------
+    variables = load_npz(weights)
+    ids = get_data_list(os.path.join(root, "list.txt"), shuffle=False)
+    ds = SegmentationDataset(root, ids, batch_size=EVAL_BATCH, num_classes=21,
+                             input_shape=INPUT, augment=False, shuffle=False,
+                             drop_remainder=False)
+    host_batches = [(b[0], b[1]) for b in ds.epoch_batches()]
+    valid = sum(int((b[1] < 21).sum()) for b in host_batches)
+
+    def model_of(dtype, **flags):
+        model = build_deeplab_model("mobilenetv2", 21, dtype=dtype, device="cuda", **flags)
+        model.load_state_dict(from_jax_variables(variables, model), strict=True)
+        return model
+
+    def library_step(model):
+        """The eval step with the library's tail: torch.argmax, then bincount."""
+        @torch.no_grad()
+        def step(images_u8, labels_u8):
+            images, labels = preprocess_eval_batch(images_u8, labels_u8, num_classes=21)
+            preds = torch.argmax(model(images.permute(0, 3, 1, 2)), dim=1)
+            return metrics_lib.confusion_matrix(labels, preds, 21)
+        return step
+
+    class Resident:
+        """The decoded batches, as a dataset the shared loop can stream."""
+
+        def epoch_batches(self):
+            return iter(host_batches)
+
+    @torch.no_grad()
+    def masks_of(model):
+        out = []
+        for images_u8, labels_u8 in host_batches:
+            images, _ = preprocess_eval_batch(torch.from_numpy(images_u8).cuda(),
+                                              torch.from_numpy(labels_u8).cuda(), 21)
+            out.append(torch.argmax(model(images.permute(0, 3, 1, 2)), dim=1))
+        return torch.cat(out)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    served = model_of(bf16, fused_aspp=True)                      # what the CLI builds
+    with_mbconv = model_of(bf16, fused_aspp=True, fused_mbconv=True)
+    plain = model_of(bf16)                                        # every kernel off
+    cm = m_default.confusion
+    check(int(cm.sum()) == valid and cm.shape == (21, 21),
+          f"eval, default: the (21, 21) matrix counts every valid label pixel "
+          f"({int(cm.sum())} == {valid})")
+    same_logits = accumulate_confusion(library_step(served), Resident(), 21, "cuda")
+    check(np.array_equal(cm, same_logits),
+          "eval, default: the matrix EQUALS torch.argmax + bincount on the same model's "
+          f"logits (sum|diff| {int(np.abs(cm - same_logits).sum())})")
+    # Every kernel off: the plain ASPP branch rounds its depthwise output to
+    # bf16 twice where the kernel's route rounds once, so bf16 logits differ
+    # by ulps and near-tie pixels flip; each flip moves two cells.
+    no_kernels = accumulate_confusion(library_step(plain), Resident(), 21, "cuda")
+    flips = int(np.abs(cm - no_kernels).sum()) // 2
+    check(int(no_kernels.sum()) == valid and flips <= 0.01 * valid,
+          f"eval, default vs every kernel off (bf16, torch.argmax + bincount): {flips} of "
+          f"{valid} pixels counted in another cell (<= 1 %; equal: {flips == 0})")
+    kern32 = accumulate_confusion(make_eval_step(model_of(f32, fused_aspp=True), 21),
+                                  Resident(), 21, "cuda")
+    plain32 = accumulate_confusion(library_step(model_of(f32)), Resident(), 21, "cuda")
+    flips32 = int(np.abs(kern32 - plain32).sum()) // 2
+    check(flips32 <= 1e-4 * valid,
+          f"eval in f32, ASPP + confusion kernels vs every kernel off: {flips32} of {valid} "
+          f"pixels counted in another cell (<= 0.01 %; equal: {flips32 == 0})")
+    masks = {"default": masks_of(served), "--fused_mbconv": masks_of(with_mbconv)}
+    agree = (masks["default"] == masks["--fused_mbconv"]).float().mean().item()
+    check(agree >= 0.98, f"eval, --fused_mbconv vs default: masks agree on {agree:.5f} of "
+                         "pixels (>= 0.98)")
+    # for the record: each bf16 route against the f32 model with every kernel off
+    # (the kernel keeps the block's weights f32, the standard route rounds them)
+    masks32 = masks_of(model_of(f32))
+    print("  masks against the f32 model with no kernel: " + ", ".join(
+        f"{name} {(m == masks32).float().mean().item():.5f}" for name, m in masks.items()))
+    check(abs(m_mbconv.miou - m_default.miou) <= 0.005 and int(m_mbconv.confusion.sum()) == valid,
+          f"eval, --fused_mbconv: mIoU {m_mbconv.miou:.5f} within 0.005 of the default's "
+          f"{m_default.miou:.5f}, every valid pixel counted")
+    logits = served(preprocess_eval_batch(torch.from_numpy(host_batches[0][0]).cuda(),
+                                          torch.from_numpy(host_batches[0][1]).cuda(),
+                                          21)[0].permute(0, 3, 1, 2))
+    check(logits.permute(0, 2, 3, 1).is_contiguous() and logits.dtype == f32,
+          "the model's f32 logits are channels_last: the kernel's NHWC view is no copy")
+    state = {"ds": ds, "resident": Resident(), "served": served, "with_mbconv": with_mbconv,
+             "plain": plain, "library_step": library_step, "batch": host_batches[0]}
+    return (l_default, l_mbconv), state
+
+
+def eval_numbers(torch, state) -> None:
+    """Images/s of the eval loop (host clock around the shared accumulation
+    loop, which ends in the matrix's copy to the host): as the CLI builds it,
+    with `--fused_mbconv`, and with no kernel (plain ASPP, torch.argmax +
+    bincount), in turns N D M M D N; through the dataset (JPEG decode
+    included) and on the decoded batches. Then the profile of one batch."""
+    from deeplabv3p_torch.train import accumulate_confusion, make_eval_step
+
+    steps = {"no kernels": state["library_step"](state["plain"]),
+             "default (ASPP + confusion kernels)": make_eval_step(state["served"], 21),
+             "--fused_mbconv": make_eval_step(state["with_mbconv"], 21)}
+    card = card_line()
+    for source, data, rounds in (("through the dataset (decode included)", state["ds"], 1),
+                                 ("on decoded batches", state["resident"], 3)):
+        for step in steps.values():
+            accumulate_confusion(step, data, 21, "cuda")  # warm-up
+        times = {name: [] for name in steps}
+        for name in [*steps, *reversed(steps)]:
+            for _ in range(rounds):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                accumulate_confusion(steps[name], data, 21, "cuda")
+                times[name].append(time.perf_counter() - t)
+        print(f"eval loop, mobilenetv2 OS16 512x512 b{EVAL_BATCH} bf16, {TRAIN_IMAGES} images a "
+              f"pass, {source}, in turns N D M M D N  [{card}]:")
+        for name, ts in times.items():
+            med = statistics.median(ts)
+            print(f"  {name}: median {med * 1e3:.2f} ms a pass over {len(ts)} passes "
+                  f"(min {min(ts) * 1e3:.2f}, max {max(ts) * 1e3:.2f}), "
+                  f"{TRAIN_IMAGES / med:.1f} img/s")
+    images = torch.from_numpy(state["batch"][0]).cuda()
+    labels = torch.from_numpy(state["batch"][1]).cuda()
+    step = steps["default (ASPP + confusion kernels)"]
+    profile_one(torch, lambda: step(images, labels), "one eval batch (b8, device-resident)",
+                "profile_one_eval_batch.txt", top=14)
+    step = steps["--fused_mbconv"]
+    profile_one(torch, lambda: step(images, labels), "one eval batch with --fused_mbconv",
+                "profile_one_eval_batch_fused_mbconv.txt", top=8)
+
+
+def card_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+
+
+def confusion_times(torch, kconf, rec, launches) -> dict:
+    """The confusion kernel's time against its plain version at the eval
+    slice's shape, and beside it the library's two calls: torch.argmax to an
+    int64 map, then torch.bincount of the joint index (the index arithmetic
+    between them is not timed)."""
+    labels, logits, c = rec["case"]
+    ms, plain_ms = ab_ms(lambda: kconf.confusion_matrix_fused(labels, logits, c),
+                         lambda: kconf.confusion_matrix_fused_reference(labels, logits, c),
+                         iters=20)
+    preds = torch.argmax(logits, dim=-1)
+    gt = labels.reshape(-1).long()
+    idx = torch.where((gt >= 0) & (gt < c), c * gt + preds.reshape(-1),
+                      torch.full_like(gt, c * c))
+    argmax_ms = event_ms(lambda: torch.argmax(logits, dim=-1), 20)
+    bincount_ms = event_ms(lambda: torch.bincount(idx, minlength=c * c + 1), 20)
+    # each logit and label read once, the (C, C) int64 matrix written once; one
+    # compare a logit
+    bound_ms, bound_by = bound(nbytes(labels, logits) + 8 * c * c, logits.numel())
+    print(f"confusion_matrix_fused: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us a "
+          f"call (CUDA events, mean of 2x20 calls each, {tuple(logits.shape)} {logits.dtype} "
+          f"logits, {labels.dtype} labels); the library's two calls: torch.argmax "
+          f"{argmax_ms * 1e3:.2f} us + torch.bincount {bincount_ms * 1e3:.2f} us  [{card_line()}]")
+    return {"name": "confusion_matrix_fused", "route": "cuda",
+            "source": "deeplabv3p_torch/ops/kernels/csrc/confusion.cu",
+            "replaces": "deeplabv3p_tpu/ops/pallas/confusion.py:67",
+            "launches": launches["confusion_matrix_fused"], "max_abs_err": rec["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": argmax_ms + bincount_ms,
+            "library_calls": {"torch.argmax": argmax_ms, "torch.bincount": bincount_ms}}
+
+
+def mbconv_times(torch, kmb, rec, launches, state) -> dict:
+    """The inverted-residual kernel at each of the body's 13 shapes (bf16,
+    batch 8) against its plain version and its bound, and each block of the
+    body as a module, fused against its standard route (bf16 convolutions,
+    f32 BatchNorm, relu6). The JSON row's times are sums over the 13 shapes:
+    one forward's worth of calls."""
+    rows = []
+    card = card_line()
+    body = state["with_mbconv"].backbone
+    blocks = [b for b in (getattr(body, f"block_{i}") for i in range(17))
+              if b.has_expand and b.stride == 1]
+    print(f"fused_inverted_residual at the body's 13 shapes, bf16 (CUDA events, mean of 2x20 "
+          f"calls each; module = the block as the model calls it)  [{card}]:")
+    for shape, block in zip(rec["shapes"], blocks):
+        n, h, w, cin, cexp, cout, rate, residual = shape
+        args = mbconv_case(torch, shape, torch.bfloat16)
+        ms, plain_ms = ab_ms(
+            lambda: kmb.fused_inverted_residual(*args, rate=rate, residual=residual),
+            lambda: kmb.fused_inverted_residual_reference(*args, rate=rate, residual=residual),
+            iters=20)
+        weights = nbytes(*args[1:])
+        flops = 2 * n * h * w * (cin * cexp + 9 * cexp + cexp * cout)
+        bound_ms, bound_by = bound(nbytes(args[0]) + n * h * w * cout * 2 + weights, flops)
+        x = args[0].permute(0, 3, 1, 2)
+
+        def run(fused):
+            block.fused_inference = fused
+            with torch.inference_mode():
+                return block(x)
+
+        mod_fused, mod_plain = ab_ms(lambda: run(True), lambda: run(False), iters=20)
+        block.fused_inference = True
+        print(f"  {shape}: kernel {ms * 1e3:.1f} us ({flops / ms / 1e9:.2f} TFLOP/s), bound "
+              f"{bound_ms * 1e3:.1f} us by {bound_by}, plain {plain_ms * 1e3:.1f} us; module "
+              f"fused {mod_fused * 1e3:.1f} us, standard {mod_plain * 1e3:.1f} us")
+        rows.append({"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "module_fused_ms": mod_fused,
+                     "module_standard_ms": mod_plain})
+        del args, x
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms",
+                                                  "module_fused_ms", "module_standard_ms")}
+    print(f"  the 13 calls: kernel {total['ms'] * 1e3:.1f} us, bound "
+          f"{total['bound_ms'] * 1e3:.1f} us, plain {total['plain_ms'] * 1e3:.1f} us; modules "
+          f"fused {total['module_fused_ms'] * 1e3:.1f} us, standard "
+          f"{total['module_standard_ms'] * 1e3:.1f} us")
+    by = {r["bound_by"] for r in rows}
+    return {"name": "fused_inverted_residual", "route": "cuda",
+            "source": "deeplabv3p_torch/ops/kernels/csrc/mbconv.cu",
+            "replaces": "deeplabv3p_tpu/ops/pallas/mbconv.py:136",
+            "launches": launches["fused_inverted_residual"],
+            "max_abs_err": rec["max_abs_err"], "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": by.pop() if len(by) == 1 else "operations", "library_ms": None,
+            "module_fused_ms": total["module_fused_ms"],
+            "module_standard_ms": total["module_standard_ms"], "per_shape": rows}
 
 
 if __name__ == "__main__":

@@ -7,8 +7,9 @@ Examples:
   echo example/dog.jpg | python -m deeplabv3p_torch.deeplab --device cpu \
       --model_input_shape 64 --image --output out/
 
-Image filenames are read from stdin, one per line, until it closes. Video
-input (`--input`) and the CRF (`--do_crf`) are not ported yet and raise.
+Image filenames are read from stdin, one per line, until it closes;
+`--input` takes a video file (or "0" for the webcam) and `--output` the
+overlay video. The CRF (`--do_crf`) is not ported yet and raises.
 """
 
 from __future__ import annotations

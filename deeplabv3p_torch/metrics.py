@@ -6,7 +6,8 @@
   predicted), a class is averaged only over samples whose ground truth
   holds it, and classes with no such sample drop out of the mean;
 * `confusion_matrix`: the bincount of C * gt + pred, invalid labels
-  spilling into a dropped bin;
+  spilling into a dropped bin; `confusion_matrix_matmul`: the same matrix
+  as a one-hot product (the form the JAX eval step takes on a TPU);
 * `segment_metrics_from_confusion` and `mIOU_numpy`: numpy, on the host.
 """
 
@@ -76,6 +77,26 @@ def confusion_matrix(
     idx = torch.where(valid, num_classes * gt + pred, torch.full_like(gt, spill))
     counts = torch.bincount(idx, minlength=spill + 1)
     return counts[:spill].reshape(num_classes, num_classes)
+
+
+def confusion_matrix_matmul(
+    gt_mask: torch.Tensor, pred_mask: torch.Tensor, num_classes: int
+) -> torch.Tensor:
+    """The confusion matrix as a one-hot product, cm[i, j] = sum_n
+    1[gt_n = i] * 1[pred_n = j] (JAX metrics.py:113-137). Same contract as
+    `confusion_matrix`: labels outside [0, C) one-hot to a dropped slot. The
+    f32 sums are exact below 2^24 counts a cell; (C, C) int64."""
+    gt = gt_mask.reshape(-1).long()
+    pred = pred_mask.reshape(-1).long()
+    valid = (gt >= 0) & (gt < num_classes)
+    slot = torch.where(valid, gt, torch.full_like(gt, num_classes))
+    oh_gt = torch.nn.functional.one_hot(slot, num_classes + 1)[:, :num_classes].float()
+    # a prediction outside [0, C) one-hots to an all-zero row, as jax.nn.one_hot does
+    in_range = (pred >= 0) & (pred < num_classes)
+    oh_pred = torch.nn.functional.one_hot(
+        torch.where(in_range, pred, torch.zeros_like(pred)), num_classes).float()
+    oh_pred = oh_pred * in_range.unsqueeze(1)
+    return torch.matmul(oh_gt.t(), oh_pred).long()
 
 
 class SegmentMetrics(NamedTuple):

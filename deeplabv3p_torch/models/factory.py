@@ -34,10 +34,12 @@ from deeplabv3p_torch.ops.resize import resize_bilinear
 class DeeplabV3Plus(nn.Module):
     """Backbone -> ASPP[/Lite] -> [Decoder] -> 1x1 logits -> bilinear upsample.
 
-    `fused_aspp` / `fused_decoder` route the ASPP depthwise stage and the
-    decoder front-end through the hand-written kernels (ops/kernels) —
-    inference only, same parameters as the standard path: a module in
-    training mode takes the standard path, as JAX does.
+    `fused_aspp` / `fused_decoder` / `fused_mbconv` route the ASPP depthwise
+    stage, the decoder front-end and the backbone's stride-1 inverted
+    residuals through the hand-written kernels (ops/kernels) — inference
+    only, same parameters as the standard path: a module in training mode
+    takes the standard path, as JAX does. `fused_mbconv` needs a backbone
+    that takes the flag (the MobileNetV2 body).
     """
 
     def __init__(
@@ -48,6 +50,7 @@ class DeeplabV3Plus(nn.Module):
         lite: bool = False,
         fused_aspp: bool = False,
         fused_decoder: bool = False,
+        fused_mbconv: bool = False,
         dtype: Optional[torch.dtype] = None,
         device=None,
     ):
@@ -55,7 +58,9 @@ class DeeplabV3Plus(nn.Module):
         self.lite = lite
         self.dtype = torch.float32 if dtype is None else dtype
         kw = dict(dtype=dtype, device=device)
-        self.backbone = backbone_fn(output_stride=output_stride, **kw)
+        # only a backbone with inverted residuals is handed the flag
+        body_kw = dict(fused_mbconv=True) if fused_mbconv else {}
+        self.backbone = backbone_fn(output_stride=output_stride, **body_kw, **kw)
         feat_ch = self.backbone.out_channels
         if lite:
             # lite head: ASPP-Lite, no decoder (reference
@@ -100,6 +105,7 @@ def build_deeplab_model(
     output_stride: int = 16,
     fused_aspp: bool = False,
     fused_decoder: bool = False,
+    fused_mbconv: bool = False,
     dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> DeeplabV3Plus:
@@ -115,7 +121,7 @@ def build_deeplab_model(
     model = DeeplabV3Plus(
         backbone_fn, num_classes=num_classes, output_stride=output_stride,
         lite=lite, fused_aspp=fused_aspp, fused_decoder=fused_decoder,
-        dtype=dtype, device=device,
+        fused_mbconv=fused_mbconv, dtype=dtype, device=device,
     )
     return model.eval()
 

@@ -8,6 +8,10 @@ names (`Conv`, `expanded_conv_{i}_expand`, ...) are those of the JAX body,
 so its variables map 1:1. Strided convs (the stem; blocks 1, 3, 6, and 13
 at OS32) pad TF-'SAME', (0, 1) on even inputs. Every BN of the body has
 epsilon 1e-3 and momentum 0.999 (JAX mobilenetv2.py:76,86,93,128).
+
+With `fused_mbconv` the 13 stride-1 blocks that have an expand conv run, in
+inference mode, as one `fused_inverted_residual` call each (the CUDA kernel
+of ops/kernels/csrc/mbconv.cu on the card), with the same parameters.
 """
 
 from __future__ import annotations
@@ -50,13 +54,23 @@ def os_control_table(output_stride: int) -> dict[str, int]:
 class InvertedResBlock(nn.Module):
     """MobileNetV2 inverted residual (reference _inverted_res_block,
     deeplabv3p_mobilenetv2.py:38-74): optional 1x1 expand -> 3x3 depthwise
-    (stride/dilation) -> 1x1 linear project, with identity skip."""
+    (stride/dilation) -> 1x1 linear project, with identity skip.
+
+    `fused_inference`: in inference mode a stride-1 block with an expand
+    conv runs as ONE `fused_inverted_residual` call, its three BNs folded in
+    f32 and its kernels kept f32 (the standard path casts them to the
+    compute dtype), the expanded tensors rounded to bf16 inside. Strided
+    blocks and block 0 keep the standard path, and so does training: the
+    kernel carries no gradient."""
 
     def __init__(self, in_channels: int, expansion: int, stride: int,
                  alpha: float, filters: int, block_id: int,
-                 skip_connection: bool, rate: int = 1, dtype=None, device=None):
+                 skip_connection: bool, rate: int = 1,
+                 fused_inference: bool = False, dtype=None, device=None):
         super().__init__()
         self.skip_connection = skip_connection
+        self.stride, self.rate = stride, rate
+        self.fused_inference = fused_inference
         self.out_channels = make_divisible(int(filters * alpha), 8)
         self.prefix = f"expanded_conv_{block_id}_" if block_id else "expanded_conv_"
         kw = dict(dtype=dtype, device=device)
@@ -76,7 +90,30 @@ class InvertedResBlock(nn.Module):
     def _sub(self, name: str) -> nn.Module:
         return getattr(self, self.prefix + name)
 
+    def kernel_args(self) -> tuple[torch.Tensor, ...]:
+        """(we, se, be, wd, sd, bd, wp, sp, bp) of `fused_inverted_residual`
+        from this block's parameters: the 1x1 kernels as (Cin, Cout)
+        matrices, the depthwise kernel as (3, 3, C), each BN folded, all
+        f32 and contiguous."""
+        we = self._sub("expand").weight[:, :, 0, 0].t()
+        wd = self._sub("depthwise").weight[:, 0].permute(1, 2, 0)
+        wp = self._sub("project").weight[:, :, 0, 0].t()
+        folds = [self._sub(name + "_BN").folded() for name in ("expand", "depthwise", "project")]
+        args = (we, *folds[0], wd, *folds[1], wp, *folds[2])
+        return tuple(t.detach().float().contiguous() for t in args)
+
+    def _fused_forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        from deeplabv3p_torch.ops.kernels.mbconv import fused_inverted_residual
+
+        y = fused_inverted_residual(
+            inputs.permute(0, 2, 3, 1).contiguous(), *self.kernel_args(),
+            rate=self.rate, residual=self.skip_connection)
+        return y.permute(0, 3, 1, 2)  # NHWC -> channels_last NCHW, a view
+
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        if (self.fused_inference and not self.training and self.has_expand
+                and self.stride == 1):
+            return self._fused_forward(inputs)
         x = inputs
         if self.has_expand:
             x = relu6(self._sub("expand_BN")(self._sub("expand")(x)))
@@ -115,7 +152,7 @@ class MobileNetV2Body(nn.Module):
     (reference MobileNetV2_body, deeplabv3p_mobilenetv2.py:77-199)."""
 
     def __init__(self, output_stride: int = 16, alpha: float = 1.0,
-                 dtype=None, device=None):
+                 fused_mbconv: bool = False, dtype=None, device=None):
         super().__init__()
         tab = os_control_table(output_stride)
         kw = dict(dtype=dtype, device=device)
@@ -126,7 +163,8 @@ class MobileNetV2Body(nn.Module):
         for filters, stride, expansion, block_id, skip, rate in _BLOCKS:
             block = InvertedResBlock(
                 ch, expansion, tab.get(stride, stride), alpha, filters,
-                block_id, skip, rate=tab.get(rate, rate), **kw,
+                block_id, skip, rate=tab.get(rate, rate),
+                fused_inference=fused_mbconv, **kw,
             )
             self.add_module(f"block_{block_id}", block)
             ch = block.out_channels

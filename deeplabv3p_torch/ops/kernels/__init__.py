@@ -7,9 +7,11 @@ PyTorch version.
 | `fused_decoder_frontend`      | `csrc/decoder.cu` | `deeplabv3p_tpu/ops/pallas/decoder.py` `fused_decoder_frontend` |
 | `upsample_ce_forward`         | `csrc/upsample_ce.cu` | `deeplabv3p_tpu/ops/pallas/upsample_ce.py` `_fwd_kernel` |
 | `upsample_ce_backward`        | `csrc/upsample_ce.cu` | `deeplabv3p_tpu/ops/pallas/upsample_ce.py` `_bwd_kernel` |
+| `confusion_matrix_fused`      | `csrc/confusion.cu` | `deeplabv3p_tpu/ops/pallas/confusion.py` `confusion_matrix_fused` |
+| `fused_inverted_residual`     | `csrc/mbconv.cu`  | `deeplabv3p_tpu/ops/pallas/mbconv.py` `fused_inverted_residual` |
 
 `fused_upsample_ce` (in `upsample_ce.py`) is the differentiable loss tail
-that launches the last two.
+that launches the two `upsample_ce_*` kernels.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Nothing here touches CUDA or nvcc at import.
@@ -23,9 +25,17 @@ from deeplabv3p_torch.ops.kernels.aspp import (  # noqa: F401
     multirate_atrous_depthwise,
     multirate_atrous_depthwise_reference,
 )
+from deeplabv3p_torch.ops.kernels.confusion import (  # noqa: F401
+    confusion_matrix_fused,
+    confusion_matrix_fused_reference,
+)
 from deeplabv3p_torch.ops.kernels.decoder import (  # noqa: F401
     fused_decoder_frontend,
     fused_decoder_reference,
+)
+from deeplabv3p_torch.ops.kernels.mbconv import (  # noqa: F401
+    fused_inverted_residual,
+    fused_inverted_residual_reference,
 )
 from deeplabv3p_torch.ops.kernels.upsample_ce import (  # noqa: F401
     fused_upsample_ce,

@@ -1,11 +1,12 @@
 """Build, load and count the hand-written CUDA kernels.
 
-`ops/kernels/csrc/*.cu` are compiled with `nvcc` for sm_90a into ONE shared
-library with a plain C interface, at first use, into `<repo>/build/kernels/
-<hash>/` (listed in .gitignore). The hash covers the sources and the
-flags, so an edit rebuilds and an unchanged tree reuses the library. The
-library is loaded with `ctypes`; nothing here includes PyTorch's headers,
-which keeps the build to seconds.
+`ops/kernels/csrc/*.cu` are compiled with `nvcc` for sm_90a, one `nvcc -c`
+a source and all of them at once, then linked into ONE shared library with
+a plain C interface, at first use, into `<repo>/build/kernels/<hash>/`
+(listed in .gitignore). The hash covers the sources and the flags, so an
+edit rebuilds and an unchanged tree reuses the library. The library is
+loaded with `ctypes`; nothing here includes PyTorch's headers, which keeps
+the build to seconds.
 
 Every kernel wrapper is registered with `launch_counter`: it carries a
 plain integer `launches` that the wrapper increments where it launches its
@@ -30,7 +31,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libdeeplabv3p_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib = None
@@ -76,23 +77,40 @@ def build() -> Path:
         return lib_path
     nvcc = _find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        # one compiler a source, all started together; each logs to a file
+        jobs = []
+        for src in sources:
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            log = open(os.path.join(tmp, src.stem + ".log"), "w+")
+            jobs.append((cmd, obj, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+        ptxas, failed = "", []
+        for cmd, _, log, proc in jobs:
+            proc.wait()
+            log.seek(0)
+            text = log.read()
+            log.close()
+            ptxas += text
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp_lib, *(obj for _, obj, _, _ in jobs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp_lib, lib_path)  # atomic: a concurrent loader sees all or none
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or none
-    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    (out_dir / "ptxas.log").write_text(ptxas)
     build_info.update(
         path=str(lib_path), seconds=seconds, cached=False,
-        command=" ".join(cmd), ptxas=proc.stdout + proc.stderr,
+        command=" ".join([nvcc, *NVCC_FLAGS, "-c", "<each source>"]), ptxas=ptxas,
     )
     return lib_path
 
@@ -104,6 +122,7 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ll = ctypes.c_longlong
         lib.multirate_atrous_depthwise.argtypes = [
             p, p, p, p, p,           # x, kernels, scale, bias, out
             i, i, i, i, i, i,        # dtype, n, h, w, c, num_rates
@@ -131,6 +150,22 @@ def load_library() -> ctypes.CDLL:
             p,                       # stream
         ]
         lib.upsample_ce_backward.restype = i
+        lib.confusion_matrix_fused.argtypes = [
+            p, p, p,                 # labels, logits, out (C,C) int64, zeroed
+            i, i, ll, i,             # label dtype, logits dtype, pixels, classes
+            p,                       # stream
+        ]
+        lib.confusion_matrix_fused.restype = i
+        lib.fused_inverted_residual.argtypes = [
+            p, p, p, p, p, p, p, p, p, p,  # x, we, se, be, wd, sd, bd, wp, sp, bp
+            p,                       # out
+            i, i, i, i, i, i, i,     # dtype, n, h, w, cin, cexp, cout
+            i, i,                    # rate, residual
+            p,                       # stream
+        ]
+        lib.fused_inverted_residual.restype = i
+        lib.fused_inverted_residual_smem_bytes.argtypes = [i, i, i]  # rate, cin, elem bytes
+        lib.fused_inverted_residual_smem_bytes.restype = ll
         _lib = lib
     return _lib
 

@@ -9,8 +9,11 @@
   With `fused_loss` the model stops at its low-resolution logits and the
   loss tail is `fused_upsample_ce` (the CUDA kernels of
   `ops/kernels/csrc/upsample_ce.cu`), whose preds feed the train jaccard.
-* `make_eval_step`: uint8 batch -> normalise -> forward -> argmax ->
-  bincount confusion matrix, on the device.
+* `make_eval_step`: uint8 batch -> normalise -> forward ->
+  `confusion_matrix_fused` (argmax + confusion matrix in the CUDA kernel of
+  `ops/kernels/csrc/confusion.cu`; no full-resolution argmax map), on the
+  device. `accumulate_confusion` streams a dataset through it; both
+  `Trainer.evaluate` and `eval.eval_miou` use it.
 * `Trainer.fit`: the reference's two stages, a frozen-backbone transfer
   stage with a constant LR and fine-tuning with a decayed LR and optional
   weight averaging (reference train.py:172-244), with ReduceLROnPlateau
@@ -149,16 +152,35 @@ def make_train_step(
 
 def make_eval_step(model, num_classes: int):
     """`(images_u8, labels_u8) -> (C, C)` int64 confusion delta on the
-    device (JAX train.py:221-247): normalise, forward, argmax, bincount.
-    The model must be in eval mode."""
+    device (JAX train.py:221-247): normalise, forward, then argmax and
+    confusion matrix in one `confusion_matrix_fused` call on the NHWC view of
+    the logits. The model must be in eval mode."""
+    from deeplabv3p_torch.ops.kernels.confusion import confusion_matrix_fused
 
     @torch.no_grad()
     def step_fn(images_u8, labels_u8):
         images, labels = preprocess_eval_batch(images_u8, labels_u8, num_classes=num_classes)
         logits = model(images.permute(0, 3, 1, 2))
-        return metrics_lib.confusion_matrix(labels, torch.argmax(logits, dim=1), num_classes)
+        # channels_last NCHW -> NHWC is a view; contiguous() copies only if
+        # the model handed back another layout
+        return confusion_matrix_fused(
+            labels.contiguous(), logits.permute(0, 2, 3, 1).contiguous(), num_classes)
 
     return step_fn
+
+
+def accumulate_confusion(eval_step, data, num_classes: int, device) -> np.ndarray:
+    """Stream `data.epoch_batches()` (host batches: images u8, labels u8,
+    ...) through `eval_step`, one step a batch, the (C, C) matrix summed on
+    the device and copied to the host once, at the end."""
+    cm = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
+    feed = device_feed(data.epoch_batches(), device)
+    try:
+        for batch in feed:
+            cm += eval_step(batch[0], batch[1])
+    finally:
+        feed.close()
+    return cm.cpu().numpy()
 
 
 @contextlib.contextmanager
@@ -368,18 +390,14 @@ class Trainer:
         in eval mode; only the final (C, C) matrix reaches the host."""
         params = opt_lib.average_params(average_type, state.avg, state.params)
         was_training = self.model.training
-        cm = torch.zeros((self.num_classes, self.num_classes), dtype=torch.int64,
-                         device=self.device)
         self.model.eval()
         try:
             with swapped_parameters(state.params, params):
-                for host_batch in val_data.epoch_batches():
-                    images = torch.from_numpy(host_batch[0]).to(self.device)
-                    labels = torch.from_numpy(host_batch[1]).to(self.device)
-                    cm += self._eval_step(images, labels)
+                cm = accumulate_confusion(self._eval_step, val_data, self.num_classes,
+                                          self.device)
         finally:
             self.model.train(was_training)
-        return metrics_lib.segment_metrics_from_confusion(cm.cpu().numpy())
+        return metrics_lib.segment_metrics_from_confusion(cm)
 
 
 # ---------------------------------------------------------------------------

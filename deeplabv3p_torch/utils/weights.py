@@ -120,6 +120,32 @@ def to_jax_variables(model: nn.Module) -> dict:
     return unflatten(flat)
 
 
+def inverted_residual_kernel_args(
+    variables: Mapping, block_id: int, epsilon: float = 1e-3
+) -> tuple[np.ndarray, ...]:
+    """(we, se, be, wd, sd, bd, wp, sp, bp) of `fused_inverted_residual`
+    from the JAX variables of one MobileNetV2 block (`block_id` >= 1, the
+    blocks that have an expand conv): the flax 1x1 kernels (1,1,Cin,Cout)
+    as (Cin, Cout) matrices, the depthwise kernel (3,3,1,C) as (3,3,C), and
+    each BN folded to scale = gamma / sqrt(var + epsilon), bias = beta -
+    mean * scale, in f32. The port's `InvertedResBlock.kernel_args` gives
+    the same numbers from the same weights."""
+    prefix = f"expanded_conv_{block_id}_"
+    params = variables["params"]["backbone"][f"block_{block_id}"]
+    stats = variables["batch_stats"]["backbone"][f"block_{block_id}"]
+
+    def fold(name):
+        p, s = params[prefix + name]["bn"], stats[prefix + name]["bn"]
+        scale = np.asarray(p["scale"], np.float32) / np.sqrt(
+            np.asarray(s["var"], np.float32) + np.float32(epsilon))
+        return scale, np.asarray(p["bias"], np.float32) - np.asarray(s["mean"], np.float32) * scale
+
+    we = np.asarray(params[prefix + "expand"]["kernel"], np.float32)[0, 0]
+    wd = np.asarray(params[prefix + "depthwise"]["dw"]["kernel"], np.float32)[:, :, 0, :]
+    wp = np.asarray(params[prefix + "project"]["kernel"], np.float32)[0, 0]
+    return (we, *fold("expand_BN"), wd, *fold("depthwise_BN"), wp, *fold("project_BN"))
+
+
 def save_npz(path: str, variables: Mapping) -> None:
     """Save a variables tree as an .npz of flattened `params/.../kernel` paths."""
     np.savez(path, **flatten(variables))

@@ -173,6 +173,7 @@ def test_unported_options_raise(weights):
         tinf.DeepLab(mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match=".npz"):
         tinf.DeepLab(weights_path="trained_final.h5", **kw)
+    # segment_video is ported (test_torch_eval.py): a missing file is an IOError
     deeplab = tinf.DeepLab(**kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        deeplab.segment_video("video.mp4")
+    with pytest.raises(IOError, match="Couldn't open"):
+        deeplab.segment_video("no_such_video.mp4")

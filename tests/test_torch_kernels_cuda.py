@@ -18,14 +18,26 @@ within 1e-5 relative (f32 sums in another order over up to 4 M pixels),
 preds equal wherever the plain logits' top-2 gap exceeds 1e-5 (the two
 sides interpolate in another order, so a nearer tie may flip), and the
 gradient within 1e-5 * max|plain| + 1e-7.
+
+The confusion kernel (csrc/confusion.cu) counts integers: EQUAL to its plain
+version. The inverted-residual kernel (csrc/mbconv.cu) stores its expanded
+tensors e and d as bf16 whatever x's type, as its plain version does; the
+two sum their f32 products in another order, so a sum an ulp apart can round
+to the other bf16 neighbour (2^-8 relative on one of Cexp terms). Both x
+types are therefore held to the bf16 bound, 2e-2 * max(1, max|plain|), the
+tolerance of the JAX package's own test of this kernel.
 """
 
 import pytest
 import torch
 
 from deeplabv3p_torch.ops.kernels import (
+    confusion_matrix_fused,
+    confusion_matrix_fused_reference,
     fused_decoder_frontend,
     fused_decoder_reference,
+    fused_inverted_residual,
+    fused_inverted_residual_reference,
     fused_upsample_ce,
     multirate_atrous_depthwise,
     multirate_atrous_depthwise_reference,
@@ -202,3 +214,160 @@ def test_upsample_ce_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         wpx_t = wpx.transpose(1, 2).contiguous().transpose(1, 2)
         upsample_ce_backward(logits, labels, wpx_t, lse, (32, 32))
+
+
+# -- confusion_matrix_fused ----------------------------------------------------
+
+# (logits shape, logits dtype, labels dtype, largest label drawn)
+CONFUSION_CASES = [
+    ((8, 512, 512, 21), torch.float32, torch.int32, 21),   # the eval slice's call
+    ((8, 512, 512, 21), torch.bfloat16, torch.uint8, 21),
+    ((3, 37, 41, 6), torch.float32, torch.int64, 6),       # ragged: 4551 pixels
+    ((3149, 21), torch.float32, torch.int32, 29),          # labels up to 29 are invalid
+    ((2, 50, 30, 151), torch.float32, torch.uint8, 151),   # ADE20K's class count
+    ((1, 17, 19, 4), torch.bfloat16, torch.int64, 4),      # even C: padded row stride
+    ((77, 1), torch.float32, torch.int32, 1),
+]
+
+
+def confusion_case(shape, dtype, label_dtype, top, dev, seed=0):
+    """Seeded logits with planted exact ties and NaNs, labels with a 255
+    band, values up to `top` (>= C: invalid) and, where signed, negatives."""
+    gen = torch.Generator().manual_seed(seed)
+    c = shape[-1]
+    logits = torch.randn(shape, generator=gen)
+    flat = logits.reshape(-1, c)
+    n = flat.shape[0]
+    if c > 1:
+        tie = torch.arange(0, n, 7)
+        flat[tie] = flat[tie].max(dim=1, keepdim=True).values  # every class ties
+        pair = torch.arange(3, n, 11)
+        flat[pair, c - 1] = flat[pair].max(dim=1).values      # the last class ties the max
+        flat[torch.arange(5, n, 13), 0] = float("nan")
+    flat[torch.arange(2, n, 17)] = float("nan")                # all-NaN pixels
+    labels = torch.randint(0, top + 1, shape[:-1], generator=gen, dtype=torch.int64)
+    labels.reshape(-1)[: n // 9] = 255
+    if label_dtype != torch.uint8:
+        labels.reshape(-1)[n // 2: n // 2 + n // 10] = -1
+        labels.reshape(-1)[-1] = -255
+    return labels.to(label_dtype).to(dev), logits.to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("shape,dtype,label_dtype,top", CONFUSION_CASES)
+def test_confusion_kernel_equals_plain(dev, shape, dtype, label_dtype, top):
+    labels, logits = confusion_case(shape, dtype, label_dtype, top, dev)
+    c = shape[-1]
+    before = confusion_matrix_fused.launches
+    got = confusion_matrix_fused(labels, logits, c)
+    torch.cuda.synchronize()
+    assert confusion_matrix_fused.launches == before + 1
+    want = confusion_matrix_fused_reference(labels, logits, c)
+    assert got.shape == (c, c) and got.dtype == torch.int64
+    assert torch.equal(got, want)
+    valid = (labels.long() >= 0) & (labels.long() < c)
+    assert got.sum().item() == valid.sum().item()
+    # a second call gives the same matrix: the atomics' order does not matter
+    assert torch.equal(confusion_matrix_fused(labels, logits, c), got)
+
+
+def test_confusion_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    labels = torch.zeros(4, 8, dtype=torch.int32, device=dev)
+    logits = torch.zeros(4, 8, 5, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        confusion_matrix_fused(labels, logits.half(), 5)
+    with pytest.raises(TypeError, match="labels"):
+        confusion_matrix_fused(labels.to(torch.int16), logits, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        confusion_matrix_fused(labels, logits.transpose(0, 1).contiguous().transpose(0, 1), 5)
+    with pytest.raises(ValueError, match="labels are on"):
+        confusion_matrix_fused(labels.cpu(), logits, 5)
+    with pytest.raises(ValueError, match="num_classes"):
+        confusion_matrix_fused(labels, torch.zeros(4, 8, 300, device=dev), 300)
+    before = confusion_matrix_fused.launches
+    empty = confusion_matrix_fused(labels[:0], logits[:0], 5)
+    assert empty.sum().item() == 0 and confusion_matrix_fused.launches == before
+
+
+# -- fused_inverted_residual ------------------------------------------------------
+
+# (n, h, w, cin, cexp, cout, rate, residual): the 13 stride-1 expanded blocks
+# of the MobileNetV2 body at batch 8, 512x512, OS16 (blocks 2, 4-5, 7-9, 10,
+# 11-12, 13, 14-15, 16) ...
+MBCONV_BODY_CASES = [
+    (8, 128, 128, 24, 144, 24, 1, True),
+    (8, 64, 64, 32, 192, 32, 1, True),
+    (8, 32, 32, 64, 384, 64, 1, True),
+    (8, 32, 32, 64, 384, 96, 1, False),
+    (8, 32, 32, 96, 576, 96, 1, True),
+    (8, 32, 32, 96, 576, 160, 1, False),
+    (8, 32, 32, 160, 960, 160, 2, True),
+    (8, 32, 32, 160, 960, 320, 2, False),
+]
+# ... the JAX package's four test shapes, an OS8 tail block (rate 4) and
+# ragged maps whose sides are no multiple of the 8x8 tile
+MBCONV_OTHER_CASES = [
+    (2, 16, 16, 24, 144, 24, 1, True),
+    (1, 16, 16, 64, 384, 96, 1, False),
+    (2, 8, 8, 32, 192, 32, 2, True),
+    (1, 32, 16, 16, 96, 24, 1, False),
+    (2, 64, 64, 160, 960, 160, 4, True),
+    (2, 13, 11, 24, 144, 24, 1, True),
+    (1, 9, 20, 32, 100, 72, 3, False),
+    (3, 5, 3, 8, 17, 8, 2, True),
+]
+
+
+def mbconv_case(n, h, w, cin, cexp, cout, dtype, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, h, w, cin), generator=gen).to(dev, dtype)
+    we = (torch.randn((cin, cexp), generator=gen) * 0.2).to(dev)
+    wd = (torch.randn((3, 3, cexp), generator=gen) * 0.2).to(dev)
+    wp = (torch.randn((cexp, cout), generator=gen) * 0.1).to(dev)
+
+    def fold(c):
+        return ((torch.rand((c,), generator=gen) + 0.5).to(dev),
+                torch.randn((c,), generator=gen).to(dev))
+
+    se, be = fold(cexp)
+    sd, bd = fold(cexp)
+    sp, bp = fold(cout)
+    return x, we, se, be, wd, sd, bd, wp, sp, bp
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,h,w,cin,cexp,cout,rate,residual",
+                         MBCONV_BODY_CASES + MBCONV_OTHER_CASES)
+def test_mbconv_kernel_matches_plain(dev, n, h, w, cin, cexp, cout, rate, residual, dtype):
+    args = mbconv_case(n, h, w, cin, cexp, cout, dtype, dev)
+    before = fused_inverted_residual.launches
+    got = fused_inverted_residual(*args, rate=rate, residual=residual)
+    torch.cuda.synchronize()
+    assert fused_inverted_residual.launches == before + 1
+    want = fused_inverted_residual_reference(*args, rate=rate, residual=residual)
+    assert got.shape == (n, h, w, cout) and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    tol = 2e-2 * max(1.0, ref)
+    assert err <= tol, f"max|kernel - plain| = {err:.3g} > {tol:.3g} (max|plain| {ref:.3g})"
+
+
+def test_mbconv_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    args = list(mbconv_case(1, 8, 8, 8, 48, 8, torch.float32, dev))
+    with pytest.raises(ValueError, match="residual requires"):
+        fused_inverted_residual(*args[:7], args[7][:, :4].contiguous(), args[8][:4],
+                                args[9][:4], residual=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_inverted_residual(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError, match="float32 on x's device"):
+        fused_inverted_residual(args[0], args[1].bfloat16(), *args[2:])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_inverted_residual(args[0].half(), *args[1:])
+    odd = mbconv_case(1, 8, 8, 6, 36, 6, torch.float32, dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_inverted_residual(*odd)
+    wide = mbconv_case(1, 8, 8, 8, 48, 328, torch.float32, dev)
+    with pytest.raises(ValueError, match="Cout"):
+        fused_inverted_residual(*wide)
+    big = mbconv_case(1, 8, 8, 640, 64, 8, torch.float32, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_inverted_residual(*big, rate=8)
