@@ -10,10 +10,12 @@
    decoder kernels in f32 and bf16, the loss tail's forward and backward
    (csrc/upsample_ce.cu) at the training slice's (16,128,128,21) -> 512^2,
    the lite head's (2,32,32,21) -> 512^2 and a ragged (3,29,37,21) ->
-   (116,148); the confusion kernel (csrc/confusion.cu, EQUAL) at the eval
+   (116,148), the backward also at scale 1 and at an odd scale, and twice
+   in a row for bit-equal results; the confusion kernel (csrc/confusion.cu, EQUAL) at the eval
    slice's (8,512,512,21) in f32 and bf16, a ragged (3,37,41,6) and C = 151;
    the inverted-residual kernel (csrc/mbconv.cu) at the 13 block shapes of
-   the batch-8 512x512 OS16 body and the JAX tests' four, bf16 and f32;
+   the batch-8 512x512 OS16 body, the JAX tests' four, a ragged map and
+   OS8's rate 4, bf16 and f32;
 4. the serving path: 8 requests through `DeepLab` (mobilenetv2, full ASPP +
    decoder head, 512x512, OS16, 21 VOC classes, bf16, seeded weights) as
    built by default (fused ASPP kernel), then 8 more with the fused decoder
@@ -72,8 +74,9 @@ WARMUP = 3
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_SEED = 32, 16, 0
 EVAL_BATCH, EVAL_SEED = 8, 4
 # published peaks of one H100 SXM: device memory rate, f32 FMA rate outside
-# the tensor cores (every kernel here multiplies by f32 weights in f32)
-HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# the tensor cores, dense bf16 rate of the tensor cores (the inverted
+# residual's two products; every other kernel multiplies by f32 weights in f32)
+HBM_BYTES_PER_S, F32_FLOPS, BF16_TENSOR_FLOPS = 3.35e12, 67e12, 989e12
 # (logits shape, logits dtype name, labels dtype name): the eval slice's call first
 CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
                    ((8, 512, 512, 21), "bfloat16", "uint8"),
@@ -82,9 +85,13 @@ CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
 # (n, h, w, cin, cexp, cout, rate, residual) of tests/test_pallas_mbconv.py
 MBCONV_TEST_CASES = [(2, 16, 16, 24, 144, 24, 1, True), (1, 16, 16, 64, 384, 96, 1, False),
                      (2, 8, 8, 32, 192, 32, 2, True), (1, 32, 16, 16, 96, 24, 1, False)]
+# ... a map whose sides are no multiple of the 8x8 tile, and OS8's rate 4
+MBCONV_EXTRA_CASES = [(3, 37, 29, 24, 144, 24, 1, True), (1, 64, 64, 160, 960, 160, 4, True)]
 # (B, h, w, C) -> (H, W) loss-tail cases; the first is the training slice's
 UPSAMPLE_CE_CASES = [((16, 128, 128, 21), (512, 512)), ((2, 32, 32, 21), (512, 512)),
                      ((3, 29, 37, 21), (116, 148))]
+# the backward kernel alone also at scale 1 and at an odd scale
+UPSAMPLE_CE_BACKWARD_CASES = [((2, 24, 40, 21), (24, 40)), ((2, 24, 40, 21), (72, 120))]
 
 failures: list[str] = []
 
@@ -283,6 +290,8 @@ def main() -> None:
         rec = upsample_ce_check(torch, kce, shape, out_hw)
         if shape == UPSAMPLE_CE_CASES[0][0]:  # the training path's call
             records["upsample_ce"] = rec
+    for shape, out_hw in UPSAMPLE_CE_BACKWARD_CASES:
+        upsample_ce_backward_check(torch, kce, shape, out_hw)
 
     # -- 4c. confusion and inverted-residual kernels vs plain ---------------------
     print("confusion_matrix_fused (csrc/confusion.cu) vs plain, EQUAL:")
@@ -581,9 +590,31 @@ def upsample_ce_check(torch, kce, shape, out_hw) -> dict:
     check(grad_err <= 1e-5 * ref_max + 1e-7,
           f"upsample_ce {shape}->{out_hw} backward: max|err| {grad_err:.3g} <= "
           f"1e-5 * {ref_max:.3g} + 1e-7")
-    lse = kce.upsample_ce_forward(logits, labels, wpx, out_hw)[2]
+    lse = upsample_ce_backward_check(torch, kce, shape, out_hw, (logits, labels, wpx))
     return {"fwd_err": loss_err, "bwd_err": grad_err,
             "case": (logits, labels, wpx, tuple(out_hw), lse)}
+
+
+def upsample_ce_backward_check(torch, kce, shape, out_hw, case=None):
+    """The backward kernel by itself, from the forward kernel's lse: within
+    1e-5 max|plain| + 1e-7 of the plain version (its sums run in another
+    order, and its softmax is exp2 of log2(e)-scaled logits), and two calls
+    in a row bit-equal (one owner thread a cell, a fixed order of summation,
+    no atomics). Returns lse."""
+    if case is None:
+        logits, labels, sw, cw = upsample_ce_case(torch, shape, out_hw)
+        case = (logits, labels, kce.pixel_weights(labels, shape[-1], sw, cw))
+    logits, labels, wpx = case
+    lse = kce.upsample_ce_forward(logits, labels, wpx, out_hw)[2]
+    first = kce.upsample_ce_backward(logits, labels, wpx, lse, out_hw)
+    second = kce.upsample_ce_backward(logits, labels, wpx, lse, out_hw)
+    torch.cuda.synchronize()
+    ref = kce.upsample_ce_backward_reference(logits, labels, wpx, out_hw)
+    err, ref_max = (first - ref).abs().max().item(), ref.abs().max().item()
+    check(err <= 1e-5 * ref_max + 1e-7 and torch.equal(first, second),
+          f"upsample_ce_backward {shape}->{tuple(out_hw)} alone: max|err| {err:.3g} <= "
+          f"1e-5 * {ref_max:.3g} + 1e-7; two calls bit-equal: {torch.equal(first, second)}")
+    return lse
 
 
 def write_train_dataset(root: str, n: int, hw, num_classes: int, seed: int) -> str:
@@ -934,12 +965,14 @@ def mbconv_case(torch, shape, dtype, seed=0):
 
 def mbconv_checks(torch, kmb, body_shapes) -> dict:
     """The inverted-residual kernel against its plain version at the body's
-    13 shapes and the JAX tests' four, bf16 and f32. Both store e and d as
+    13 shapes, the JAX tests' four, a ragged map and OS8's rate 4, bf16 and
+    f32, the weights prepared on the fly as a caller without a module has
+    them. Both store e and d as
     bf16, and their f32 sums differ in order, so a sum an ulp apart can round
     to the other bf16 neighbour (2^-8 relative on one of Cexp terms): both x
     types are held to the bf16 bound of `tolerance`."""
     worst = 0.0
-    for shape in [*body_shapes, *MBCONV_TEST_CASES]:
+    for shape in [*body_shapes, *MBCONV_TEST_CASES, *MBCONV_EXTRA_CASES]:
         rate, residual = shape[6], shape[7]
         for dtype in (torch.bfloat16, torch.float32):
             args = mbconv_case(torch, shape, dtype)
@@ -1192,29 +1225,55 @@ def confusion_times(torch, kconf, rec, launches) -> dict:
             "library_calls": {"torch.argmax": argmax_ms, "torch.bincount": bincount_ms}}
 
 
+def mbconv_bound(shape, n_bytes: float) -> tuple[float, str]:
+    """(least ms, which limit): the two 1x1 products, counted once (not per
+    weight part, not per halo recompute), at the tensor cores' dense bf16
+    rate plus the 3x3 depthwise stencil at the f32 FMA rate, or the bytes
+    over the memory rate, whichever is larger."""
+    n, h, w, cin, cexp, cout = shape[:6]
+    by_ops = (2 * n * h * w * (cin * cexp + cexp * cout) / BF16_TENSOR_FLOPS
+              + 2 * 9 * n * h * w * cexp / F32_FLOPS) * 1e3
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def mbconv_times(torch, kmb, rec, launches, state) -> dict:
     """The inverted-residual kernel at each of the body's 13 shapes (bf16,
     batch 8) against its plain version and its bound, and each block of the
     body as a module, fused against its standard route (bf16 convolutions,
-    f32 BatchNorm, relu6). The JSON row's times are sums over the 13 shapes:
-    one forward's worth of calls."""
+    f32 BatchNorm, relu6). The kernel is timed as the module calls it, with
+    its weights prepared once; the time of a call that prepares them on the
+    fly is printed beside it. The JSON row's times are sums over the 13
+    shapes: one forward's worth of calls."""
+    from deeplabv3p_torch.ops.kernels._build import load_library
+
     rows = []
     card = card_line()
     body = state["with_mbconv"].backbone
     blocks = [b for b in (getattr(body, f"block_{i}") for i in range(17))
               if b.has_expand and b.stride == 1]
     print(f"fused_inverted_residual at the body's 13 shapes, bf16 (CUDA events, mean of 2x20 "
-          f"calls each; module = the block as the model calls it)  [{card}]:")
+          f"calls each; device = the profiler's kernel time; module = the block as the model "
+          f"calls it)  [{card}]:")
     for shape, block in zip(rec["shapes"], blocks):
         n, h, w, cin, cexp, cout, rate, residual = shape
         args = mbconv_case(torch, shape, torch.bfloat16)
+        prepared = kmb.prepare_inverted_residual(*args[1:], rate=rate, elem_size=2)
+        cfg = prepared.config
         ms, plain_ms = ab_ms(
-            lambda: kmb.fused_inverted_residual(*args, rate=rate, residual=residual),
+            lambda: kmb.fused_inverted_residual(*args, rate=rate, residual=residual,
+                                                prepared=prepared),
             lambda: kmb.fused_inverted_residual_reference(*args, rate=rate, residual=residual),
             iters=20)
+        unprepared_ms = event_ms(
+            lambda: kmb.fused_inverted_residual(*args, rate=rate, residual=residual), 20)
+        dev_us, _ = device_us(torch, lambda: kmb.fused_inverted_residual(
+            *args, rate=rate, residual=residual, prepared=prepared), calls=20)
+        per_sm = load_library().fused_inverted_residual_blocks_per_sm(1, cout, cfg.smem_bytes)
         weights = nbytes(*args[1:])
         flops = 2 * n * h * w * (cin * cexp + 9 * cexp + cexp * cout)
-        bound_ms, bound_by = bound(nbytes(args[0]) + n * h * w * cout * 2 + weights, flops)
+        bound_ms, bound_by = mbconv_bound(
+            shape, nbytes(args[0]) + n * h * w * cout * 2 + weights)
         x = args[0].permute(0, 3, 1, 2)
 
         def run(fused):
@@ -1224,18 +1283,25 @@ def mbconv_times(torch, kmb, rec, launches, state) -> dict:
 
         mod_fused, mod_plain = ab_ms(lambda: run(True), lambda: run(False), iters=20)
         block.fused_inference = True
-        print(f"  {shape}: kernel {ms * 1e3:.1f} us ({flops / ms / 1e9:.2f} TFLOP/s), bound "
-              f"{bound_ms * 1e3:.1f} us by {bound_by}, plain {plain_ms * 1e3:.1f} us; module "
-              f"fused {mod_fused * 1e3:.1f} us, standard {mod_plain * 1e3:.1f} us")
-        rows.append({"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "module_fused_ms": mod_fused,
-                     "module_standard_ms": mod_plain})
+        print(f"  {shape}: kernel {ms * 1e3:.1f} us (device {dev_us:.1f} us, "
+              f"{flops / (dev_us * 1e-6) / 1e12:.2f} TFLOP/s; {cfg.smem_bytes} B shared, "
+              f"{per_sm} block(s) an SM, chunk {cfg.chunk} x {cfg.stages} buffers), bound "
+              f"{bound_ms * 1e3:.1f} us by {bound_by}, plain {plain_ms * 1e3:.1f} us, preparing "
+              f"on the fly {unprepared_ms * 1e3:.1f} us; module fused {mod_fused * 1e3:.1f} us, "
+              f"standard {mod_plain * 1e3:.1f} us")
+        rows.append({"shape": list(shape), "ms": ms, "device_ms": dev_us * 1e-3,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "unprepared_ms": unprepared_ms, "blocks_per_sm": per_sm,
+                     "module_fused_ms": mod_fused, "module_standard_ms": mod_plain})
         del args, x
-    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms",
-                                                  "module_fused_ms", "module_standard_ms")}
-    print(f"  the 13 calls: kernel {total['ms'] * 1e3:.1f} us, bound "
-          f"{total['bound_ms'] * 1e3:.1f} us, plain {total['plain_ms'] * 1e3:.1f} us; modules "
-          f"fused {total['module_fused_ms'] * 1e3:.1f} us, standard "
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                  "unprepared_ms", "module_fused_ms",
+                                                  "module_standard_ms")}
+    print(f"  the 13 calls: kernel {total['ms'] * 1e3:.1f} us (device "
+          f"{total['device_ms'] * 1e3:.1f} us), bound {total['bound_ms'] * 1e3:.1f} us, plain "
+          f"{total['plain_ms'] * 1e3:.1f} us, preparing on the fly "
+          f"{total['unprepared_ms'] * 1e3:.1f} us; modules fused "
+          f"{total['module_fused_ms'] * 1e3:.1f} us, standard "
           f"{total['module_standard_ms'] * 1e3:.1f} us")
     by = {r["bound_by"] for r in rows}
     return {"name": "fused_inverted_residual", "route": "cuda",
@@ -1245,6 +1311,7 @@ def mbconv_times(torch, kmb, rec, launches, state) -> dict:
             "max_abs_err": rec["max_abs_err"], "ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": by.pop() if len(by) == 1 else "operations", "library_ms": None,
+            "device_ms": total["device_ms"], "unprepared_ms": total["unprepared_ms"],
             "module_fused_ms": total["module_fused_ms"],
             "module_standard_ms": total["module_standard_ms"], "per_shape": rows}
 

@@ -59,7 +59,9 @@ class InvertedResBlock(nn.Module):
     `fused_inference`: in inference mode a stride-1 block with an expand
     conv runs as ONE `fused_inverted_residual` call, its three BNs folded in
     f32 and its kernels kept f32 (the standard path casts them to the
-    compute dtype), the expanded tensors rounded to bf16 inside. Strided
+    compute dtype), the expanded tensors rounded to bf16 inside. The folds
+    and the kernel's weight layout are prepared once (`prepared_for`), not
+    on every forward. Strided
     blocks and block 0 keep the standard path, and so does training: the
     kernel carries no gradient."""
 
@@ -69,6 +71,7 @@ class InvertedResBlock(nn.Module):
                  fused_inference: bool = False, dtype=None, device=None):
         super().__init__()
         self.skip_connection = skip_connection
+        self._prepared: dict = {}
         self.stride, self.rate = stride, rate
         self.fused_inference = fused_inference
         self.out_channels = make_divisible(int(filters * alpha), 8)
@@ -102,12 +105,52 @@ class InvertedResBlock(nn.Module):
         args = (we, *folds[0], wd, *folds[1], wp, *folds[2])
         return tuple(t.detach().float().contiguous() for t in args)
 
-    def _fused_forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        from deeplabv3p_torch.ops.kernels.mbconv import fused_inverted_residual
+    # -- the kernel's prepared arguments, built once for inference ---------------
 
-        y = fused_inverted_residual(
-            inputs.permute(0, 2, 3, 1).contiguous(), *self.kernel_args(),
-            rate=self.rate, residual=self.skip_connection)
+    def _drop_prepared(self) -> None:
+        self._prepared = {}
+
+    def _weights_version(self) -> tuple[int, ...]:
+        """Counts that move when a parameter or BN buffer of the block is
+        written in place (an optimizer step, `copy_`)."""
+        return tuple(t._version for t in (*self.parameters(), *self.buffers()))
+
+    def prepared_for(self, x: torch.Tensor):
+        """`prepare_inverted_residual` of this block's `kernel_args()` for
+        inputs like x (its device and element size), built at the first
+        inference forward and kept until the weights change: `train()`,
+        `load_state_dict`, `.to()` and any other `_apply` drop it, and so
+        does an in-place write to a parameter or buffer."""
+        from deeplabv3p_torch.ops.kernels.mbconv import prepare_inverted_residual
+
+        key, version = (x.device, x.element_size()), self._weights_version()
+        hit = self._prepared.get(key)
+        if hit is None or hit[0] != version:
+            hit = (version, prepare_inverted_residual(
+                *self.kernel_args(), rate=self.rate, elem_size=x.element_size()))
+            self._prepared[key] = hit
+        return hit[1]
+
+    def train(self, mode: bool = True):
+        self._drop_prepared()
+        return super().train(mode)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._drop_prepared()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._drop_prepared()
+        return super()._load_from_state_dict(*args, **kwargs)
+
+    def _fused_forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        from deeplabv3p_torch.ops.kernels import mbconv
+
+        x = inputs.permute(0, 2, 3, 1).contiguous()
+        prepared = self.prepared_for(x)
+        y = mbconv.fused_inverted_residual(
+            x, *prepared.params, rate=self.rate, residual=self.skip_connection,
+            prepared=prepared)
         return y.permute(0, 3, 1, 2)  # NHWC -> channels_last NCHW, a view
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:

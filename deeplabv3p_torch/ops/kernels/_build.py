@@ -150,6 +150,8 @@ def load_library() -> ctypes.CDLL:
             p,                       # stream
         ]
         lib.upsample_ce_backward.restype = i
+        lib.upsample_ce_backward_smem_bytes.argtypes = [i, i, i]  # w, c, W
+        lib.upsample_ce_backward_smem_bytes.restype = ll
         lib.confusion_matrix_fused.argtypes = [
             p, p, p,                 # labels, logits, out (C,C) int64, zeroed
             i, i, ll, i,             # label dtype, logits dtype, pixels, classes
@@ -157,15 +159,15 @@ def load_library() -> ctypes.CDLL:
         ]
         lib.confusion_matrix_fused.restype = i
         lib.fused_inverted_residual.argtypes = [
-            p, p, p, p, p, p, p, p, p, p,  # x, we, se, be, wd, sd, bd, wp, sp, bp
-            p,                       # out
+            p, p, p,                 # x, prepared weights (mbconv.py), out
             i, i, i, i, i, i, i,     # dtype, n, h, w, cin, cexp, cout
             i, i,                    # rate, residual
+            i, i, i,                 # chunk, stages, shared-memory bytes
             p,                       # stream
         ]
         lib.fused_inverted_residual.restype = i
-        lib.fused_inverted_residual_smem_bytes.argtypes = [i, i, i]  # rate, cin, elem bytes
-        lib.fused_inverted_residual_smem_bytes.restype = ll
+        lib.fused_inverted_residual_blocks_per_sm.argtypes = [i, i, i]  # dtype, cout, smem bytes
+        lib.fused_inverted_residual_blocks_per_sm.restype = i
         _lib = lib
     return _lib
 

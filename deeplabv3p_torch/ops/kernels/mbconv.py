@@ -7,11 +7,20 @@ Counterpart of deeplabv3p_tpu/ops/pallas/mbconv.py. One call computes
     y = (d @ wp) * sp + bp  (+ x)                           project 1x1 + BN
 
 with the 6x-expanded tensors e and d kept out of device memory. The CUDA
-kernel is `csrc/mbconv.cu` (both 1x1 products are computed in its body);
-`fused_inverted_residual_reference` is its plain PyTorch version, after the
-JAX package's lax oracle. The depthwise conv's SAME padding is zero in
-E-space (after BN + relu6); e and d round to bf16 whatever x's type, the BN
-folds and the residual add are f32, the result has x's type.
+kernel is `csrc/mbconv.cu` (both 1x1 products are computed in its body, on
+the tensor cores); `fused_inverted_residual_reference` is its plain PyTorch
+version, after the JAX package's lax oracle. The depthwise conv's SAME
+padding is zero in E-space (after BN + relu6); e and d round to bf16
+whatever x's type, the BN folds and the residual add are f32, the result
+has x's type.
+
+The weights stay f32-exact on the tensor cores: each of `we` and `wp` is
+split once into a bf16 high and a bf16 low part (`split_bf16`), and the
+kernel runs one product for each part on the same activations.
+`prepare_inverted_residual` lays the parts out as the kernel's loads want
+them, one contiguous block of bytes for each chunk of expanded channels;
+a caller that runs the same block many times (`InvertedResBlock`) prepares
+once and passes the result as `prepared=`.
 
 Layout at this interface is the JAX one, NHWC; the model's channels_last
 NCHW tensors permute to it for free.
@@ -19,14 +28,21 @@ NCHW tensors permute to it for free.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 from deeplabv3p_torch.ops.kernels._build import check, launch_counter, load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_COUT = 320            # 10 output channels a lane (csrc/mbconv.cu)
+MAX_COUT = 320            # 10 tiles of 8 output channels a warp (csrc/mbconv.cu)
 MAX_SHARED_BYTES = 232448  # 227 KB a block on sm_90
+TILE = 8                  # output tile side of a block
+EXPAND_FOLD_ROWS = 2      # f32 rows of a chunk's expand part: se, be
+PROJECT_FOLD_ROWS = 11    # ... of its project part: the 9 depthwise taps, sd, bd
+_WARP_TILES = (1, 2, 3, 5, 10)  # project tiles of 8 channels a warp the kernel is built for
 
 
 def fused_inverted_residual_reference(
@@ -44,6 +60,140 @@ def fused_inverted_residual_reference(
     if residual:
         y = y + xf
     return y.to(x.dtype)
+
+
+def split_bf16(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo), both bf16, with hi + lo equal to the f32 `w` to 2^-16
+    relative: hi = bf16(w), lo = bf16(w - hi)."""
+    w = w.float()
+    hi = w.to(torch.bfloat16)
+    return hi, (w - hi.float()).to(torch.bfloat16)
+
+
+@dataclass(frozen=True)
+class KernelConfig:
+    """How one launch cuts its work, chosen so that a block's shared memory
+    fits the card: `chunk` expanded channels a pass (32 or 16), `stages`
+    buffers for the chunks' weights (2: the next chunk loads during this
+    one's arithmetic; 1: it loads after it)."""
+    chunk: int
+    stages: int
+    warp_tiles: int   # 8-channel project tiles a warp owns: Cout pads to 32 * warp_tiles
+    kpad: int         # Cin padded to the tensor-core depth, 16
+    smem_bytes: int
+
+    @property
+    def cout_pad(self) -> int:
+        return 32 * self.warp_tiles
+
+    @property
+    def x_stride(self) -> int:
+        """Bytes of one shared-memory row of K = kpad bf16 values: 16 bytes
+        of padding make the row an odd number of 16-byte units, so the 8
+        rows of a tensor-core load fall in 8 different bank groups."""
+        return 2 * self.kpad + 16
+
+    @property
+    def e_stride(self) -> int:
+        return 2 * self.chunk + 16
+
+    @property
+    def expand_bytes(self) -> int:
+        """A chunk's expand part: we hi, we lo (chunk rows of K), then se and
+        be (f32 rows of chunk)."""
+        return 2 * self.chunk * self.x_stride + EXPAND_FOLD_ROWS * self.chunk * 4
+
+    @property
+    def project_bytes(self) -> int:
+        """... and its project part: wp hi, wp lo (cout_pad rows of chunk),
+        then the 9 taps of wd, sd and bd (f32 rows of chunk). The kernel
+        loads the two parts at different times."""
+        return 2 * self.cout_pad * self.e_stride + PROJECT_FOLD_ROWS * self.chunk * 4
+
+    @property
+    def chunk_bytes(self) -> int:
+        return self.expand_bytes + self.project_bytes
+
+
+def kernel_config(cin: int, cout: int, rate: int, elem_size: int) -> KernelConfig:
+    """The first of (32, 2), (32, 1), (16, 2), (16, 1) (chunk, stages) whose
+    shared memory fits a block; raises ValueError if none does. An f32 x is
+    staged as a bf16 high and a bf16 low part."""
+    warp_tiles = next((t for t in _WARP_TILES if 32 * t >= cout), None)
+    if warp_tiles is None:
+        raise ValueError(f"fused_inverted_residual: Cout {cout} > {MAX_COUT}")
+    kpad = (cin + 15) // 16 * 16
+    side = TILE + 2 * rate
+    rows = (side * side + 15) // 16 * 16  # halo pixels, padded to the 16-row tiles
+    parts = 2 if elem_size == 4 else 1
+    smem = 0
+    for chunk, stages in ((32, 2), (32, 1), (16, 2), (16, 1)):
+        cfg = KernelConfig(chunk, stages, warp_tiles, kpad, 0)
+        smem = (parts * rows * cfg.x_stride + (rows + TILE * TILE) * cfg.e_stride
+                + stages * cfg.chunk_bytes)
+        if smem <= MAX_SHARED_BYTES:
+            return KernelConfig(chunk, stages, warp_tiles, kpad, smem)
+    raise ValueError(
+        f"fused_inverted_residual: rate {rate} x Cin {cin} x Cout {cout} needs {smem} bytes "
+        f"of shared memory a block at the smallest chunk, the card has {MAX_SHARED_BYTES}")
+
+
+@dataclass(frozen=True)
+class PreparedBlock:
+    """A block's parameters as the kernel reads them. `blob` (uint8) holds
+    `config.chunk_bytes` for each chunk of expanded channels, then sp and bp
+    padded to `config.cout_pad` f32 each; `params` are the nine f32 tensors
+    it was built from (the plain version's arguments)."""
+    params: tuple
+    blob: torch.Tensor
+    config: KernelConfig
+    cin: int
+    cexp: int
+    cout: int
+    rate: int
+    elem_size: int
+
+
+def _bytes(t: torch.Tensor, rows: int) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8).reshape(rows, -1)
+
+
+def prepare_inverted_residual(we, se, be, wd, sd, bd, wp, sp, bp, *, rate: int,
+                              elem_size: int) -> PreparedBlock:
+    """Split and lay out one block's f32 parameters for `csrc/mbconv.cu`,
+    for inputs of `elem_size` bytes an element (4: f32, 2: bf16). Padding
+    (Cin to 16, Cexp to the chunk, Cout to 32 * warp_tiles) is zeros, so a
+    padded row or column contributes exactly 0."""
+    cin, cexp = we.shape
+    cout = wp.shape[1]
+    cfg = kernel_config(cin, cout, int(rate), elem_size)
+    kc, dev = cfg.chunk, we.device
+    nch = (cexp + kc - 1) // kc
+    cexp_pad = nch * kc
+    # expand weights, transposed: row = expanded channel, K = Cin contiguous
+    we_t = torch.zeros((cexp_pad, cfg.x_stride // 2), dtype=torch.float32, device=dev)
+    we_t[:cexp, :cin] = we.float().t()
+    # project weights, transposed per chunk: row = output channel, K = chunk contiguous
+    wp_pad = torch.zeros((cexp_pad, cfg.cout_pad), dtype=torch.float32, device=dev)
+    wp_pad[:cexp, :cout] = wp.float()
+    wp_t = F.pad(wp_pad.reshape(nch, kc, cfg.cout_pad).permute(0, 2, 1), (0, 8))
+
+    def fold_rows(*vectors):  # (rows, Cexp) f32 -> a chunk's rows side by side
+        rows = torch.zeros((len(vectors), cexp_pad), dtype=torch.float32, device=dev)
+        for row, v in zip(rows, vectors):
+            row[:cexp] = v.float()
+        return rows.reshape(len(vectors), nch, kc).permute(1, 0, 2)
+
+    chunks = torch.cat([*(_bytes(part, nch) for part in split_bf16(we_t)),
+                        _bytes(fold_rows(se, be), nch),
+                        *(_bytes(part, nch) for part in split_bf16(wp_t)),
+                        _bytes(fold_rows(*wd.reshape(9, cexp), sd, bd), nch)], dim=1)
+    assert chunks.shape == (nch, cfg.chunk_bytes)
+    tail = torch.zeros((2, cfg.cout_pad), dtype=torch.float32, device=dev)
+    tail[0, :cout], tail[1, :cout] = sp.float(), bp.float()
+    blob = torch.cat([chunks.reshape(-1), _bytes(tail, 1).reshape(-1)])
+    return PreparedBlock((we, se, be, wd, sd, bd, wp, sp, bp), blob, cfg, cin, cexp, cout,
+                         int(rate), elem_size)
 
 
 def _check_args(x, we, se, be, wd, sd, bd, wp, sp, bp, rate, residual) -> None:
@@ -82,48 +232,64 @@ def fused_inverted_residual(
     *,
     rate: int = 1,
     residual: bool = False,
+    prepared: Optional[PreparedBlock] = None,
 ) -> torch.Tensor:
     """One pass over a stride-1 MobileNetV2 inverted residual; returns
     (N, H, W, Cout) in x's dtype. x float32 or bfloat16, every other tensor
     float32. CPU tensors run the plain version; CUDA tensors launch
     csrc/mbconv.cu (contiguous inputs on x's device, Cin a multiple of 4,
-    Cout <= 320, the staged input tile within the block's shared memory)."""
+    Cout <= 320, the staged tiles within the block's shared memory).
+    `prepared` is `prepare_inverted_residual` of the same nine tensors,
+    rate and x's element size (then the nine tensors are not checked
+    again); without it they are prepared on the fly."""
     params = (we, se, be, wd, sd, bd, wp, sp, bp)
-    _check_args(x, *params, rate, residual)
+    if prepared is None or x.device.type != "cuda":
+        _check_args(x, *params, rate, residual)
     if x.device.type == "cpu":
         return fused_inverted_residual_reference(x, *params, rate=rate, residual=residual)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
-    for t in params:
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError("the kernels and BN folds must be float32 on x's device")
-    for t in (x, *params):
-        if not t.is_contiguous():
-            raise ValueError("fused_inverted_residual needs contiguous inputs")
+    if prepared is None:
+        for t in params:
+            if t.device != x.device or t.dtype != torch.float32:
+                raise ValueError("the kernels and BN folds must be float32 on x's device")
+            if not t.is_contiguous():
+                raise ValueError("fused_inverted_residual needs contiguous inputs")
+    elif x.ndim != 4 or x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16 (N,H,W,Cin), got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("fused_inverted_residual needs contiguous inputs")
     n, h, w, cin = x.shape
-    cexp, cout = wp.shape
     if cin % 4 or x.data_ptr() % 16:
         raise ValueError("fused_inverted_residual: Cin must be a multiple of 4 and x "
                          "16-byte aligned (the input tile is staged 4 channels a load)")
-    if cout > MAX_COUT:
-        raise ValueError(f"fused_inverted_residual: Cout {cout} > {MAX_COUT}")
-    if n > 65535 or (h + 7) // 8 > 65535:
+    if n > 65535 or (h + TILE - 1) // TILE > 65535:
         raise ValueError("fused_inverted_residual: more than 65535 images or tile rows")
-    lib = load_library()
-    smem = lib.fused_inverted_residual_smem_bytes(int(rate), cin, x.element_size())
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"fused_inverted_residual: rate {rate} x Cin {cin} needs {smem} bytes of "
-            f"shared memory a block, the card has {MAX_SHARED_BYTES}")
+    if prepared is None:
+        if wp.shape[1] > MAX_COUT:
+            raise ValueError(f"fused_inverted_residual: Cout {wp.shape[1]} > {MAX_COUT}")
+        prepared = prepare_inverted_residual(*params, rate=rate, elem_size=x.element_size())
+    elif ((prepared.cin, prepared.rate, prepared.elem_size)
+          != (cin, int(rate), x.element_size()) or prepared.blob.device != x.device
+          or (residual and prepared.cout != cin)):
+        raise ValueError("fused_inverted_residual: `prepared` was built for another block, "
+                         "rate, input type or device")
+    cexp, cout = prepared.cexp, prepared.cout
+    cfg = prepared.config
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
-        status = lib.fused_inverted_residual(
-            x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(),
+    lib = load_library()
+    args = (x.data_ptr(), prepared.blob.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[x.dtype], n, h, w, cin, cexp, cout, int(rate), int(bool(residual)),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+            cfg.chunk, cfg.stages, cfg.smem_bytes,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if x.device.index == torch.cuda.current_device():
+        status = lib.fused_inverted_residual(*args)
+    else:
+        with torch.cuda.device(x.device):
+            status = lib.fused_inverted_residual(*args)
     check(status, "fused_inverted_residual")
     fused_inverted_residual.launches += 1
     return out

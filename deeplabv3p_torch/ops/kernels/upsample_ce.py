@@ -101,8 +101,10 @@ def upsample_ce_backward_reference(
     return torch.einsum("Yh,bYwc->bhwc", rh, d)
 
 
-def _check_scale(h: int, w: int, ho: int, wo: int) -> None:
-    if ho % h or wo % w or (ho, wo) == (h, w):
+def _check_scale(h: int, w: int, ho: int, wo: int, identity_ok: bool = False) -> None:
+    """The loss tail takes integer upsamples only, as the JAX one; the two
+    kernels by themselves also take the identity (scale 1)."""
+    if ho % h or wo % w or ((ho, wo) == (h, w) and not identity_ok):
         raise ValueError(f"fused loss expects an integer upsample, got {h, w}->{ho, wo}")
 
 
@@ -111,7 +113,7 @@ def _check_kernel_args(logits_lr, labels, wpx, out_hw, extra=()) -> None:
         raise TypeError(f"logits must be float32 (B,h,w,C), got {logits_lr.dtype} "
                         f"{tuple(logits_lr.shape)}")
     b, h, w, _ = logits_lr.shape
-    _check_scale(h, w, *out_hw)
+    _check_scale(h, w, *out_hw, identity_ok=True)
     want = (b, *out_hw)
     for name, t, dtype in (("labels", labels, torch.int32), ("wpx", wpx, torch.float32),
                            *extra):
@@ -121,7 +123,7 @@ def _check_kernel_args(logits_lr, labels, wpx, out_hw, extra=()) -> None:
             raise ValueError(f"{name} is on {t.device}, logits on {logits_lr.device}")
 
 
-def _kernel_ready(logits_lr, tensors, smem_floats: int, name: str) -> None:
+def _kernel_ready(logits_lr, tensors, smem_bytes: int, name: str) -> None:
     """Device, contiguity, size and shared-memory checks of a CUDA launch."""
     if logits_lr.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {logits_lr.device}")
@@ -132,8 +134,8 @@ def _kernel_ready(logits_lr, tensors, smem_floats: int, name: str) -> None:
             raise ValueError(f"{name}: tensors of 2^31 elements or more")
     if logits_lr.shape[0] > 65535:
         raise ValueError(f"{name}: batch above 65535")
-    if 4 * smem_floats > MAX_SHARED_BYTES:
-        raise ValueError(f"{name}: needs {4 * smem_floats} bytes of shared memory a "
+    if smem_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: needs {smem_bytes} bytes of shared memory a "
                          f"block, more than {MAX_SHARED_BYTES}")
 
 
@@ -150,7 +152,7 @@ def upsample_ce_forward(
         loss, preds = upsample_ce_reference(logits_lr, labels, out_hw, sample_weights=wpx)
         return loss, preds, torch.logsumexp(_upsample(logits_lr, out_hw), dim=-1)
     b, h, w, c = logits_lr.shape
-    _kernel_ready(logits_lr, (labels, wpx), 2 * w * c + 4 * wo, "upsample_ce_forward")
+    _kernel_ready(logits_lr, (labels, wpx), 4 * (2 * w * c + 4 * wo), "upsample_ce_forward")
     dev = logits_lr.device
     preds = torch.empty((b, ho, wo), dtype=torch.int32, device=dev)
     lse = torch.empty((b, ho, wo), dtype=torch.float32, device=dev)
@@ -181,11 +183,14 @@ def upsample_ce_backward(
         return upsample_ce_backward_reference(logits_lr, labels, wpx, out_hw)
     b, h, w, c = logits_lr.shape
     ho, wo = out_hw
-    _kernel_ready(logits_lr, (labels, wpx, lse), 4 * w * c + wo * c + 4 * wo,
+    if w > 32767:
+        raise ValueError("upsample_ce_backward: more than 32767 low-resolution columns")
+    lib = load_library()
+    _kernel_ready(logits_lr, (labels, wpx, lse),
+                  lib.upsample_ce_backward_smem_bytes(w, c, wo),
                   "upsample_ce_backward")
     dev = logits_lr.device
     d_lr = torch.empty_like(logits_lr)
-    lib = load_library()
     with torch.cuda.device(dev):
         status = lib.upsample_ce_backward(
             logits_lr.data_ptr(), labels.data_ptr(), wpx.data_ptr(), lse.data_ptr(),

@@ -17,13 +17,19 @@ The loss-tail kernels (csrc/upsample_ce.cu) are held to: the loss sum
 within 1e-5 relative (f32 sums in another order over up to 4 M pixels),
 preds equal wherever the plain logits' top-2 gap exceeds 1e-5 (the two
 sides interpolate in another order, so a nearer tie may flip), and the
-gradient within 1e-5 * max|plain| + 1e-7.
+gradient within 1e-5 * max|plain| + 1e-7 (the backward kernel sums over
+the rows before the columns and takes its softmax as exp2 of log2(e)-scaled
+logits; both differ from the plain version in rounding only). Two calls of
+the backward give the same bits: every cell has one owner thread and a
+fixed order of summation.
 
 The confusion kernel (csrc/confusion.cu) counts integers: EQUAL to its plain
 version. The inverted-residual kernel (csrc/mbconv.cu) stores its expanded
 tensors e and d as bf16 whatever x's type, as its plain version does; the
-two sum their f32 products in another order, so a sum an ulp apart can round
-to the other bf16 neighbour (2^-8 relative on one of Cexp terms). Both x
+two sum their f32 products in another order (the kernel on the tensor cores,
+from a bf16 high and a bf16 low part of each f32 weight), so a sum an ulp
+apart can round to the other bf16 neighbour (2^-8 relative on one of Cexp
+terms). Both x
 types are therefore held to the bf16 bound, 2e-2 * max(1, max|plain|), the
 tolerance of the JAX package's own test of this kernel.
 """
@@ -197,6 +203,34 @@ def test_upsample_ce_kernels_match_plain(dev, shape, out_hw):
     assert err <= 1e-5 * want_grad.abs().max().item() + 1e-7, err
 
 
+# the backward kernel alone: the cases above, then scale 1, an odd scale,
+# mixed scales and maps narrower than a block's warps
+UPSAMPLE_CE_BACKWARD_CASES = UPSAMPLE_CE_CASES + [
+    ((2, 24, 40, 21), (24, 40)),
+    ((2, 24, 40, 21), (72, 120)),
+    ((2, 9, 7, 4), (27, 7)),
+    ((1, 2, 2, 5), (6, 4)),
+    ((1, 1, 1, 3), (5, 7)),
+    ((1, 6, 5, 9), (12, 25)),
+]
+
+
+@pytest.mark.parametrize("shape,out_hw", UPSAMPLE_CE_BACKWARD_CASES)
+def test_upsample_ce_backward_alone_matches_plain_and_is_deterministic(dev, shape, out_hw):
+    logits, labels, sw, cw = upsample_ce_case(shape, out_hw, dev)
+    wpx = pixel_weights(labels, shape[-1], sw, cw)
+    lse = upsample_ce_forward(logits, labels, wpx, out_hw)[2]
+    before = upsample_ce_backward.launches
+    got = upsample_ce_backward(logits, labels, wpx, lse, out_hw)
+    again = upsample_ce_backward(logits, labels, wpx, lse, out_hw)
+    torch.cuda.synchronize()
+    assert upsample_ce_backward.launches == before + 2
+    want = upsample_ce_backward_reference(logits, labels, wpx, out_hw)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item() + 1e-7, err
+    assert torch.equal(got, again)
+
+
 def test_upsample_ce_wrappers_refuse_what_the_kernels_do_not_take(dev):
     logits, labels, sw, cw = upsample_ce_case((2, 8, 8, 5), (32, 32), dev)
     wpx = pixel_weights(labels, 5, sw, cw)
@@ -311,7 +345,9 @@ MBCONV_OTHER_CASES = [
     (2, 8, 8, 32, 192, 32, 2, True),
     (1, 32, 16, 16, 96, 24, 1, False),
     (2, 64, 64, 160, 960, 160, 4, True),
+    (1, 64, 64, 160, 960, 160, 4, True),
     (2, 13, 11, 24, 144, 24, 1, True),
+    (3, 37, 29, 24, 144, 24, 1, True),
     (1, 9, 20, 32, 100, 72, 3, False),
     (3, 5, 3, 8, 17, 8, 2, True),
 ]
@@ -349,6 +385,54 @@ def test_mbconv_kernel_matches_plain(dev, n, h, w, cin, cexp, cout, rate, residu
     ref = want.float().abs().max().item()
     tol = 2e-2 * max(1.0, ref)
     assert err <= tol, f"max|kernel - plain| = {err:.3g} > {tol:.3g} (max|plain| {ref:.3g})"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_mbconv_prepared_weights_give_the_same_bits(dev, dtype):
+    from deeplabv3p_torch.ops.kernels.mbconv import prepare_inverted_residual
+
+    args = mbconv_case(2, 19, 21, 32, 192, 32, dtype, dev)
+    prepared = prepare_inverted_residual(*args[1:], rate=2, elem_size=args[0].element_size())
+    on_the_fly = fused_inverted_residual(*args, rate=2, residual=True)
+    before = fused_inverted_residual.launches
+    got = fused_inverted_residual(*args, rate=2, residual=True, prepared=prepared)
+    torch.cuda.synchronize()
+    assert fused_inverted_residual.launches == before + 1
+    assert torch.equal(got, on_the_fly)
+    with pytest.raises(ValueError, match="prepared"):
+        fused_inverted_residual(*args, rate=1, residual=True, prepared=prepared)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(ValueError, match="prepared"):
+        fused_inverted_residual(args[0].to(other), *args[1:], rate=2, residual=True,
+                                prepared=prepared)
+
+
+def test_block_on_the_card_prepares_once_and_follows_its_weights(dev):
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+
+    model = build_deeplab_model("mobilenetv2", 21, fused_mbconv=True, dtype=torch.bfloat16,
+                                device="cpu")
+    init_parameters(model, torch.Generator().manual_seed(0))
+    block = model.eval().to(dev).backbone.block_4
+    x = torch.randn(2, 32, 24, 20, generator=torch.Generator().manual_seed(1)).to(dev)
+    x = x.bfloat16().contiguous(memory_format=torch.channels_last)
+    before = fused_inverted_residual.launches
+    with torch.inference_mode():
+        first = block(x)
+        prepared = block.prepared_for(x.permute(0, 2, 3, 1))
+        second = block(x)
+    assert fused_inverted_residual.launches == before + 2
+    assert block.prepared_for(x.permute(0, 2, 3, 1)) is prepared and torch.equal(first, second)
+    want = fused_inverted_residual_reference(
+        x.permute(0, 2, 3, 1).contiguous(), *block.kernel_args(), rate=1, residual=True)
+    _assert_close(first.permute(0, 2, 3, 1), want)
+    with torch.no_grad():
+        block._sub("project_BN").bias.add_(1.0)
+    with torch.inference_mode():
+        moved = block(x)
+    assert block.prepared_for(x.permute(0, 2, 3, 1)) is not prepared
+    assert (moved.float() - first.float()).abs().max().item() > 0.5
 
 
 def test_mbconv_wrapper_refuses_what_the_kernel_does_not_take(dev):

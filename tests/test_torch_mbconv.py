@@ -9,6 +9,11 @@
   `InvertedResBlock` with `fused_mbconv` off (1e-4: summation order) and on
   (2e-2: the kernel's bf16 e and d), both sides fed the same numbers
   through `utils.weights`;
+* the prepared form of a block's weights: the bf16 high and low parts sum
+  to the f32 weight to 2^-16 relative, the chunk layout decodes back to the
+  arguments it was built from, the configuration fits the card's shared
+  memory or raises, and `InvertedResBlock` builds it once and drops it when
+  the weights change;
 * the whole `mobilenetv2` model at 64 px, OS16 and OS8, `fused_mbconv` on
   against off in bf16: argmax masks agree on >= 98 % of pixels (the floor of
   tests/test_torch_inference.py), logits finite.
@@ -29,10 +34,19 @@ from deeplabv3p_tpu.ops.pallas.mbconv import (
     fused_inverted_residual_reference as jax_oracle,
 )
 from deeplabv3p_torch.models.factory import build_deeplab_model
+from deeplabv3p_torch.models.layers import init_parameters
 from deeplabv3p_torch.models.mobilenetv2 import InvertedResBlock
 from deeplabv3p_torch.ops.kernels import (
     fused_inverted_residual,
     fused_inverted_residual_reference,
+)
+from deeplabv3p_torch.ops.kernels.mbconv import (
+    EXPAND_FOLD_ROWS,
+    MAX_SHARED_BYTES,
+    PROJECT_FOLD_ROWS,
+    kernel_config,
+    prepare_inverted_residual,
+    split_bf16,
 )
 from deeplabv3p_torch.utils.weights import from_jax_variables, inverted_residual_kernel_args
 from test_torch_model import image, jax_variables, one_torch_thread  # noqa: F401 (a fixture)
@@ -42,6 +56,8 @@ CASES = [
     (1, 16, 16, 64, 384, 96, 1, False),  # Cout != Cin
     (2, 8, 8, 32, 192, 32, 2, True),     # dilated (OS8-style)
     (1, 32, 16, 16, 96, 24, 1, False),   # non-square
+    (1, 8, 8, 160, 960, 320, 2, False),  # the widest body block: 30 chunks, 10 tiles a warp
+    (1, 11, 9, 24, 144, 24, 1, True),    # ragged: sides no multiple of the 8x8 tile
 ]
 
 
@@ -199,3 +215,152 @@ def test_model_bf16_masks_agree_fused_on_against_off(output_stride):
         assert torch.isfinite(logits[fused]).all()
     agree = (logits[True].argmax(1) == logits[False].argmax(1)).float().mean().item()
     assert agree >= 0.98, f"bf16 mask agreement fused on/off {agree:.5f}"
+
+
+# -- the prepared weights ---------------------------------------------------------
+
+
+def test_hi_lo_split_carries_sixteen_bits_of_the_weight():
+    rng = np.random.RandomState(3)
+    w = torch.from_numpy((rng.randn(160, 960) * 0.2).astype(np.float32))
+    w[0, :4] = torch.tensor([0.0, 1.0, -3.0e-5, 6.0e4])
+    hi, lo = split_bf16(w)
+    assert hi.dtype == torch.bfloat16 and lo.dtype == torch.bfloat16
+    err = (hi.float() + lo.float() - w).abs()
+    assert (err <= 2.0 ** -16 * w.abs()).all()
+    # the low part is what one bf16 rounding leaves: without it the error is ~2^-9
+    assert (hi.float() - w).abs().max() > 2.0 ** -12 * w.abs().max()
+
+
+@pytest.mark.parametrize("cin,cexp,cout,rate,elem", [
+    (24, 144, 24, 1, 2), (160, 960, 320, 2, 2), (160, 960, 160, 4, 4), (8, 17, 8, 2, 4)])
+def test_prepared_chunks_decode_to_the_arguments(cin, cexp, cout, rate, elem):
+    """Every byte range of a chunk, read back as the kernel reads it."""
+    params = list(map(torch.from_numpy, _args(1, 1, 1, cin, cexp, cout)[1:]))
+    prep = prepare_inverted_residual(*params, rate=rate, elem_size=elem)
+    cfg = prep.config
+    assert cfg.smem_bytes <= MAX_SHARED_BYTES and cfg.cout_pad >= cout and cfg.kpad >= cin
+    kc, nch = cfg.chunk, -(-cexp // cfg.chunk)
+    assert prep.blob.dtype == torch.uint8
+    assert prep.blob.numel() == nch * cfg.chunk_bytes + 2 * 4 * cfg.cout_pad
+    chunks = prep.blob[: nch * cfg.chunk_bytes].reshape(nch, cfg.chunk_bytes)
+    we, se, be, wd, sd, bd, wp, sp, bp = params
+    n_we, n_wp = kc * cfg.x_stride, cfg.cout_pad * cfg.e_stride
+
+    def bf16(lo, count, row_bytes):
+        part = chunks[:, lo:lo + count].contiguous().view(torch.bfloat16)
+        return part.reshape(nch, -1, row_bytes // 2).float()
+
+    we_sum = bf16(0, n_we, cfg.x_stride) + bf16(n_we, n_we, cfg.x_stride)  # (nch, kc, K)
+    we_back = we_sum.reshape(nch * kc, -1)
+    assert torch.allclose(we_back[:cexp, :cin], we.t(), rtol=2.0 ** -16, atol=0)
+    assert (we_back[cexp:] == 0).all() and (we_back[:, cin:] == 0).all()
+    assert cfg.expand_bytes == 2 * n_we + EXPAND_FOLD_ROWS * kc * 4
+    assert cfg.project_bytes == 2 * n_wp + PROJECT_FOLD_ROWS * kc * 4
+
+    def f32_rows(lo, rows):
+        part = chunks[:, lo:lo + rows * kc * 4].contiguous().view(torch.float32)
+        return part.reshape(nch, rows, kc).permute(1, 0, 2).reshape(rows, nch * kc)
+
+    efolds = f32_rows(2 * n_we, EXPAND_FOLD_ROWS)
+    assert torch.equal(efolds[:, :cexp], torch.stack([se, be])) and (efolds[:, cexp:] == 0).all()
+    p0 = cfg.expand_bytes
+    wp_sum = bf16(p0, n_wp, cfg.e_stride) + bf16(p0 + n_wp, n_wp, cfg.e_stride)
+    wp_back = wp_sum[:, :, :kc].permute(0, 2, 1).reshape(nch * kc, cfg.cout_pad)
+    assert torch.allclose(wp_back[:cexp, :cout], wp, rtol=2.0 ** -16, atol=0)
+    assert (wp_back[cexp:] == 0).all() and (wp_back[:, cout:] == 0).all()
+    assert (wp_sum[:, :, kc:] == 0).all()
+    pfolds = f32_rows(p0 + 2 * n_wp, PROJECT_FOLD_ROWS)
+    want = torch.cat([wd.reshape(9, cexp), sd[None], bd[None]])
+    assert torch.equal(pfolds[:, :cexp], want) and (pfolds[:, cexp:] == 0).all()
+    tail = prep.blob[nch * cfg.chunk_bytes:].view(torch.float32).reshape(2, cfg.cout_pad)
+    assert torch.equal(tail[0, :cout], sp) and torch.equal(tail[1, :cout], bp)
+    assert (tail[:, cout:] == 0).all()
+
+
+def test_kernel_config_fits_the_card_or_raises():
+    worst = kernel_config(160, 320, 2, 2)          # block 16 of the OS16 body, bf16
+    assert (worst.chunk, worst.stages, worst.warp_tiles) == (32, 2, 10)
+    os8 = kernel_config(160, 160, 4, 2)            # OS8's rate 4
+    assert (os8.chunk, os8.stages) == (32, 2)
+    os8_f32 = kernel_config(160, 160, 4, 4)        # two bf16 parts of x: a smaller chunk
+    assert os8_f32.chunk == 16 and os8_f32.smem_bytes <= MAX_SHARED_BYTES
+    assert kernel_config(24, 24, 1, 2).warp_tiles == 1
+    assert kernel_config(32, 72, 3, 4).warp_tiles == 3
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel_config(640, 8, 8, 4)
+    with pytest.raises(ValueError, match="Cout"):
+        kernel_config(8, 328, 1, 4)
+
+
+def _block(block_id=4, dtype=None):
+    model = build_deeplab_model("mobilenetv2", 21, fused_mbconv=True, dtype=dtype, device="cpu")
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model.eval()
+    return model, getattr(model.backbone, f"block_{block_id}")
+
+
+def test_block_prepares_once_and_equals_the_uncached_call(monkeypatch):
+    from deeplabv3p_torch.ops.kernels import mbconv
+
+    built = []
+    real = mbconv.prepare_inverted_residual
+    monkeypatch.setattr(mbconv, "prepare_inverted_residual",
+                        lambda *a, **kw: built.append(kw) or real(*a, **kw))
+    _, block = _block()
+    x = torch.from_numpy(np.random.RandomState(1).randn(2, 32, 12, 10).astype(np.float32))
+    with torch.inference_mode():
+        first, second = block(x), block(x)
+    assert len(built) == 1 and built[0] == {"rate": 1, "elem_size": 4}
+    assert torch.equal(first, second)
+    uncached = fused_inverted_residual(x.permute(0, 2, 3, 1).contiguous(), *block.kernel_args(),
+                                       rate=block.rate, residual=block.skip_connection)
+    assert torch.equal(first.permute(0, 2, 3, 1), uncached)
+    with torch.inference_mode():
+        block(x.bfloat16())                      # another element size: its own entry
+        block(x.bfloat16())
+    assert [kw["elem_size"] for kw in built] == [4, 2]
+
+
+@pytest.mark.parametrize("change", ["train", "load_state_dict", "to", "in_place"])
+def test_block_drops_its_prepared_weights_when_they_change(change):
+    model, block = _block()
+    x = torch.from_numpy(np.random.RandomState(2).randn(1, 32, 9, 9).astype(np.float32))
+    with torch.inference_mode():
+        before = block(x)
+    old = block.prepared_for(x.permute(0, 2, 3, 1))
+    assert block.prepared_for(x.permute(0, 2, 3, 1)) is old  # kept while nothing changes
+    if change == "train":
+        model.train()
+        assert block._prepared == {}
+        model.eval()
+    elif change == "load_state_dict":
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        state["backbone.block_4.expanded_conv_4_project.weight"] *= 2.0
+        model.load_state_dict(state)
+        assert block._prepared == {}
+    elif change == "to":
+        model.to(torch.float64)
+        assert block._prepared == {}
+        model.to(torch.float32)
+    else:
+        with torch.no_grad():
+            block._sub("project_BN").bias.add_(1.0)
+    new = block.prepared_for(x.permute(0, 2, 3, 1))
+    assert new is not old
+    with torch.inference_mode():
+        after = block(x)
+    want = fused_inverted_residual(x.permute(0, 2, 3, 1).contiguous(), *block.kernel_args(),
+                                   rate=block.rate, residual=block.skip_connection)
+    assert torch.equal(after.permute(0, 2, 3, 1), want)  # the block's present weights
+    if change in ("load_state_dict", "in_place"):
+        assert not torch.equal(after, before)
+
+
+def test_prepared_for_another_block_is_refused_on_the_card_path():
+    """The check runs before any launch; on the CPU the plain version ignores
+    `prepared`, so only the dataclass's fields are held here."""
+    _, block = _block()
+    prep = block.prepared_for(torch.zeros(1, 4, 4, 32, dtype=torch.bfloat16))
+    assert (prep.cin, prep.cexp, prep.cout, prep.rate, prep.elem_size) == (32, 192, 32, 1, 2)
+    assert prep.blob.device.type == "cpu" and len(prep.params) == 9

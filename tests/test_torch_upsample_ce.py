@@ -17,6 +17,7 @@ import torch
 
 from deeplabv3p_tpu.ops.pallas import upsample_ce as jce
 from deeplabv3p_torch.ops.kernels import upsample_ce as tce
+from test_torch_model import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def case(b=2, h=8, w=8, c=5, scale=4, seed=0):
@@ -130,3 +131,37 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     loss, _ = tce.fused_upsample_ce(z, t(labels), out_hw, t(sw), t(cw))
     loss.backward()
     assert (tce.upsample_ce_forward.launches, tce.upsample_ce_backward.launches) == before
+
+
+# (h, w, scale_h, scale_w): an odd scale, scale 1 (the kernels alone take it;
+# the loss tail refuses it, as the JAX one), and mixed scales
+@pytest.mark.parametrize("h,w,sh,sw", [(8, 8, 3, 3), (24, 40, 1, 1), (6, 5, 2, 5)])
+def test_plain_backward_matches_jax_kernel_gradient_at_other_scales(h, w, sh, sw):
+    """The Pallas backward kernel in interpret mode, through the custom VJP
+    `_fused` on the folded pixel weights (its public wrapper refuses scale
+    1), against the port's plain backward: rtol 1e-5 / atol 1e-6, f32 sums in
+    another order."""
+    rng = np.random.RandomState(13)
+    b, c = 2, 5
+    logits = (2.0 * rng.randn(b, h, w, c)).astype(np.float32)
+    out_hw = (h * sh, w * sw)
+    labels = rng.randint(0, c, (b, *out_hw)).astype(np.int32)
+    labels[:, :2, :] = 255
+    labels[0, 3, :3] = c
+    sw_map = rng.uniform(0.0, 2.0, (b, *out_hw)).astype(np.float32)
+    cw = rng.uniform(0.5, 2.0, (c,)).astype(np.float32)
+    wpx = tce.pixel_weights(t(labels), c, t(sw_map), t(cw))
+
+    def f_jax(z):
+        z_cf = jnp.transpose(z, (0, 3, 1, 2))
+        loss, _ = jce._fused(z_cf, j(labels), j(wpx.numpy()), out_hw, jce._pick_tile(out_hw[0]),
+                             True)
+        return loss
+
+    want = np.asarray(jax.grad(f_jax)(j(logits)))
+    got = tce.upsample_ce_backward_reference(t(logits), t(labels), wpx, out_hw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    # the kernel-level wrappers take these shapes on the CPU too (plain versions)
+    lse = tce.upsample_ce_forward(t(logits), t(labels), wpx, out_hw)[2]
+    again = tce.upsample_ce_backward(t(logits), t(labels), wpx, lse, out_hw)
+    assert torch.equal(again, got)
