@@ -6,12 +6,18 @@
 1. prints the card (`nvidia-smi` name and power limit) and the versions;
 2. builds the CUDA kernels from deeplabv3p_torch/ops/kernels/csrc with nvcc;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at ragged ones, with TF32 off: the ASPP and
-   decoder kernels in f32 and bf16, the loss tail's forward and backward
-   (csrc/upsample_ce.cu) at the training slice's (16,128,128,21) -> 512^2,
-   the lite head's (2,32,32,21) -> 512^2 and a ragged (3,29,37,21) ->
-   (116,148), the backward also at scale 1 and at an odd scale, and twice
-   in a row for bit-equal results; the confusion kernel (csrc/confusion.cu, EQUAL) at the eval
+   main paths' shapes and at ragged ones, with TF32 off: the ASPP kernel in
+   f32 and bf16; the decoder kernel in f32 and bf16 at the serving shape, a
+   ragged one with non-integer scales, batch 8, OS8's scale 2 and channel
+   counts that are no multiple of 4, printing for each the channels a thread
+   owns and the blocks and shared memory of its plan; the loss tail's forward
+   and backward (csrc/upsample_ce.cu) at the training slice's (16,128,128,21)
+   -> 512^2, the lite head's (2,32,32,21) -> 512^2 and a ragged (3,29,37,21)
+   -> (116,148), each kernel also alone at scale 1 and at an odd scale and
+   twice in a row for bit-equal results, the forward besides at 6 and 151
+   classes, at scale 2 and at a width that is no multiple of 4, with its lse
+   held against torch.logsumexp; the confusion kernel (csrc/confusion.cu,
+   EQUAL) at the eval
    slice's (8,512,512,21) in f32 and bf16, a ragged (3,37,41,6) and C = 151;
    the inverted-residual kernel (csrc/mbconv.cu) at the 13 block shapes of
    the batch-8 512x512 OS16 body, the JAX tests' four, a ragged map and
@@ -87,11 +93,22 @@ MBCONV_TEST_CASES = [(2, 16, 16, 24, 144, 24, 1, True), (1, 16, 16, 64, 384, 96,
                      (2, 8, 8, 32, 192, 32, 2, True), (1, 32, 16, 16, 96, 24, 1, False)]
 # ... a map whose sides are no multiple of the 8x8 tile, and OS8's rate 4
 MBCONV_EXTRA_CASES = [(3, 37, 29, 24, 144, 24, 1, True), (1, 64, 64, 160, 960, 160, 4, True)]
+# (x_enc shape, skip shape) decoder cases: the serving path's, a ragged one with
+# non-integer scales, the serving maps at batch 8, OS8's scale 2, and channel
+# counts that are no multiple of 4 (one channel a thread)
+DECODER_CASES = [((1, 32, 32, 256), (1, 128, 128, 48)), ((2, 13, 11, 200), (2, 50, 41, 48)),
+                 ((8, 32, 32, 256), (8, 128, 128, 48)), ((1, 64, 64, 256), (1, 128, 128, 48)),
+                 ((1, 16, 16, 100), (1, 64, 64, 46))]
 # (B, h, w, C) -> (H, W) loss-tail cases; the first is the training slice's
 UPSAMPLE_CE_CASES = [((16, 128, 128, 21), (512, 512)), ((2, 32, 32, 21), (512, 512)),
                      ((3, 29, 37, 21), (116, 148))]
 # the backward kernel alone also at scale 1 and at an odd scale
 UPSAMPLE_CE_BACKWARD_CASES = [((2, 24, 40, 21), (24, 40)), ((2, 24, 40, 21), (72, 120))]
+# the forward kernel alone also there, at 6 and 151 classes (above 32 the batch-
+# at-a-time kernel), at scale 2 and at a width that is no multiple of 32 or 4
+UPSAMPLE_CE_FORWARD_CASES = UPSAMPLE_CE_BACKWARD_CASES + [
+    ((2, 64, 64, 6), (256, 256)), ((1, 16, 24, 151), (64, 96)), ((2, 50, 30, 21), (100, 60)),
+    ((2, 9, 7, 4), (27, 7))]
 
 failures: list[str] = []
 
@@ -272,16 +289,20 @@ def main() -> None:
 
     # -- 4. decoder kernel vs plain ------------------------------------------
     print("fused_decoder_frontend (csrc/decoder.cu) vs plain:")
-    for enc, skip in [((1, 32, 32, 256), (1, 128, 128, 48)), ((2, 13, 11, 200), (2, 50, 41, 48))]:
+    for enc, skip in DECODER_CASES:
         for dtype in (f32, bf16):
             args = decoder_case(torch, enc, skip, dtype, seed=2)
             got = kdec.fused_decoder_frontend(*args)
             torch.cuda.synchronize()
             err, ref = max_err(got, kdec.fused_decoder_reference(*args))
             tol = tolerance(ref, dtype)
+            tile, smem = kdec.launch_plan(enc[2], skip[2])
+            blocks = skip[0] * -(-skip[1] // tile) * -(-enc[3] // 32)
             check(err <= tol, f"decoder {enc}+{skip} {dtype}: max|err| {err:.3g} "
-                              f"<= {tol:.3g} (max|ref| {ref:.3g})")
-            if enc == (1, 32, 32, 256) and dtype == bf16:  # the serving path's call
+                              f"<= {tol:.3g} (max|ref| {ref:.3g}); "
+                              f"{kdec.vector_width(enc[3], skip[3], *args[:3], got)} channel(s) a "
+                              f"thread, {blocks} encoder blocks of {tile} rows, {smem} B shared")
+            if enc == DECODER_CASES[0][0] and dtype == bf16:  # the serving path's call
                 records["decoder"] = {"max_abs_err": err, "case": args}
 
     # -- 4b. loss-tail kernels vs plain ----------------------------------------
@@ -292,6 +313,8 @@ def main() -> None:
             records["upsample_ce"] = rec
     for shape, out_hw in UPSAMPLE_CE_BACKWARD_CASES:
         upsample_ce_backward_check(torch, kce, shape, out_hw)
+    for shape, out_hw in UPSAMPLE_CE_FORWARD_CASES:
+        upsample_ce_forward_check(torch, kce, shape, out_hw)
 
     # -- 4c. confusion and inverted-residual kernels vs plain ---------------------
     print("confusion_matrix_fused (csrc/confusion.cu) vs plain, EQUAL:")
@@ -456,13 +479,13 @@ def main() -> None:
         plain_dev_us, plain_launches = device_us(torch, lambda: ref_fn(*args))
         print(f"{name}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us a call "
               f"(CUDA events, mean of 2x200 calls each, serving-path shapes); device time "
-              f"a call (profiler): kernel {dev_us:.2f} us in {dev_launches} launch(es), "
-              f"plain {plain_dev_us:.2f} us in {plain_launches}")
+              f"a call (profiler): kernel {us_text(dev_us)} in {dev_launches} launch(es), "
+              f"plain {us_text(plain_dev_us)} in {plain_launches}")
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name],
                         "max_abs_err": records[key]["max_abs_err"],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+                        "bound_by": bound_by, "library_ms": None, "device_us": dev_us})
     kernels += upsample_ce_times(torch, kce, records["upsample_ce"], train_launches)
     kernels.append(confusion_times(torch, kconf, records["confusion"], eval_launches[0]))
     kernels.append(mbconv_times(torch, kmb, records["mbconv"], eval_launches[1], eval_state))
@@ -482,24 +505,34 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
-def device_us(torch, fn, calls: int = 50) -> tuple[float, float]:
+def device_us(torch, fn, calls: int = 50) -> tuple[float | None, float]:
     """(device time in us, device launches) a call of fn(), from the
     profiler's CUDA kernel events: what the card spends, without the host's
     dispatch time that CUDA events around short calls also take in. Some
     runs' traces miss kernels: a launch count below the call's whole
-    number of kernels shows it, and the time is then short by as much."""
+    number of kernels shows it, and the time is then short by as much. A
+    trace with no device time at all is taken once more; if that one is
+    empty too the time is None: not measured (the CUDA-event time stands)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    return (sum(e.self_device_time_total for e in events) / calls,
-            sum(e.count for e in events) / calls)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        total = sum(e.self_device_time_total for e in events)
+        if total > 0:
+            return total / calls, sum(e.count for e in events) / calls
+    return None, 0.0
+
+
+def us_text(us: float | None, digits: int = 2) -> str:
+    """A device time for print: 'not measured' where the trace gave none."""
+    return "not measured" if us is None else f"{us:.{digits}f} us"
 
 
 def profile_one_request(torch, deeplab, request) -> None:
@@ -590,9 +623,44 @@ def upsample_ce_check(torch, kce, shape, out_hw) -> dict:
     check(grad_err <= 1e-5 * ref_max + 1e-7,
           f"upsample_ce {shape}->{out_hw} backward: max|err| {grad_err:.3g} <= "
           f"1e-5 * {ref_max:.3g} + 1e-7")
+    upsample_ce_forward_check(torch, kce, shape, out_hw, (logits, labels, wpx))
     lse = upsample_ce_backward_check(torch, kce, shape, out_hw, (logits, labels, wpx))
     return {"fwd_err": loss_err, "bwd_err": grad_err,
             "case": (logits, labels, wpx, tuple(out_hw), lse)}
+
+
+def upsample_ce_forward_check(torch, kce, shape, out_hw, case=None) -> float:
+    """The forward kernel by itself against the plain version: loss within
+    1e-5 relative, preds equal where the top-2 gap exceeds 1e-5, lse within
+    1e-5 max|plain| + 1e-6 of torch.logsumexp of the plain upsample (the
+    kernel's exp2 and log2 are the approximate instructions, ~2 ulp), and two
+    calls in a row bit-equal in loss, preds and lse (one partial sum a block,
+    summed in a fixed order, no atomics). Returns the loss's error."""
+    if case is None:
+        logits, labels, sw, cw = upsample_ce_case(torch, shape, out_hw)
+        case = (logits, labels, kce.pixel_weights(labels, shape[-1], sw, cw))
+    logits, labels, wpx = case
+    first = kce.upsample_ce_forward(logits, labels, wpx, out_hw)
+    second = kce.upsample_ce_forward(logits, labels, wpx, out_hw)
+    torch.cuda.synchronize()
+    loss, preds, lse = first
+    same_bits = all(torch.equal(a, b) for a, b in zip(first, second))
+    ref_loss, ref_preds = kce.upsample_ce_reference(logits, labels, out_hw, sample_weights=wpx)
+    loss_err = abs(loss.item() - ref_loss.item())
+    full = kce._upsample(logits, out_hw)
+    top2 = full.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-5
+    ref_lse = torch.logsumexp(full, dim=-1)
+    lse_err, lse_max = (lse - ref_lse).abs().max().item(), ref_lse.abs().max().item()
+    smem, blocks = kce.forward_plan(*shape, *out_hw)
+    check(loss_err <= 1e-5 * abs(ref_loss.item()) and same_bits
+          and torch.equal(preds[clear], ref_preds[clear]) and lse_err <= 1e-5 * lse_max + 1e-6,
+          f"upsample_ce_forward {shape}->{tuple(out_hw)} alone: loss |err| {loss_err:.3g} <= 1e-5 "
+          f"* {abs(ref_loss.item()):.6g}; preds equal where the top-2 gap > 1e-5 "
+          f"({clear.float().mean().item():.6f} of pixels); lse max|err| {lse_err:.3g} <= 1e-5 * "
+          f"{lse_max:.3g} + 1e-6; two calls bit-equal: {same_bits}; {blocks} blocks of {smem} B "
+          "shared")
+    return loss_err
 
 
 def upsample_ce_backward_check(torch, kce, shape, out_hw, case=None):
@@ -877,13 +945,14 @@ def upsample_ce_times(torch, kce, rec, launches) -> list:
         plain_us, plain_launches = device_us(torch, plain, calls=10)
         print(f"{name}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us a call (CUDA "
               f"events, mean of 2x20 calls each, {tuple(logits.shape)} -> {out_hw}); device "
-              f"time a call (profiler): kernel {dev_us:.2f} us in {dev_launches} launch(es), "
-              f"plain {plain_us:.2f} us in {plain_launches}")
+              f"time a call (profiler): kernel {us_text(dev_us)} in {dev_launches} launch(es), "
+              f"plain {us_text(plain_us)} in {plain_launches}")
         rows.append({"name": name, "route": "cuda",
                      "source": "deeplabv3p_torch/ops/kernels/csrc/upsample_ce.cu",
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                     "device_us": dev_us})
     return rows
 
 
@@ -1283,22 +1352,29 @@ def mbconv_times(torch, kmb, rec, launches, state) -> dict:
 
         mod_fused, mod_plain = ab_ms(lambda: run(True), lambda: run(False), iters=20)
         block.fused_inference = True
-        print(f"  {shape}: kernel {ms * 1e3:.1f} us (device {dev_us:.1f} us, "
-              f"{flops / (dev_us * 1e-6) / 1e12:.2f} TFLOP/s; {cfg.smem_bytes} B shared, "
+        rate_text = ("rate not measured" if dev_us is None
+                     else f"{flops / (dev_us * 1e-6) / 1e12:.2f} TFLOP/s")
+        print(f"  {shape}: kernel {ms * 1e3:.1f} us (device {us_text(dev_us, 1)}, "
+              f"{rate_text}; {cfg.smem_bytes} B shared, "
               f"{per_sm} block(s) an SM, chunk {cfg.chunk} x {cfg.stages} buffers), bound "
               f"{bound_ms * 1e3:.1f} us by {bound_by}, plain {plain_ms * 1e3:.1f} us, preparing "
               f"on the fly {unprepared_ms * 1e3:.1f} us; module fused {mod_fused * 1e3:.1f} us, "
               f"standard {mod_plain * 1e3:.1f} us")
-        rows.append({"shape": list(shape), "ms": ms, "device_ms": dev_us * 1e-3,
+        rows.append({"shape": list(shape), "ms": ms,
+                     "device_ms": None if dev_us is None else dev_us * 1e-3,
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "unprepared_ms": unprepared_ms, "blocks_per_sm": per_sm,
                      "module_fused_ms": mod_fused, "module_standard_ms": mod_plain})
         del args, x
-    total = {k: sum(r[k] for r in rows) for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms",
                                                   "unprepared_ms", "module_fused_ms",
                                                   "module_standard_ms")}
+    # the device total only where every shape's trace gave a time
+    total["device_ms"] = (None if any(r["device_ms"] is None for r in rows)
+                          else sum(r["device_ms"] for r in rows))
+    device_total = None if total["device_ms"] is None else total["device_ms"] * 1e3
     print(f"  the 13 calls: kernel {total['ms'] * 1e3:.1f} us (device "
-          f"{total['device_ms'] * 1e3:.1f} us), bound {total['bound_ms'] * 1e3:.1f} us, plain "
+          f"{us_text(device_total, 1)}), bound {total['bound_ms'] * 1e3:.1f} us, plain "
           f"{total['plain_ms'] * 1e3:.1f} us, preparing on the fly "
           f"{total['unprepared_ms'] * 1e3:.1f} us; modules fused "
           f"{total['module_fused_ms'] * 1e3:.1f} us, standard "

@@ -134,9 +134,13 @@ def load_library() -> ctypes.CDLL:
             p, p, p, p, p, p,        # x_enc, skip, dw_kernel, scale, bias, out
             i, i, i, i, i, i, i, i,  # dtype, n, he, we, ce, hs, ws, cs
             f, f,                    # row / column source scale (in / out)
-            p,                       # stream
+            i, p,                    # channels a thread (4 or 1), stream
         ]
         lib.fused_decoder_frontend.restype = i
+        lib.fused_decoder_frontend_tile_rows.argtypes = [i, i]  # we, ws
+        lib.fused_decoder_frontend_tile_rows.restype = i
+        lib.fused_decoder_frontend_smem_bytes.argtypes = [i, i]  # we, ws
+        lib.fused_decoder_frontend_smem_bytes.restype = ll
         lib.upsample_ce_forward.argtypes = [
             p, p, p,                 # logits, labels, wpx
             p, p, p, p,              # preds, lse, partial sums, loss
@@ -144,6 +148,9 @@ def load_library() -> ctypes.CDLL:
             p,                       # stream
         ]
         lib.upsample_ce_forward.restype = i
+        for fn in (lib.upsample_ce_forward_smem_bytes, lib.upsample_ce_forward_blocks):
+            fn.argtypes = [i, i, i, i, i, i]  # b, h, w, c, H, W
+            fn.restype = ll
         lib.upsample_ce_backward.argtypes = [
             p, p, p, p, p,           # logits, labels, wpx, lse, d_logits
             i, i, i, i, i, i,        # b, h, w, c, H, W

@@ -5,6 +5,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cstddef>
 #include <cstdint>
 
 namespace dlk {
@@ -22,7 +23,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // round to nearest even, like torch's .to(bfloat16)
 }
 
-// Launch shape shared by both kernels: one thread per output element,
+// Launch shape of the ASPP kernel: one thread per output element,
 // a block covers kChanTile consecutive channels (threadIdx.x, so a warp reads
 // 32 neighbouring channels of one pixel: coalesced) of kPixTile pixels
 // (threadIdx.y). Grid x walks the pixels, grid y the channel tiles. Offsets
@@ -32,6 +33,18 @@ constexpr int kPixTile = 8;
 
 inline dim3 grid_for(int pixels, int channels) {
   return dim3((pixels + kPixTile - 1) / kPixTile, (channels + kChanTile - 1) / kChanTile);
+}
+
+// Shared memory a block can use on sm_90 (227 KB); above 48 KB only as dynamic
+// shared memory after the attribute is set.
+constexpr size_t kMaxSmem = 232448;
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace dlk

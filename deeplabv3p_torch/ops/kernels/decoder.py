@@ -12,10 +12,13 @@ features and the projected skip (CUDA kernel `csrc/decoder.cu`);
 `fused_decoder_reference` is the plain chain above in PyTorch.
 
 Layout at this interface is the JAX one, NHWC. Unlike the TPU kernel there
-is no `Ce % 128` rule: the CUDA kernel takes any channel count.
+is no `Ce % 128` rule: the CUDA kernel takes any channel count (4 channels a
+thread where Ce and Cs are multiples of 4, else one) and any scale.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +27,7 @@ from deeplabv3p_torch.ops.kernels._build import check, launch_counter, load_libr
 from deeplabv3p_torch.ops.resize import resize_bilinear
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SHARED_BYTES = 232448  # sm_90's 227 KB a block
 
 
 def fused_decoder_reference(
@@ -43,6 +47,24 @@ def fused_decoder_reference(
     y = F.conv2d(cat, w, padding=1, groups=c)
     y = y * scale.float().view(1, c, 1, 1) + bias.float().view(1, c, 1, 1)
     return torch.relu(y).to(x_enc.dtype).permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(we: int, ws: int) -> tuple[int, int]:
+    """(output rows a block owns, its shared memory in bytes) for an encoder
+    map `we` wide and an output `ws` wide, as csrc/decoder.cu plans it; 0 rows
+    when even a one-row tile exceeds a block's shared memory."""
+    lib = load_library()
+    return (lib.fused_decoder_frontend_tile_rows(we, ws),
+            lib.fused_decoder_frontend_smem_bytes(we, ws))
+
+
+def vector_width(ce: int, cs: int, *tensors: torch.Tensor) -> int:
+    """Channels a thread of the kernel owns: 4 (16-byte f32, 8-byte bf16
+    accesses) where Ce and Cs are multiples of 4 and every tensor starts on a
+    16-byte boundary, else 1."""
+    whole = ce % 4 == 0 and cs % 4 == 0
+    return 4 if whole and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
 
 
 def _check_args(x_enc, skip48, dw_kernel, scale, bias) -> None:
@@ -96,14 +118,19 @@ def fused_decoder_frontend(
     _, hs, ws, cs = skip48.shape
     if max(x_enc.numel(), n * hs * ws * (ce + cs)) >= 2**31:
         raise ValueError("fused_decoder_frontend: tensors of 2^31 elements or more")
-    out = torch.empty((n, hs, ws, ce + cs), dtype=x_enc.dtype, device=x_enc.device)
     lib = load_library()
+    tile_rows, smem = launch_plan(we, ws)
+    if tile_rows == 0:
+        raise ValueError(f"fused_decoder_frontend: a one-row tile needs {smem} bytes of "
+                         f"shared memory a block, more than {MAX_SHARED_BYTES}")
+    out = torch.empty((n, hs, ws, ce + cs), dtype=x_enc.dtype, device=x_enc.device)
+    vec = vector_width(ce, cs, x_enc, skip48, dw_kernel, out)
     with torch.cuda.device(x_enc.device):
         status = lib.fused_decoder_frontend(
             x_enc.data_ptr(), skip48.data_ptr(), dw_kernel.data_ptr(),
             scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[x_enc.dtype], n, he, we, ce, hs, ws, cs,
-            he / hs, we / ws, torch.cuda.current_stream(x_enc.device).cuda_stream,
+            he / hs, we / ws, vec, torch.cuda.current_stream(x_enc.device).cuda_stream,
         )
     check(status, "fused_decoder_frontend")
     fused_decoder_frontend.launches += 1

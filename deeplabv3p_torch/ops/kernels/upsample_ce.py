@@ -27,6 +27,7 @@ Layout is the JAX one, (B, h, w, C) logits, which the model's channels_last
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -139,6 +140,15 @@ def _kernel_ready(logits_lr, tensors, smem_bytes: int, name: str) -> None:
                          f"block, more than {MAX_SHARED_BYTES}")
 
 
+@functools.lru_cache(maxsize=None)
+def forward_plan(b: int, h: int, w: int, c: int, ho: int, wo: int) -> tuple[int, int]:
+    """(shared memory a block in bytes, number of blocks = partial loss sums)
+    of the forward kernel at this shape, as csrc/upsample_ce.cu plans it."""
+    lib = load_library()
+    return (lib.upsample_ce_forward_smem_bytes(b, h, w, c, ho, wo),
+            lib.upsample_ce_forward_blocks(b, h, w, c, ho, wo))
+
+
 @launch_counter
 def upsample_ce_forward(
     logits_lr: torch.Tensor, labels: torch.Tensor, wpx: torch.Tensor, out_hw
@@ -152,13 +162,15 @@ def upsample_ce_forward(
         loss, preds = upsample_ce_reference(logits_lr, labels, out_hw, sample_weights=wpx)
         return loss, preds, torch.logsumexp(_upsample(logits_lr, out_hw), dim=-1)
     b, h, w, c = logits_lr.shape
-    _kernel_ready(logits_lr, (labels, wpx), 4 * (2 * w * c + 4 * wo), "upsample_ce_forward")
+    lib = load_library()
+    smem_bytes, blocks = forward_plan(b, h, w, c, ho, wo)
+    _kernel_ready(logits_lr, (labels, wpx), smem_bytes, "upsample_ce_forward")
     dev = logits_lr.device
     preds = torch.empty((b, ho, wo), dtype=torch.int32, device=dev)
     lse = torch.empty((b, ho, wo), dtype=torch.float32, device=dev)
-    partial = torch.empty((b * ho,), dtype=torch.float32, device=dev)
+    # one partial loss sum a block
+    partial = torch.empty((blocks,), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    lib = load_library()
     with torch.cuda.device(dev):
         status = lib.upsample_ce_forward(
             logits_lr.data_ptr(), labels.data_ptr(), wpx.data_ptr(), preds.data_ptr(),

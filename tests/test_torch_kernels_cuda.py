@@ -13,15 +13,19 @@ f32 max|kernel - plain| <= 1e-5 * max|plain| + 1e-5; bf16 (one rounding of
 the f32 accumulator, at most one bf16 ulp = 2^-7 relative)
 <= 2e-2 * max(1, max|plain|).
 
-The loss-tail kernels (csrc/upsample_ce.cu) are held to: the loss sum
+The decoder kernel sums its 9 taps in another order than the plain version
+(the stencil's vertical half first, at the encoder's width), within the same
+bounds. The loss-tail kernels (csrc/upsample_ce.cu) are held to: the loss sum
 within 1e-5 relative (f32 sums in another order over up to 4 M pixels),
 preds equal wherever the plain logits' top-2 gap exceeds 1e-5 (the two
 sides interpolate in another order, so a nearer tie may flip), and the
 gradient within 1e-5 * max|plain| + 1e-7 (the backward kernel sums over
 the rows before the columns and takes its softmax as exp2 of log2(e)-scaled
-logits; both differ from the plain version in rounding only). Two calls of
-the backward give the same bits: every cell has one owner thread and a
-fixed order of summation.
+logits; both differ from the plain version in rounding only), and the
+forward's lse within 1e-5 * max|plain| + 1e-6 of torch.logsumexp of the plain
+upsample (exp2 and log2 by the approximate instructions). Two calls of
+either kernel give the same bits: every cell and every partial sum has one
+owner and a fixed order of summation.
 
 The confusion kernel (csrc/confusion.cu) counts integers: EQUAL to its plain
 version. The inverted-residual kernel (csrc/mbconv.cu) stores its expanded
@@ -115,6 +119,12 @@ DECODER_CASES = [
     ((2, 13, 11, 200), (2, 50, 41, 48)),    # ragged: non-integer scales
     ((1, 8, 8, 64), (1, 8, 8, 48)),         # no upsample
     ((1, 3, 5, 16), (1, 7, 11, 8)),
+    ((8, 32, 32, 256), (8, 128, 128, 48)),  # the main path's maps at batch 8
+    ((1, 64, 64, 256), (1, 128, 128, 48)),  # OS8: scale 2
+    ((1, 16, 16, 100), (1, 64, 64, 46)),    # channel counts that are no multiple of 4 or 8
+    ((2, 9, 7, 37), (2, 27, 21, 3)),        # ... and a ragged last channel group
+    ((1, 4, 160, 8), (1, 8, 320, 4)),       # an encoder map so wide that a block owns 2 rows
+    ((1, 5, 6, 40), (1, 5, 6, 0)),          # no skip channels
 ]
 
 
@@ -153,6 +163,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused_decoder_frontend(x, skip.bfloat16(), dwk, vec, vec)
     with pytest.raises(ValueError, match="contiguous"):
         fused_decoder_frontend(x, skip.transpose(1, 2), dwk, vec, vec)
+    # an encoder map so wide that even a one-row tile exceeds a block's shared memory
+    wide = torch.zeros(1, 2, 700, 4, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_decoder_frontend(wide, wide, torch.zeros(3, 3, 8, device=dev),
+                               torch.zeros(8, device=dev), torch.zeros(8, device=dev))
 
 
 # (B, h, w, C) -> (H, W): the training slice (512 px, OS4 logits after the
@@ -201,6 +216,50 @@ def test_upsample_ce_kernels_match_plain(dev, shape, out_hw):
     want_grad = upsample_ce_backward_reference(logits, labels, wpx, out_hw) * 0.37
     err = (z.grad - want_grad).abs().max().item()
     assert err <= 1e-5 * want_grad.abs().max().item() + 1e-7, err
+
+
+# the forward kernel alone: the cases above, then 6 and 151 classes (the batch-
+# at-a-time kernel above 32), scales 1, 2, 3 and 16, mixed scales, widths that
+# are no multiple of 32 and maps so small that the rows of a pair are split
+UPSAMPLE_CE_FORWARD_CASES = UPSAMPLE_CE_CASES + [
+    ((2, 64, 64, 6), (256, 256)),
+    ((1, 16, 24, 151), (64, 96)),
+    ((2, 50, 30, 21), (100, 60)),
+    ((2, 24, 40, 21), (24, 40)),
+    ((2, 24, 40, 21), (72, 120)),
+    ((1, 8, 9, 33), (128, 144)),
+    ((2, 9, 7, 4), (27, 7)),
+    ((1, 1, 1, 3), (5, 7)),
+    ((1, 6, 5, 9), (12, 25)),
+    ((4, 70, 300, 40), (280, 600)),       # a pair's rows walked in chunks of the buffer
+]
+
+
+@pytest.mark.parametrize("shape,out_hw", UPSAMPLE_CE_FORWARD_CASES)
+def test_upsample_ce_forward_alone_matches_plain_and_is_deterministic(dev, shape, out_hw):
+    """loss within 1e-5 relative, preds equal where the top-2 gap exceeds 1e-5,
+    lse within 1e-5 max|plain| + 1e-6 of torch.logsumexp of the plain upsample
+    (ex2.approx and lg2.approx are good to ~2 ulp), two calls bit-equal."""
+    from deeplabv3p_torch.ops.kernels.upsample_ce import _upsample
+
+    logits, labels, sw, cw = upsample_ce_case(shape, out_hw, dev)
+    wpx = pixel_weights(labels, shape[-1], sw, cw)
+    before = upsample_ce_forward.launches
+    loss, preds, lse = upsample_ce_forward(logits, labels, wpx, out_hw)
+    again = upsample_ce_forward(logits, labels, wpx, out_hw)
+    torch.cuda.synchronize()
+    assert upsample_ce_forward.launches == before + 2
+    for first, second in zip((loss, preds, lse), again):
+        assert torch.equal(first, second)
+    want_loss, want_preds = upsample_ce_reference(logits, labels, out_hw, sample_weights=wpx)
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    full = _upsample(logits, out_hw)
+    top2 = full.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-5
+    assert preds.dtype == torch.int32 and torch.equal(preds[clear], want_preds[clear])
+    want_lse = torch.logsumexp(full, dim=-1)
+    err = (lse - want_lse).abs().max().item()
+    assert err <= 1e-5 * want_lse.abs().max().item() + 1e-6, err
 
 
 # the backward kernel alone: the cases above, then scale 1, an odd scale,

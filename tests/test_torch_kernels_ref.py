@@ -28,6 +28,7 @@ from deeplabv3p_torch.ops.kernels import (
     multirate_atrous_depthwise,
     multirate_atrous_depthwise_reference,
 )
+from test_torch_model import one_torch_thread  # noqa: F401 (a fixture)
 
 ATOL = 1e-4
 
@@ -127,6 +128,41 @@ def test_decoder_plain_matches_pallas_interpret():
         *map(jnp.asarray, args), tile=8, interpret=True))
     got = fused_decoder_reference(*map(torch.from_numpy, args))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+# scale 2 (OS8) and non-integer scales; the Pallas kernel takes Ce % 128 == 0 only
+@pytest.mark.parametrize("enc_shape,skip_shape,pallas", [
+    ((1, 12, 12, 128), (1, 24, 24, 48), True),    # OS8 -> OS4, 2x
+    ((1, 5, 7, 128), (1, 17, 23, 48), True),      # non-integer scales, one row tile
+    ((2, 9, 10, 72), (2, 18, 20, 48), False),     # 2x, Ce % 128 != 0
+    ((1, 13, 11, 40), (1, 50, 41, 24), False),    # the card tests' ragged scales
+    ((1, 16, 16, 100), (1, 64, 64, 46), False),   # channel counts no multiple of 4
+], ids=["2x", "ragged", "2x_ce72", "ragged_ce40", "4x_ce100_cs46"])
+def test_decoder_plain_matches_jax_at_other_scales(enc_shape, skip_shape, pallas):
+    """The plain decoder against the lax oracle and, where its channel rule
+    allows, the Pallas kernel in interpret mode: f32 max abs error 1e-4."""
+    args = _decoder_case(8, enc_shape, skip_shape)
+    got = fused_decoder_frontend(*map(torch.from_numpy, args)).numpy()
+    want = np.asarray(jdec.fused_decoder_reference(*map(jnp.asarray, args)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    if pallas:
+        kernel = np.asarray(jdec.fused_decoder_frontend(
+            *map(jnp.asarray, args), tile=8, interpret=True))
+        np.testing.assert_allclose(got, kernel, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("ce,cs,offset,want", [
+    (256, 48, 0, 4), (100, 48, 0, 4), (100, 46, 0, 1), (37, 3, 0, 1), (256, 48, 1, 1),
+], ids=["serving", "ce100", "cs46", "odd", "unaligned"])
+def test_decoder_vector_width_follows_channels_and_alignment(ce, cs, offset, want):
+    """4 channels a thread only where both channel counts are multiples of 4
+    and every tensor starts on a 16-byte boundary."""
+    from deeplabv3p_torch.ops.kernels.decoder import vector_width
+
+    base = torch.zeros(64 + offset, dtype=torch.float32)
+    aligned = base[(-base.data_ptr() // 4) % 4:]          # starts on 16 bytes
+    assert aligned.data_ptr() % 16 == 0
+    assert vector_width(ce, cs, aligned, aligned[offset:]) == want
 
 
 def test_decoder_plain_bf16_keeps_dtype():

@@ -165,3 +165,41 @@ def test_plain_backward_matches_jax_kernel_gradient_at_other_scales(h, w, sh, sw
     lse = tce.upsample_ce_forward(t(logits), t(labels), wpx, out_hw)[2]
     again = tce.upsample_ce_backward(t(logits), t(labels), wpx, lse, out_hw)
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("c", [6, 21])
+@pytest.mark.parametrize("scale", [1, 3, 4, 16])
+def test_forward_wrapper_lse_matches_jax_logsumexp(scale, c):
+    """The CPU branch of `upsample_ce_forward` (what the backward kernel's
+    plain version is fed with) against jax.nn.logsumexp of the JAX upsample,
+    1e-5; its loss and preds against the JAX reference on the folded weights."""
+    from deeplabv3p_tpu.ops.resize import resize_bilinear as jax_resize
+
+    logits, labels, out_hw, sw, cw = case(b=2, h=6, w=5, c=c, scale=scale, seed=17 + scale)
+    wpx = tce.pixel_weights(t(labels), c, t(sw), t(cw))
+    loss, preds, lse = tce.upsample_ce_forward(t(logits), t(labels), wpx, out_hw)
+    want = jax.nn.logsumexp(jax_resize(j(logits), out_hw), axis=-1)
+    assert lse.shape == labels.shape and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    r_loss, r_preds = jce.upsample_ce_reference(j(logits), j(labels), out_hw, j(wpx.numpy()))
+    np.testing.assert_allclose(loss.item(), float(r_loss), rtol=1e-5)
+    np.testing.assert_array_equal(preds.numpy(), np.asarray(r_preds))
+
+
+@pytest.mark.parametrize("scale", [2, 3, 4, 16])
+def test_integer_phase_weights_are_the_interp_matrix(scale):
+    """The forward kernel takes its taps from integer arithmetic: output o
+    samples rows floor((o - s // 2) / s) and the next one (clamped), with the
+    fraction (d + 0.5) / s for an even scale s and d / s for an odd one, d =
+    (o - s // 2) mod s. That is `interp_matrix`, to the last bit."""
+    in_size = 7
+    out_size = in_size * scale
+    mat = np.zeros((out_size, in_size), np.float32)
+    for o in range(out_size):
+        fl, d = divmod(o - scale // 2, scale)
+        num = 2 * d + 1 if scale % 2 == 0 else 2 * d   # frac = num / (2 s)
+        w1 = np.float32(num) / np.float32(2 * scale)
+        w0 = np.float32(2 * scale - num) / np.float32(2 * scale)
+        mat[o, min(max(fl, 0), in_size - 1)] += w0
+        mat[o, min(max(fl + 1, 0), in_size - 1)] += w1
+    np.testing.assert_array_equal(mat, tce.interp_matrix(out_size, in_size))
