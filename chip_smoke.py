@@ -2,12 +2,16 @@
 """Smoke run of the PyTorch port (deeplabv3p_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout; one GPU
+    python3 chip_smoke.py --aspp   # steps 1-2 and the ASPP kernel alone
 
 1. prints the card (`nvidia-smi` name and power limit) and the versions;
 2. builds the CUDA kernels from deeplabv3p_torch/ops/kernels/csrc with nvcc;
 3. holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at ragged ones, with TF32 off: the ASPP kernel in
-   f32 and bf16; the decoder kernel in f32 and bf16 at the serving shape, a
+   f32 and bf16 at the serving (b1) and eval (b8) shapes, OS8, OS32's rates,
+   rates past the map, ragged channel counts and 4 rates, fused and bare,
+   printing each plan (channels a thread, blocks, band, shared memory); the
+   decoder kernel in f32 and bf16 at the serving shape, a
    ragged one with non-integer scales, batch 8, OS8's scale 2 and channel
    counts that are no multiple of 4, printing for each the channels a thread
    owns and the blocks and shared memory of its plan; the loss tail's forward
@@ -21,7 +25,8 @@
    slice's (8,512,512,21) in f32 and bf16, a ragged (3,37,41,6) and C = 151;
    the inverted-residual kernel (csrc/mbconv.cu) at the 13 block shapes of
    the batch-8 512x512 OS16 body, the JAX tests' four, a ragged map and
-   OS8's rate 4, bf16 and f32;
+   OS8's rate 4, bf16 and f32; torch.argmax (`mask_argmax`) on the card
+   against numpy's argmax on logits with planted ties and NaNs;
 4. the serving path: 8 requests through `DeepLab` (mobilenetv2, full ASPP +
    decoder head, 512x512, OS16, 21 VOC classes, bf16, seeded weights) as
    built by default (fused ASPP kernel), then 8 more with the fused decoder
@@ -55,6 +60,11 @@ Exits non-zero on any failure, and without printing a result when there is
 no CUDA device or no checkout around the script. The line before the last is
 the kernels' JSON record; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+`--aspp` runs only steps 1-2 and the ASPP kernel's checks and times (bf16 b1
+and b8, f32 b1), through the wrapper's public interface alone, so that the
+script can also time the kernel of another checkout: copy it into that
+checkout's root and run it there, in turns with this one.
 """
 
 from __future__ import annotations
@@ -93,6 +103,13 @@ MBCONV_TEST_CASES = [(2, 16, 16, 24, 144, 24, 1, True), (1, 16, 16, 64, 384, 96,
                      (2, 8, 8, 32, 192, 32, 2, True), (1, 32, 16, 16, 96, 24, 1, False)]
 # ... a map whose sides are no multiple of the 8x8 tile, and OS8's rate 4
 MBCONV_EXTRA_CASES = [(3, 37, 29, 24, 144, 24, 1, True), (1, 64, 64, 160, 960, 160, 4, True)]
+# (x shape, rates) ASPP cases: the serving path's (b1) and the eval path's (b8)
+# calls, OS8, OS32's rates, a C that is no multiple of 8 with a rate past the
+# map, a ragged map with rates past it, and 4 rates with C = 7
+ASPP_CASES = [((1, 32, 32, 320), (6, 12, 18)), ((8, 32, 32, 320), (6, 12, 18)),
+              ((1, 64, 64, 320), (12, 24, 36)), ((1, 16, 16, 320), (3, 6, 9)),
+              ((1, 16, 16, 100), (6, 12, 18)), ((2, 37, 29, 136), (12, 24, 36)),
+              ((3, 5, 4, 7), (3, 6, 9, 1))]
 # (x_enc shape, skip shape) decoder cases: the serving path's, a ragged one with
 # non-integer scales, the serving maps at batch 8, OS8's scale 2, and channel
 # counts that are no multiple of 4 (one channel a thread)
@@ -201,6 +218,146 @@ def max_err(got, want) -> tuple[float, float]:
     return err, ref
 
 
+def aspp_plan_text(torch, kaspp, x, rates) -> str:
+    """The wrapper's launch plan for x, where the checkout's wrapper has one."""
+    if not hasattr(kaspp, "launch_plan"):
+        return "no plan (an older wrapper)"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = kaspp.launch_plan(*x.shape, rates, x.dtype, True, x.data_ptr() % 16 == 0, sms)
+    return (f"{p.vec} channel(s) a thread, {p.blocks} blocks of {p.threads} threads, bands of "
+            f"{p.band} rows, {'segmented' if p.segmented else 'one-range'} slab of "
+            f"{p.slab_rows} rows, {p.smem_bytes} B shared")
+
+
+def aspp_checks(torch, kaspp) -> dict:
+    """The ASPP kernel against its plain version at ASPP_CASES in f32 and
+    bf16, fused (BN + ReLU) and, at the main path's two shapes, bare; a
+    second call with the same signature (the wrapper's kept plan) gives the
+    same bits. Returns the records the timing phase reuses: the serving
+    path's bf16 b1 call, the eval path's bf16 b8 call and the f32 model's b1."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    records = {}
+    print("multirate_atrous_depthwise (csrc/aspp.cu) vs plain:")
+    for i, (shape, rates) in enumerate(ASPP_CASES):
+        for dtype in (f32, bf16):
+            for fuse in (True, False) if i < 2 else (True,):
+                x, k, r, s, b = aspp_case(torch, shape, rates, dtype, seed=1)
+                s, b = (s, b) if fuse else (None, None)
+                got = kaspp.multirate_atrous_depthwise(x, k, r, s, b)
+                again = kaspp.multirate_atrous_depthwise(x, k, r, s, b)
+                torch.cuda.synchronize()
+                err, ref = max_err(got, kaspp.multirate_atrous_depthwise_reference(x, k, r, s, b))
+                tol = tolerance(ref, dtype)
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
+                check(err <= tol and same and all(g.dtype == dtype for g in got),
+                      f"aspp {shape} rates {rates} {dtype} {'bn_relu' if fuse else 'bare'}: "
+                      f"max|err| {err:.3g} <= {tol:.3g} (max|ref| {ref:.3g}), two calls "
+                      f"bit-equal: {same}; {aspp_plan_text(torch, kaspp, x, rates)}")
+                key = {(0, bf16): "aspp", (1, bf16): "aspp_b8", (0, f32): "aspp_f32"}.get(
+                    (i, dtype))
+                if key and fuse:
+                    records[key] = {"max_abs_err": err, "case": (x, k, r, s, b)}
+    return records
+
+
+def aspp_timing(torch, kaspp, args, iters: int) -> dict:
+    """One ASPP call's times: CUDA events around back-to-back calls of the
+    wrapper (its host work included) and of the plain version, the
+    profiler's device time a call, and the bound: x and the weights read
+    once, one output a rate written once, or 9 multiply-adds and the BN fold
+    an output at the f32 rate."""
+    fn = kaspp.multirate_atrous_depthwise
+    ref_fn = kaspp.multirate_atrous_depthwise_reference
+    x, k = args[0], args[1]
+    outs = len(args[2]) * x.numel()
+    bound_ms, bound_by = bound(nbytes(x, k, *args[3:]) + outs * x.element_size(),
+                               outs * (9 * 2 + 2))
+    ms, plain_ms = ab_ms(lambda: fn(*args), lambda: ref_fn(*args), iters=iters)
+    dev_us, dev_launches = device_us(torch, lambda: fn(*args))
+    plain_us, plain_launches = device_us(torch, lambda: ref_fn(*args))
+    print(f"multirate_atrous_depthwise {tuple(x.shape)} {x.dtype}: kernel {ms * 1e3:.2f} us, "
+          f"plain {plain_ms * 1e3:.2f} us a call (CUDA events, mean of 2x{iters} calls each); "
+          f"device time a call (profiler): kernel {us_text(dev_us)} in {dev_launches} "
+          f"launch(es), plain {us_text(plain_us)} in {plain_launches}; bound "
+          f"{bound_ms * 1e3:.2f} us by {bound_by}  [{card_line()}]")
+    return {"shape": list(x.shape), "dtype": str(x.dtype), "ms": ms, "plain_ms": plain_ms,
+            "device_us": dev_us, "plain_device_us": plain_us, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def aspp_host_breakdown(torch, kaspp, args, calls: int = 2000) -> None:
+    """Host time of one ASPP wrapper call and of its parts (host clock over
+    `calls` back-to-back calls, the card synchronized after them): what
+    CUDA events around back-to-back calls measure when the kernel is
+    shorter than the host's work."""
+    x, k, r, s, b = args
+    out = torch.empty((len(r), *x.shape), dtype=x.dtype, device=x.device)
+    parts = {"the wrapper": lambda: kaspp.multirate_atrous_depthwise(x, k, r, s, b),
+             "torch.empty of the output": lambda: torch.empty(
+                 (len(r), *x.shape), dtype=x.dtype, device=x.device),
+             "out.unbind(0)": lambda: out.unbind(0),
+             "torch.cuda.current_stream().cuda_stream":
+                 lambda: torch.cuda.current_stream().cuda_stream,
+             "torch.cuda.current_device()": torch.cuda.current_device,
+             "four is_contiguous()": lambda: (x.is_contiguous(), k.is_contiguous(),
+                                              s.is_contiguous(), b.is_contiguous()),
+             "five data_ptr()": lambda: (x.data_ptr(), k.data_ptr(), s.data_ptr(),
+                                         b.data_ptr(), out.data_ptr())}
+    if hasattr(kaspp, "_signature"):
+        parts["the signature key"] = lambda: kaspp._signature(x, k, r, s, b)
+        lib, plan = kaspp.load_library(), kaspp._plans[kaspp._signature(x, k, r, s, b)][1]
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = (x.data_ptr(), k.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(), plan)
+        parts["the library call alone (ctypes + launch)"] = (
+            lambda: lib.multirate_atrous_depthwise(*ptrs, stream))
+        parts["torch._C._cuda_getCurrentRawStream"] = (
+            lambda: torch._C._cuda_getCurrentRawStream(x.device.index))
+    text = []
+    for name, fn in parts.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        text.append(f"{name} {(time.perf_counter() - t) / calls * 1e6:.2f}")
+    print(f"  host us a call ({tuple(x.shape)} {x.dtype}, {calls} calls): " + ", ".join(text))
+
+
+def aspp_plan_sweep(torch, kaspp, records) -> None:
+    """Device time of the kernel at the b1 and b8 bf16 calls for other
+    targets of blocks an SM (the plan's BLOCKS_PER_SM), the plans printed."""
+    if not hasattr(kaspp, "BLOCKS_PER_SM"):
+        return
+    chosen = kaspp.BLOCKS_PER_SM
+    for target in (1, 2, 4, 8, 16):
+        kaspp.BLOCKS_PER_SM = target
+        kaspp._plans.clear()
+        for key in ("aspp", "aspp_b8"):
+            args = records[key]["case"]
+            dev, _ = device_us(torch, lambda: kaspp.multirate_atrous_depthwise(*args))
+            print(f"  plan sweep, {target} blocks an SM aimed at, {tuple(args[0].shape)}: device "
+                  f"{us_text(dev)}; {aspp_plan_text(torch, kaspp, args[0], args[2])}")
+    kaspp.BLOCKS_PER_SM = chosen
+    kaspp._plans.clear()
+
+
+def aspp_times(torch, kaspp, records, launches) -> dict:
+    """The ASPP kernel's kernels-JSON row: the serving path's bf16 b1 call,
+    with the eval path's bf16 b8 call and the f32 model's b1 call beside it."""
+    row = aspp_timing(torch, kaspp, records["aspp"]["case"], iters=200)
+    b8 = aspp_timing(torch, kaspp, records["aspp_b8"]["case"], iters=100)
+    f32_b1 = aspp_timing(torch, kaspp, records["aspp_f32"]["case"], iters=200)
+    return {"name": "multirate_atrous_depthwise", "route": "cuda",
+            "source": "deeplabv3p_torch/ops/kernels/csrc/aspp.cu",
+            "replaces": "deeplabv3p_tpu/ops/pallas/aspp.py:85", "launches": launches,
+            "max_abs_err": records["aspp"]["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None, "device_us": row["device_us"],
+            "shape": row["shape"], "dtype": row["dtype"], "b8": b8, "f32_b1": f32_b1}
+
+
 def make_requests(preprocess_image):
     """Seeded uint8 images at the original sizes, preprocessed as a user's
     request is (PIL bicubic resize + normalise), or, where PIL is missing,
@@ -271,21 +428,22 @@ def main() -> None:
             print("  ptxas:", line.strip())
 
     f32, bf16 = torch.float32, torch.bfloat16
+    if "--aspp" in sys.argv[1:]:  # the ASPP kernel alone
+        aspp_records = aspp_checks(torch, kaspp)
+        row = aspp_times(torch, kaspp, aspp_records, None)
+        for key in ("aspp", "aspp_b8"):
+            aspp_host_breakdown(torch, kaspp, aspp_records[key]["case"])
+        aspp_plan_sweep(torch, kaspp, aspp_records)
+        print(json.dumps({"kernels": [row]}))
+        if failures:
+            die(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
     records = {}
 
     # -- 3. ASPP kernel vs plain ---------------------------------------------
-    print("multirate_atrous_depthwise (csrc/aspp.cu) vs plain:")
-    for shape, rates in [((1, 32, 32, 320), (6, 12, 18)), ((2, 37, 29, 136), (12, 24, 36))]:
-        for dtype in (f32, bf16):
-            x, k, r, s, b = aspp_case(torch, shape, rates, dtype, seed=1)
-            got = kaspp.multirate_atrous_depthwise(x, k, r, s, b)
-            torch.cuda.synchronize()
-            err, ref = max_err(got, kaspp.multirate_atrous_depthwise_reference(x, k, r, s, b))
-            tol = tolerance(ref, dtype)
-            check(err <= tol, f"aspp {shape} rates {rates} {dtype}: max|err| {err:.3g} "
-                              f"<= {tol:.3g} (max|ref| {ref:.3g})")
-            if shape == (1, 32, 32, 320) and dtype == f32:  # the serving path's call
-                records["aspp"] = {"max_abs_err": err, "case": (x, k, r, s, b)}
+    records.update(aspp_checks(torch, kaspp))
 
     # -- 4. decoder kernel vs plain ------------------------------------------
     print("fused_decoder_frontend (csrc/decoder.cu) vs plain:")
@@ -322,6 +480,7 @@ def main() -> None:
         rec = confusion_check(torch, kconf, *case)
         if i == 0:  # the eval path's call
             records["confusion"] = rec
+    argmax_check(torch, kconf, mask_argmax)
     print("fused_inverted_residual (csrc/mbconv.cu) vs plain:")
     body_shapes = body_block_shapes(EVAL_BATCH, INPUT)
     check(len(body_shapes) == 13, f"the OS16 body has 13 stride-1 expanded blocks: "
@@ -448,44 +607,31 @@ def main() -> None:
     train_step_numbers(torch, batch)
     eval_numbers(torch, eval_state)
 
-    kernels = []
-    for key, name, fn, ref_fn, src, replaces in (
-        ("aspp", "multirate_atrous_depthwise", kaspp.multirate_atrous_depthwise,
-         kaspp.multirate_atrous_depthwise_reference,
-         "deeplabv3p_torch/ops/kernels/csrc/aspp.cu", "deeplabv3p_tpu/ops/pallas/aspp.py:85"),
-        ("decoder", "fused_decoder_frontend", kdec.fused_decoder_frontend,
-         kdec.fused_decoder_reference,
-         "deeplabv3p_torch/ops/kernels/csrc/decoder.cu",
-         "deeplabv3p_tpu/ops/pallas/decoder.py:81"),
-    ):
-        args = records[key]["case"]
-        if key == "aspp":
-            # x read once, one output a rate; 9 multiply-adds + the BN fold an output
-            x, k = args[0], args[1]
-            outs = len(args[2]) * x.numel()
-            bound_ms, bound_by = bound(nbytes(x, k, *args[3:]) + outs * x.element_size(),
-                                       outs * (9 * 2 + 2))
-        else:
-            # both inputs read once, the concat's depthwise output written once; each
-            # upsampled element interpolated once (3 lerps) and 9 multiply-adds + the
-            # BN fold an output
-            x, skip = args[0], args[1]
-            pixels = skip.shape[0] * skip.shape[1] * skip.shape[2]
-            outs = pixels * (x.shape[-1] + skip.shape[-1])
-            bound_ms, bound_by = bound(nbytes(*args) + outs * x.element_size(),
-                                       pixels * x.shape[-1] * 6 + outs * (9 * 2 + 2))
-        ms, plain_ms = ab_ms(lambda: fn(*args), lambda: ref_fn(*args))
-        dev_us, dev_launches = device_us(torch, lambda: fn(*args))
-        plain_dev_us, plain_launches = device_us(torch, lambda: ref_fn(*args))
-        print(f"{name}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us a call "
-              f"(CUDA events, mean of 2x200 calls each, serving-path shapes); device time "
-              f"a call (profiler): kernel {us_text(dev_us)} in {dev_launches} launch(es), "
-              f"plain {us_text(plain_dev_us)} in {plain_launches}")
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name],
-                        "max_abs_err": records[key]["max_abs_err"],
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None, "device_us": dev_us})
+    kernels = [aspp_times(torch, kaspp, records, launches["multirate_atrous_depthwise"])]
+    # the decoder: both inputs read once, the concat's depthwise output written
+    # once; each upsampled element interpolated once (3 lerps) and 9 multiply-adds
+    # + the BN fold an output
+    args = records["decoder"]["case"]
+    x, skip = args[0], args[1]
+    pixels = skip.shape[0] * skip.shape[1] * skip.shape[2]
+    outs = pixels * (x.shape[-1] + skip.shape[-1])
+    bound_ms, bound_by = bound(nbytes(*args) + outs * x.element_size(),
+                               pixels * x.shape[-1] * 6 + outs * (9 * 2 + 2))
+    fn, ref_fn = kdec.fused_decoder_frontend, kdec.fused_decoder_reference
+    ms, plain_ms = ab_ms(lambda: fn(*args), lambda: ref_fn(*args))
+    dev_us, dev_launches = device_us(torch, lambda: fn(*args))
+    plain_dev_us, plain_launches = device_us(torch, lambda: ref_fn(*args))
+    print(f"fused_decoder_frontend: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us a "
+          f"call (CUDA events, mean of 2x200 calls each, serving-path shapes); device time a "
+          f"call (profiler): kernel {us_text(dev_us)} in {dev_launches} launch(es), plain "
+          f"{us_text(plain_dev_us)} in {plain_launches}")
+    kernels.append({"name": "fused_decoder_frontend", "route": "cuda",
+                    "source": "deeplabv3p_torch/ops/kernels/csrc/decoder.cu",
+                    "replaces": "deeplabv3p_tpu/ops/pallas/decoder.py:81",
+                    "launches": launches["fused_decoder_frontend"],
+                    "max_abs_err": records["decoder"]["max_abs_err"],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None, "device_us": dev_us})
     kernels += upsample_ce_times(torch, kce, records["upsample_ce"], train_launches)
     kernels.append(confusion_times(torch, kconf, records["confusion"], eval_launches[0]))
     kernels.append(mbconv_times(torch, kmb, records["mbconv"], eval_launches[1], eval_state))
@@ -993,6 +1139,37 @@ def confusion_check(torch, kconf, shape, dtype_name, label_name) -> dict:
           f"confusion {shape} {dtype_name} logits, {label_name} labels: sum|kernel - plain| "
           f"{diff} == 0, counts {got.sum().item()} == valid label pixels {valid}")
     return {"max_abs_err": float(diff), "case": (labels, logits, c)}
+
+
+def argmax_check(torch, kconf, mask_argmax) -> None:
+    """jnp.argmax's rule on the card: the first index wins a tie and the
+    first NaN wins over numbers. mask_argmax (torch.argmax, the serving and
+    --save_result route) and the confusion kernel (the eval route) against
+    numpy's argmax on the same planted logits, in f32 and bf16."""
+    gen = torch.Generator().manual_seed(5)
+    c = 21
+    logits = torch.randn((2, 97, 113, c), generator=gen)
+    flat = logits.reshape(-1, c)
+    flat[0::7] = flat[0::7].max(dim=1, keepdim=True).values      # every class ties
+    flat[3::11, c - 1] = flat[3::11].max(dim=1).values           # the last class ties
+    flat[5::13, 4] = float("nan")                                 # a NaN among numbers
+    flat[6::13, 2] = flat[6::13, 9] = float("nan")               # two: the first wins
+    flat[2::17] = float("nan")                                    # all NaN
+    labels = torch.randint(0, c + 2, logits.shape[:-1], generator=gen, dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        z = logits.to(dtype)
+        want = np.argmax(z.float().numpy(), axis=-1)
+        got = mask_argmax(z.cuda()).cpu().numpy()
+        lab = labels.numpy()
+        valid = lab < c
+        cm_want = np.bincount(c * lab[valid].astype(np.int64) + want[valid],
+                              minlength=c * c).reshape(c, c)
+        cm = kconf.confusion_matrix_fused(labels.cuda(), z.cuda(), c).cpu().numpy()
+        check(np.array_equal(got, want) and np.array_equal(cm, cm_want),
+              f"argmax on the card, {dtype}: mask_argmax equals numpy's argmax on "
+              f"{want.size} pixels with planted ties and NaNs ({int((got != want).sum())} "
+              f"differ); the confusion kernel's matrix equals numpy's bincount of it "
+              f"(sum|diff| {int(np.abs(cm - cm_want).sum())})")
 
 
 def body_block_shapes(batch: int, hw) -> list[tuple]:

@@ -37,6 +37,30 @@ def channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
 
 
+class KeepsPrepared(nn.Module):
+    """A module that keeps arguments it prepared from its weights for a
+    kernel in `_prepared`, and drops them wherever the weights may change
+    as a whole: `train()`, `load_state_dict`, `.to()` and any other
+    `_apply`. An in-place write is for the module to see (the tensors'
+    `_version`)."""
+
+    def __init__(self):
+        super().__init__()
+        self._prepared: dict = {}
+
+    def train(self, mode: bool = True):
+        self._prepared = {}
+        return super().train(mode)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._prepared = {}
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._prepared = {}
+        return super()._load_from_state_dict(*args, **kwargs)
+
+
 class BatchNorm(nn.Module):
     """Batch norm with a per-site epsilon and momentum (flax scope `bn`,
     JAX models/layers.py:40-62).
@@ -252,15 +276,20 @@ def _dw_kernel(branch: SepConvBN) -> torch.Tensor:
     return branch.depthwise.weight[:, 0].permute(1, 2, 0)
 
 
-class ASPP(nn.Module):
+class ASPP(KeepsPrepared):
     """Atrous Spatial Pyramid Pooling (reference ASPP_block, layers.py:114-163):
     image pooling, 1x1, and three atrous separable convs at
     `aspp_rates(OS)`, concatenated [b4, b0, b1, b2, b3] and projected to 256.
 
     `fused_inference`: the three branches' depthwise+BN+ReLU run as ONE
-    `multirate_atrous_depthwise` call (CUDA kernel on the card), fed f32
-    like the JAX path, then each pointwise+BN+ReLU in the compute dtype.
-    Same parameters as the standard path.
+    `multirate_atrous_depthwise` call (CUDA kernel on the card) on the
+    channels_last activation as it is (its NHWC view), in the compute dtype,
+    then each pointwise+BN+ReLU in the compute dtype. The JAX path casts the
+    input to f32 and the output back; bf16 -> f32 is exact and the kernel
+    rounds its f32 sum once, as that cast does, so the pointwise stage gets
+    the same bits. The stacked kernels and folded BNs are prepared once
+    (`prepared_for`), not on every forward. Same parameters as the standard
+    path.
     """
 
     def __init__(self, in_channels: int, output_stride: int = 16,
@@ -285,21 +314,45 @@ class ASPP(nn.Module):
     def _branches(self) -> list[SepConvBN]:
         return [self.aspp1, self.aspp2, self.aspp3]
 
+    # -- the kernel's prepared arguments, built once for inference ---------------
+
+    def _depthwise_tensors(self) -> list[torch.Tensor]:
+        return [t for br in self._branches()
+                for t in (br.depthwise.weight, *br.depthwise_BN.parameters(),
+                          *br.depthwise_BN.buffers())]
+
+    def prepared_for(self, device: torch.device) -> tuple[torch.Tensor, ...]:
+        """(kernels (R,3,3,C), scale (R,C), bias (R,C)) of the three branches'
+        depthwise convs and folded BNs, f32 and contiguous on `device`: built
+        at the first fused forward and kept until the weights change.
+        `train()`, `load_state_dict`, `.to()` and any other `_apply` drop
+        them, and so does an in-place write to a depthwise weight or BN
+        tensor (its `_version` moves)."""
+        version = tuple(t._version for t in self._depthwise_tensors())
+        hit = self._prepared.get(device)
+        if hit is None or hit[0] != version:
+            branches = self._branches()
+            # plain tensors even under inference_mode: the cache outlives it
+            with torch.inference_mode(False), torch.no_grad():
+                folds = [br.depthwise_BN.folded() for br in branches]
+                args = (torch.stack([_dw_kernel(br) for br in branches]),
+                        torch.stack([s for s, _ in folds]),
+                        torch.stack([b for _, b in folds]))
+                args = tuple(t.to(device, torch.float32).contiguous() for t in args)
+            hit = self._prepared[device] = (version, args)
+        return hit[1]
+
     def _fused_branches(self, x: torch.Tensor) -> list[torch.Tensor]:
         from deeplabv3p_torch.ops.kernels.aspp import multirate_atrous_depthwise
 
-        branches = self._branches()
-        folds = [br.depthwise_BN.folded() for br in branches]
-        dw_outs = multirate_atrous_depthwise(
-            x.float().permute(0, 2, 3, 1).contiguous(),
-            torch.stack([_dw_kernel(br) for br in branches]).float().contiguous(),
-            self.rates,
-            scale=torch.stack([s for s, _ in folds]).contiguous(),
-            bias=torch.stack([b for _, b in folds]).contiguous(),
-        )
+        nhwc = x.permute(0, 2, 3, 1)
+        if not nhwc.is_contiguous():
+            raise ValueError("ASPP's fused branches take a channels_last input")
+        kernels, scale, bias = self.prepared_for(x.device)
+        dw_outs = multirate_atrous_depthwise(nhwc, kernels, self.rates, scale, bias)
         return [
             _fold_pointwise(br, dw, self.dtype, x.dtype)
-            for br, dw in zip(branches, dw_outs)
+            for br, dw in zip(self._branches(), dw_outs)
         ]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

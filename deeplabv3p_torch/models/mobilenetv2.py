@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from deeplabv3p_torch.models.layers import BatchNorm, Conv, DepthwiseConv
+from deeplabv3p_torch.models.layers import BatchNorm, Conv, DepthwiseConv, KeepsPrepared
 from deeplabv3p_torch.ops.activations import relu6
 
 BodyBN = partial(BatchNorm, epsilon=1e-3, momentum=0.999)
@@ -51,7 +51,7 @@ def os_control_table(output_stride: int) -> dict[str, int]:
     raise ValueError(f"invalid output stride {output_stride}")
 
 
-class InvertedResBlock(nn.Module):
+class InvertedResBlock(KeepsPrepared):
     """MobileNetV2 inverted residual (reference _inverted_res_block,
     deeplabv3p_mobilenetv2.py:38-74): optional 1x1 expand -> 3x3 depthwise
     (stride/dilation) -> 1x1 linear project, with identity skip.
@@ -71,7 +71,6 @@ class InvertedResBlock(nn.Module):
                  fused_inference: bool = False, dtype=None, device=None):
         super().__init__()
         self.skip_connection = skip_connection
-        self._prepared: dict = {}
         self.stride, self.rate = stride, rate
         self.fused_inference = fused_inference
         self.out_channels = make_divisible(int(filters * alpha), 8)
@@ -107,9 +106,6 @@ class InvertedResBlock(nn.Module):
 
     # -- the kernel's prepared arguments, built once for inference ---------------
 
-    def _drop_prepared(self) -> None:
-        self._prepared = {}
-
     def _weights_version(self) -> tuple[int, ...]:
         """Counts that move when a parameter or BN buffer of the block is
         written in place (an optimizer step, `copy_`)."""
@@ -130,18 +126,6 @@ class InvertedResBlock(nn.Module):
                 *self.kernel_args(), rate=self.rate, elem_size=x.element_size()))
             self._prepared[key] = hit
         return hit[1]
-
-    def train(self, mode: bool = True):
-        self._drop_prepared()
-        return super().train(mode)
-
-    def _apply(self, fn, *args, **kwargs):
-        self._drop_prepared()
-        return super()._apply(fn, *args, **kwargs)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._drop_prepared()
-        return super()._load_from_state_dict(*args, **kwargs)
 
     def _fused_forward(self, inputs: torch.Tensor) -> torch.Tensor:
         from deeplabv3p_torch.ops.kernels import mbconv

@@ -13,14 +13,16 @@ PyTorch version.
 `fused_upsample_ce` (in `upsample_ce.py`) is the differentiable loss tail
 that launches the two `upsample_ce_*` kernels.
 
-Four of the six have been designed again for the card since their first
+Five of the six have been designed again for the card since their first
 port (each source's note has the design, PERF.md the times):
 `fused_inverted_residual` (tensor cores, weights in shared memory),
 `upsample_ce_backward` (one column reduction a block),
 `fused_decoder_frontend` (separable upsample in shared memory, the stencil's
-vertical half at the encoder's width) and `upsample_ce_forward` (a block a
+vertical half at the encoder's width), `upsample_ce_forward` (a block a
 low-resolution row pair, rows interpolated once, two-pass exp2 softmax in
-registers).
+registers) and `multirate_atrous_depthwise` (16 bytes a thread, the rows a
+band's taps reach staged once in shared memory, the plan kept by call
+signature).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Nothing here touches CUDA or nvcc at import.

@@ -125,9 +125,7 @@ def load_library() -> ctypes.CDLL:
         ll = ctypes.c_longlong
         lib.multirate_atrous_depthwise.argtypes = [
             p, p, p, p, p,           # x, kernels, scale, bias, out
-            i, i, i, i, i, i,        # dtype, n, h, w, c, num_rates
-            i, i, i, i,              # rates[0..3]
-            i, p,                    # fuse_bn_relu, stream
+            p, p,                    # the plan (aspp.AsppPlan), stream
         ]
         lib.multirate_atrous_depthwise.restype = i
         lib.fused_decoder_frontend.argtypes = [

@@ -10,10 +10,16 @@ is its plain PyTorch version.
 
 Layout at this interface is the JAX one, NHWC, so the tests compare like
 with like; the model's channels_last NCHW tensors permute to it for free.
+
+The wrapper checks a call signature (shapes, types, rates, devices, x's
+alignment) once and keeps its launch plan (`launch_plan`: channels a
+thread, grid, shared memory) as a C struct; a later call with the same
+signature checks only contiguity, allocates the output and launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence
 
 import torch
@@ -23,6 +29,10 @@ from deeplabv3p_torch.ops.kernels._build import check, launch_counter, load_libr
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RATES = 4
+MAX_SHARED_BYTES = 232448  # sm_90's 227 KB a block
+MAX_THREADS = 256
+# the grid aims at this many blocks an SM before it lets a band grow
+BLOCKS_PER_SM = 4
 
 
 def multirate_atrous_depthwise_reference(
@@ -47,6 +57,74 @@ def multirate_atrous_depthwise_reference(
     return tuple(outs)
 
 
+class AsppPlan(ctypes.Structure):
+    """`dlk::AsppPlan` of csrc/aspp.cu, field for field."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "dtype", "n", "h", "w", "c", "num_rates", "rate0", "rate1", "rate2", "rate3",
+        "fuse", "vec", "nv", "nv_log2", "groups", "band", "bands", "segmented", "reach",
+        "slab_rows", "threads", "smem_bytes")]
+
+    @property
+    def blocks(self) -> int:
+        return self.n * self.bands * self.groups
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def launch_plan(n: int, h: int, w: int, c: int, rates: Sequence[int], dtype: torch.dtype,
+                fuse: bool, aligned: bool, sms: int) -> AsppPlan:
+    """The kernel's plan for x (n,h,w,c) of `dtype` on a card of `sms` SMs.
+
+    16 bytes a thread (8 bf16 or 4 f32 channels) where C is a multiple of
+    that and every tensor starts on 16 bytes (`aligned`), else one channel;
+    a block's channel group is 32 bytes of a pixel (or 32 bytes' worth of
+    single channels); its band of output rows is as tall as
+    `BLOCKS_PER_SM` blocks an SM allow; its slab is the one row range the
+    band's taps reach or, where fewer, a band-high segment a (rate, dy); a
+    thread takes one (rate, row, column, vector) task a pass. Halves the
+    band until the block's shared memory fits, and raises when even a
+    one-row band does not."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    if n * h * w * c == 0:  # nothing to launch
+        return AsppPlan(dtype=_DTYPE_CODES[dtype], n=n, h=h, w=w, c=c, num_rates=len(rates))
+    vec = 16 // elem if aligned and c % (16 // elem) == 0 else 1
+    vecs = c // vec
+    nv = 2 if vec > 1 else 32 // elem
+    while nv > 1 and nv // 2 >= vecs:  # no wider than the channels
+        nv //= 2
+    g = nv * vec
+    groups = -(-vecs // nv)
+    near = [int(r) for r in rates if r < h]
+    reach = max(near, default=0)
+    band = min(h, max(1, n * groups * h // (BLOCKS_PER_SM * sms)))
+    while True:
+        bands = -(-h // band)
+        band = -(-h // bands)  # the same bands, evened out
+        one_range = min(h, band + 2 * reach)
+        segments = (1 + 2 * len(near)) * band
+        slab_rows = min(one_range, segments)
+        smem = _round16(11 * len(rates) * g * 4) + _round16(slab_rows * w * g * elem)
+        if smem <= MAX_SHARED_BYTES:
+            break
+        if band == 1:
+            raise ValueError(
+                f"multirate_atrous_depthwise: a one-row band of a {w}-wide map needs "
+                f"{smem} bytes of shared memory a block, more than {MAX_SHARED_BYTES}")
+        band //= 2
+    tasks = len(rates) * band * w * nv
+    padded = [int(r) for r in rates] + [0] * (MAX_RATES - len(rates))
+    return AsppPlan(
+        dtype=_DTYPE_CODES[dtype], n=n, h=h, w=w, c=c, num_rates=len(rates),
+        rate0=padded[0], rate1=padded[1], rate2=padded[2], rate3=padded[3],
+        fuse=int(fuse), vec=vec, nv=nv, nv_log2=nv.bit_length() - 1, groups=groups,
+        band=band, bands=bands,
+        segmented=int(segments < one_range), reach=reach, slab_rows=slab_rows,
+        threads=min(MAX_THREADS, -(-tasks // 32) * 32), smem_bytes=smem)
+
+
 def _check_args(x, kernels, rates, scale, bias) -> None:
     if x.ndim != 4:
         raise ValueError(f"x must be (N,H,W,C), got {tuple(x.shape)}")
@@ -62,6 +140,36 @@ def _check_args(x, kernels, rates, scale, bias) -> None:
     for name, t in (("scale", scale), ("bias", bias)):
         if t is not None and tuple(t.shape) != (r, c):
             raise ValueError(f"{name} must be {(r, c)}, got {tuple(t.shape)}")
+
+
+def _signature(x, kernels, rates, scale, bias) -> tuple:
+    """What a plan depends on, and what the checks of a first call read."""
+    def of(t):
+        return None if t is None else (t.shape, t.dtype, t.device)
+    return (of(x), tuple(rates), of(kernels), of(scale), of(bias), _aligned(x, kernels, scale, bias))
+
+
+def _aligned(*tensors) -> bool:
+    """Every tensor given starts on 16 bytes (the kernel's 16-byte copies)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+def _plan_for(x, kernels, rates, scale, bias) -> tuple[AsppPlan, int]:
+    """Check a CUDA tensor's call and make its plan; (plan, its address)."""
+    _check_args(x, kernels, rates, scale, bias)
+    for t in [kernels] + ([scale, bias] if scale is not None else []):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError("kernels/scale/bias must be float32 on x's device")
+    n, h, w, c = x.shape
+    if len(rates) * x.numel() >= 2**31:
+        raise ValueError("multirate_atrous_depthwise: outputs of 2^31 elements or more")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = launch_plan(n, h, w, c, rates, x.dtype, scale is not None,
+                       _aligned(x, kernels, scale, bias), sms)
+    return plan, ctypes.addressof(plan)
+
+
+_plans: dict = {}
 
 
 @launch_counter
@@ -80,33 +188,34 @@ def multirate_atrous_depthwise(
     scale/bias are None. CPU tensors run the plain version; CUDA tensors
     launch csrc/aspp.cu (contiguous inputs, all on x's device).
     """
-    _check_args(x, kernels, rates, scale, bias)
-    if x.device.type == "cpu":
-        return multirate_atrous_depthwise_reference(x, kernels, rates, scale, bias)
     if x.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {x.device}")
-    params = [kernels] + ([scale, bias] if scale is not None else [])
-    for t in params:
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError("kernels/scale/bias must be float32 on x's device")
-    for t in [x] + params:
-        if not t.is_contiguous():
-            raise ValueError("multirate_atrous_depthwise needs contiguous inputs")
-    n, h, w, c = x.shape
-    r = len(rates)
-    if r * x.numel() >= 2**31:
-        raise ValueError("multirate_atrous_depthwise: outputs of 2^31 elements or more")
-    out = torch.empty((r, n, h, w, c), dtype=x.dtype, device=x.device)
-    padded = [int(q) for q in rates] + [0] * (MAX_RATES - r)
+        _check_args(x, kernels, rates, scale, bias)
+        if x.device.type != "cpu":
+            raise RuntimeError(f"no kernel for device {x.device}")
+        return multirate_atrous_depthwise_reference(x, kernels, rates, scale, bias)
+    key = _signature(x, kernels, rates, scale, bias)
+    hit = _plans.get(key)
+    if hit is None:
+        hit = _plans[key] = _plan_for(x, kernels, rates, scale, bias)
+    if not (x.is_contiguous() and kernels.is_contiguous()
+            and (scale is None or (scale.is_contiguous() and bias.is_contiguous()))):
+        raise ValueError("multirate_atrous_depthwise needs contiguous inputs")
+    out = torch.empty((len(rates), *x.shape), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return tuple(out.unbind(0))
+    args = (x.data_ptr(), kernels.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), hit[1])
     lib = load_library()
-    with torch.cuda.device(x.device):
-        status = lib.multirate_atrous_depthwise(
-            x.data_ptr(), kernels.data_ptr(),
-            scale.data_ptr() if scale is not None else None,
-            bias.data_ptr() if bias is not None else None,
-            out.data_ptr(), _DTYPE_CODES[x.dtype], n, h, w, c, r, *padded,
-            int(scale is not None), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    dev = x.device.index
+    # the handle of x's device's current stream (torch.cuda.current_stream()
+    # builds a Stream object around it first: 8 us of host time a call)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if dev == torch.cuda.current_device():
+        status = lib.multirate_atrous_depthwise(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            status = lib.multirate_atrous_depthwise(*args, stream)
     check(status, "multirate_atrous_depthwise")
     multirate_atrous_depthwise.launches += 1
     return tuple(out.unbind(0))

@@ -8,10 +8,10 @@ labels outside [0, C) (the ignore index 255, negatives) are dropped. The
 CUDA kernel is `csrc/confusion.cu`; `confusion_matrix_fused_reference` is
 its plain PyTorch version.
 
-The argmax is the kernel's own, on both routes: a strict `>` scan from
-class 0, so the lowest index wins a tie and a NaN never wins (an all-NaN
-pixel predicts class 0). `torch.argmax` promises no tie order and lets a
-NaN win, so neither route leans on it.
+The argmax follows `jnp.argmax` (the JAX eval step's) on both routes: a
+scan from class 0 with a strict `>`, so the lowest index wins a tie, in
+which a NaN counts as the largest value, so the first NaN wins (an all-NaN
+pixel predicts class 0). The same rule as `postprocess.mask_argmax`.
 
 Layout at this interface is the JAX one, labels (...,) and logits (..., C);
 the model's channels_last NCHW logits permute to it for free.
@@ -31,13 +31,14 @@ MAX_CLASSES = 225
 
 
 def first_index_argmax(logits: torch.Tensor) -> torch.Tensor:
-    """int64 argmax over the last axis by a strict `>` scan from class 0:
-    the first index on ties, never a NaN (unless every class is one: 0)."""
+    """int64 argmax over the last axis by a scan from class 0, as
+    jnp.argmax: the first index on ties, and the first NaN, which beats
+    every number."""
     best = logits[..., 0].float()
     pred = torch.zeros(best.shape, dtype=torch.int64, device=logits.device)
     for k in range(1, logits.shape[-1]):
         v = logits[..., k].float()
-        better = v > best
+        better = (v > best) | (v.isnan() & ~best.isnan())
         best = torch.where(better, v, best)
         pred = torch.where(better, torch.full_like(pred, k), pred)
     return pred

@@ -23,16 +23,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // round to nearest even, like torch's .to(bfloat16)
 }
 
-// Launch shape of the ASPP kernel: one thread per output element,
-// a block covers kChanTile consecutive channels (threadIdx.x, so a warp reads
-// 32 neighbouring channels of one pixel: coalesced) of kPixTile pixels
-// (threadIdx.y). Grid x walks the pixels, grid y the channel tiles. Offsets
-// are 32-bit: the Python wrappers refuse tensors of 2^31 elements or more.
-constexpr int kChanTile = 32;
-constexpr int kPixTile = 8;
+// 32-bit shared-memory address of a generic pointer into shared memory
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-inline dim3 grid_for(int pixels, int channels) {
-  return dim3((pixels + kPixTile - 1) / kPixTile, (channels + kChanTile - 1) / kChanTile);
+// 16-byte asynchronous copies global -> shared (both addresses 16-byte aligned)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Shared memory a block can use on sm_90 (227 KB); above 48 KB only as dynamic

@@ -19,9 +19,10 @@
 //   copies them coalesced into its own slice of shared memory (as f32; bf16
 //   widens exactly), with the row stride C|1 so that the lanes' per-pixel
 //   scans below hit 32 different banks;
-// * each lane scans its pixel's C logits with a strict `>` from class 0, so
-//   the lowest index wins a tie and a NaN never wins (an all-NaN pixel
-//   predicts class 0): the bin is always inside the histogram;
+// * each lane scans its pixel's C logits from class 0 as jnp.argmax does:
+//   a strict `>`, so the lowest index wins a tie, and a NaN counts as the
+//   largest value, so the first NaN wins (an all-NaN pixel predicts class
+//   0): the bin is always inside the histogram;
 // * the block keeps a C*C int32 histogram in shared memory. Lanes of a warp
 //   that hit the same bin (large uniform regions are the rule in
 //   segmentation) are merged with __match_any_sync, and one lane adds their
@@ -86,7 +87,8 @@ __global__ void confusion_kernel(const L* __restrict__ labels,
       int pred = 0;
       for (int k = 1; k < c; ++k) {
         const float v = row[k];
-        if (v > best) {  // strict: the first index wins a tie, a NaN never wins
+        // strict: the first index wins a tie; the first NaN beats any number
+        if (v > best || (v != v && best == best)) {
           best = v;
           pred = k;
         }

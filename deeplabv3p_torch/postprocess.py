@@ -10,8 +10,11 @@ from deeplabv3p_torch.ops.resize import resize_nearest
 
 
 def mask_argmax(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Class axis `dim` -> int32 mask; the lowest index wins ties, as
-    jnp.argmax (reference deeplab.py:99)."""
+    """Class axis `dim` -> int32 mask, as jnp.argmax (reference
+    deeplab.py:99): the lowest index wins a tie, and a NaN counts as the
+    largest value, so the first NaN wins. torch.argmax does both on the CPU
+    and on the card (tests/test_torch_ops.py, test_torch_kernels_cuda.py);
+    the confusion kernel's scan follows the same rule."""
     return torch.argmax(logits, dim=dim).to(torch.int32)
 
 

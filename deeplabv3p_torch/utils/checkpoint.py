@@ -6,7 +6,9 @@ the port loads into `DeepLab` and, through `load_npz`, into the JAX model.
 Names encode the metrics (reference `ep{epoch:03d}-loss..-Jaccard..
 -val_Jaccard...h5`, train.py:54), and the manager keeps the last 5 epoch
 checkpoints, the 2 best-mIOU eval checkpoints and the final one (reference
-CheckpointCleanCallBack, common/callbacks.py:11-30). Reading flax msgpack
+CheckpointCleanCallBack, common/callbacks.py:11-30). "Last" and "best" are
+read off the epoch in the file name, not the file's mtime: two saves within
+one timestamp tick would sort in no defined order. Reading flax msgpack
 `.ckpt` files is not ported (ROADMAP Queue A item 5).
 """
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import glob
 import os
+import re
 from typing import Any
 
 from deeplabv3p_torch.utils.weights import save_npz
@@ -63,6 +66,14 @@ class CheckpointManager:
         return path
 
     def _clean(self, pattern: str, keep: int) -> None:
-        files = sorted(glob.glob(os.path.join(self.log_dir, pattern)), key=os.path.getmtime)
+        """Keep the `keep` files of `pattern` with the latest epochs. An
+        eval-best file is written only when the mIoU improves, so its latest
+        epochs are its best."""
+        files = sorted(glob.glob(os.path.join(self.log_dir, pattern)), key=_epoch_of)
         for f in files[:-keep] if keep else files:
             os.remove(f)
+
+
+def _epoch_of(path: str) -> int:
+    """The epoch in a checkpoint's name (`ep007-...`, `eval_ep012-...`)."""
+    return int(re.match(r"(?:eval_)?ep(\d+)-", os.path.basename(path)).group(1))

@@ -111,12 +111,15 @@ def from_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.
 
 def to_jax_variables(model: nn.Module) -> dict:
     """The model's weights as a JAX-layout `{'params', 'batch_stats'}` tree
-    of numpy arrays (the inverse of `from_jax_variables`)."""
+    of numpy arrays (the inverse of `from_jax_variables`). The arrays are
+    copies: for f32 CPU tensors `.numpy()` shares the parameters' memory, so
+    a later write to the model (`Trainer.eval_variables` swapping averaged
+    weights back out) would show through."""
     sd = model.state_dict()
     flat = {}
     for path, (key, is_kernel) in jax_path_table(model).items():
         a = sd[key].detach().float().cpu().numpy()
-        flat[path] = a.transpose(2, 3, 1, 0) if is_kernel else a
+        flat[path] = np.array(a.transpose(2, 3, 1, 0) if is_kernel else a)
     return unflatten(flat)
 
 

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from deeplabv3p_tpu import metrics as jmetrics
+from deeplabv3p_tpu import train as jtrain
 from deeplabv3p_tpu.ops.pallas.confusion import confusion_matrix_fused as jax_fused
 from deeplabv3p_torch import metrics as tmetrics
+from deeplabv3p_torch.train import make_eval_step
 from deeplabv3p_torch.ops.kernels import (
     confusion_matrix_fused,
     confusion_matrix_fused_reference,
@@ -78,7 +80,9 @@ def test_first_index_argmax_ties_and_nans():
     x = torch.tensor([[1.0, 3.0, 3.0, 2.0], [5.0, 5.0, 5.0, 5.0],
                       [float("nan"), 1.0, 2.0, 2.0], [0.0, float("nan"), -1.0, 0.0],
                       [float("nan")] * 4, [-float("inf")] * 4])
-    assert first_index_argmax(x).tolist() == [1, 0, 0, 0, 0, 0]
+    # jnp.argmax's rule: the first index on a tie, the first NaN over any number
+    assert first_index_argmax(x).tolist() == [1, 0, 0, 1, 0, 0]
+    assert first_index_argmax(x).tolist() == np.asarray(jnp.argmax(x.numpy(), -1)).tolist()
     # a NaN never indexes outside the matrix
     labels = torch.tensor([0, 1, 2, 3, 1, 255])
     cm = confusion_matrix_fused_reference(labels, x, 4)
@@ -128,3 +132,67 @@ def test_confusion_matrix_matmul_equals_jax(name):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert torch.equal(got, tmetrics.confusion_matrix(
         torch.from_numpy(labels), torch.from_numpy(preds), c))
+
+
+def planted_logits(shape, seed=0):
+    """Seeded logits (N, H, W, C) with exact ties over every class and
+    between the max and the last class, one NaN among numbers, two NaNs in
+    one pixel (the first must win) and all-NaN pixels."""
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(*shape).astype(np.float32)
+    flat = logits.reshape(-1, shape[-1])
+    n = flat.shape[0]
+    flat[0::7] = flat[0::7].max(axis=1, keepdims=True)
+    flat[3::11, -1] = flat[3::11].max(axis=1)
+    flat[5::13, 2] = np.nan
+    flat[6::13, 1] = flat[6::13, 3] = np.nan
+    flat[2::17] = np.nan
+    assert n > 17
+    return logits
+
+
+class _Planted:
+    """A JAX 'model' whose apply returns the planted logits."""
+
+    def __init__(self, logits):
+        self.logits = logits
+
+    def apply(self, variables, images, train=False):
+        return jnp.asarray(self.logits)
+
+
+class _PlantedTorch(torch.nn.Module):
+    """The port's counterpart: channels_last NCHW logits, as the model gives."""
+
+    def __init__(self, logits):
+        super().__init__()
+        self.logits = torch.from_numpy(logits)
+
+    def forward(self, x):
+        return self.logits.permute(0, 3, 1, 2)
+
+
+def test_eval_step_argmax_follows_jax_on_ties_and_nans():
+    """The port's `make_eval_step` (argmax + matrix in the confusion kernel's
+    plain version) and JAX's `make_eval_step` (`jnp.argmax`, then the
+    matrix) count every pixel in the same cell: the first index wins a tie,
+    the first NaN wins over numbers."""
+    c = 5
+    logits = planted_logits((2, 9, 11, c))
+    rng = np.random.RandomState(1)
+    images = rng.randint(0, 256, (2, 9, 11, 3)).astype(np.uint8)
+    labels = rng.randint(0, c, (2, 9, 11)).astype(np.uint8)
+    labels[0, :2] = 255
+    labels[1, -1] = 200  # above C-1: the ignore index
+    want = np.asarray(jtrain.make_eval_step(_Planted(logits), c)({}, images, labels))
+    got = make_eval_step(_PlantedTorch(logits), c)(torch.from_numpy(images),
+                                                    torch.from_numpy(labels))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # numpy's argmax has the same rule
+    preds = np.argmax(logits, axis=-1)
+    valid = labels < c
+    np.testing.assert_array_equal(
+        got.numpy(), np.bincount(c * labels[valid].astype(np.int64) + preds[valid],
+                                 minlength=c * c).reshape(c, c))
+    flat = preds.reshape(-1)
+    assert flat[6] == 1 and flat[5] == 2 and flat[2] == 0  # NaNs at 1 and 3; at 2; all

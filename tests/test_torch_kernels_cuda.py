@@ -90,6 +90,11 @@ ASPP_CASES = [
     ((2, 37, 29, 136), (12, 24, 36)),
     ((1, 9, 13, 33), (1, 2)),
     ((3, 5, 4, 7), (3, 6, 9, 1)),
+    ((8, 32, 32, 320), (6, 12, 18)),  # the eval path's batch 8
+    ((1, 64, 64, 320), (12, 24, 36)),  # OS8: segments, 56 KB of dynamic shared memory
+    ((1, 16, 16, 320), (3, 6, 9)),    # OS32's rates on a 16x16 map
+    ((1, 16, 16, 100), (6, 12, 18)),  # C no multiple of 8; rate 18 past the map
+    ((1, 8, 8, 320), (6, 12, 18)),    # 128 px: rates 12 and 18 past the map
 ]
 
 
@@ -112,6 +117,37 @@ def test_aspp_kernel_matches_plain(dev, shape, rates, fuse, dtype):
     for g, w in zip(got, want):
         assert g.shape == x.shape and g.dtype == dtype
         _assert_close(g, w)
+
+
+def test_aspp_keeps_its_plan_and_follows_a_new_signature(dev):
+    """A second call with the same signature reuses the plan and gives the
+    same bits; another shape, an x that does not start on 16 bytes (one
+    channel a thread) and a plan too large for a block are each their own."""
+    from deeplabv3p_torch.ops.kernels import aspp
+
+    gen = torch.Generator().manual_seed(2)
+    rates = (6, 12, 18)
+    k = (_rand(gen, (3, 3, 3, 320)) / 3.0).to(dev)
+    scale = _rand(gen, (3, 320), 1.0, 0.5, uniform=True).to(dev)
+    bias = (_rand(gen, (3, 320)) * 0.1).to(dev)
+    x = _rand(gen, (1, 32, 32, 320)).to(dev, torch.bfloat16)
+    first = multirate_atrous_depthwise(x, k, rates, scale, bias)
+    plans = dict(aspp._plans)
+    second = multirate_atrous_depthwise(x, k, rates, scale, bias)
+    assert aspp._plans == plans  # no new plan
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for other in (_rand(gen, (2, 24, 40, 320)).to(dev, torch.bfloat16),
+                  torch.zeros(1 * 32 * 32 * 320 + 1, device=dev, dtype=torch.bfloat16)[1:]
+                  .view(1, 32, 32, 320).copy_(x)):
+        got = multirate_atrous_depthwise(other, k, rates, scale, bias)
+        torch.cuda.synchronize()
+        for g, w in zip(got, multirate_atrous_depthwise_reference(other, k, rates, scale, bias)):
+            _assert_close(g, w)
+    assert len(aspp._plans) == len(plans) + 2
+    assert any(hit[0].vec == 1 for hit in aspp._plans.values())  # the unaligned x
+    wide = torch.zeros(1, 64, 2000, 320, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        multirate_atrous_depthwise(wide, k, rates, scale, bias)
 
 
 DECODER_CASES = [
@@ -361,6 +397,38 @@ def test_confusion_kernel_equals_plain(dev, shape, dtype, label_dtype, top):
     assert got.sum().item() == valid.sum().item()
     # a second call gives the same matrix: the atomics' order does not matter
     assert torch.equal(confusion_matrix_fused(labels, logits, c), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_argmax_on_the_card_follows_numpy(dev, dtype):
+    """jnp.argmax's rule (numpy's too): the first index wins a tie, the
+    first NaN wins over numbers. `mask_argmax` (torch.argmax: serving,
+    --save_result) and the confusion kernel (the eval step) on the card."""
+    import numpy as np
+
+    from deeplabv3p_torch.postprocess import mask_argmax
+
+    gen = torch.Generator().manual_seed(5)
+    c = 21
+    logits = torch.randn((2, 97, 113, c), generator=gen)
+    flat = logits.reshape(-1, c)
+    flat[0::7] = flat[0::7].max(dim=1, keepdim=True).values
+    flat[3::11, c - 1] = flat[3::11].max(dim=1).values
+    flat[5::13, 4] = float("nan")
+    flat[6::13, 2] = flat[6::13, 9] = float("nan")
+    flat[2::17] = float("nan")
+    z = logits.to(dtype)
+    want = np.argmax(z.float().numpy(), axis=-1)
+    np.testing.assert_array_equal(mask_argmax(z.to(dev)).cpu().numpy(), want)
+    nchw = z.to(dev).permute(0, 3, 1, 2)
+    np.testing.assert_array_equal(mask_argmax(nchw, dim=1).cpu().numpy(), want)
+    labels = torch.randint(0, c + 2, logits.shape[:-1], generator=gen, dtype=torch.int32)
+    lab = labels.numpy()
+    valid = lab < c
+    cm_want = np.bincount(c * lab[valid].astype(np.int64) + want[valid],
+                          minlength=c * c).reshape(c, c)
+    cm = confusion_matrix_fused(labels.to(dev), z.to(dev), c)
+    np.testing.assert_array_equal(cm.cpu().numpy(), cm_want)
 
 
 def test_confusion_wrapper_refuses_what_the_kernel_does_not_take(dev):

@@ -140,9 +140,12 @@ def test_skip_final_resize_matches_jax():
 
 
 def test_kernel_inputs_cast_where_jax_casts(monkeypatch):
-    """bf16 model: the ASPP kernel is fed f32 (layers.py:306-313), the
-    decoder kernel keeps bf16 on its inputs and output (layers.py:435-444),
-    and the logits come out f32 (factory.py:179-183)."""
+    """bf16 model: the ASPP kernel takes the bf16 activation with its f32
+    kernels, scales and biases and writes bf16 (the JAX path casts x to f32
+    and the result back, layers.py:306-313: the same bits, as
+    tests/test_torch_aspp.py holds), the decoder kernel keeps bf16 on its
+    inputs and output (layers.py:435-444), and the logits come out f32
+    (factory.py:179-183)."""
     from deeplabv3p_torch.ops.kernels import aspp, decoder
 
     seen = {}
@@ -163,7 +166,8 @@ def test_kernel_inputs_cast_where_jax_casts(monkeypatch):
     model = port_model("mobilenetv2", 16, jax_variables("mobilenetv2", 16, 64),
                        fused=True, dtype=torch.bfloat16)
     logits = port_logits(model, image(64))
-    assert seen["aspp"] == [torch.float32] * 4 and seen["aspp_out"] == torch.float32
+    assert seen["aspp"] == [torch.bfloat16] + [torch.float32] * 3
+    assert seen["aspp_out"] == torch.bfloat16
     assert seen["decoder"][:2] == [torch.bfloat16] * 2
     assert seen["decoder_out"] == torch.bfloat16
     assert logits.dtype == np.float32 and np.isfinite(logits).all()
