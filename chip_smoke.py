@@ -50,11 +50,24 @@
    give on the same logits and count every valid label pixel, and stay
    within stated bounds of the same weights with every kernel off (bf16 and
    f32);
-8. latency of the serving path, train-step time and peak memory fused and
+8. the train CLI with its own defaults (no --model_type, no --no_augment:
+   mobilenetv3large_lite, 512x512, OS16, b16, bf16, the 12-op stochastic
+   augmentation on the card) for 2+2 steps on a seeded set whose every other
+   pair is 720x1280 (the random crop can fire), then with --fused_loss (the
+   loss kernels at a x16 upsample) and with --device_cache (orig_hw is the
+   input shape); the augmentation on the card against its CPU run on the
+   same parameters (labels equal, images within 1e-3);
+9. mobilenetv3large and mobilenetv3small serving (bf16, b1) with the ASPP
+   kernel at 160 and 96 channels and the decoder kernel, masks against the
+   f32 model with no kernel; the eval CLI with its own default model, its
+   matrix equal to torch.argmax + bincount;
+10. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
-   no kernels, in turns), device-time profiles of one request, one train
-   step and one eval batch, and each kernel's time against its plain
-   version, its bound and, where there is one, the library's calls.
+   no kernels, in turns), the CLI default's step with the augmentation's
+   share of it, device-time profiles of one request, one train step and one
+   eval batch, and each kernel's time against its plain version, its bound
+   and, where there is one, the library's calls (the ASPP kernel's and the
+   loss tail's rows also at this slice's shapes, `at_other_shapes`).
 
 Exits non-zero on any failure, and without printing a result when there is
 no CUDA device or no checkout around the script. The line before the last is
@@ -88,6 +101,10 @@ REQUEST_SHAPES = [(375, 500), (480, 640), (333, 517), (600, 400),
                   (512, 384), (281, 419), (720, 1280), (427, 640)]
 WARMUP = 3
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_SEED = 32, 16, 0
+# the CLI-defaults training set: every other pair at 720x1280, larger than the
+# input on both axes, so the random crop can fire
+V3_LARGE_HW, V3_SEED = (720, 1280), 5
+V3_REQUESTS_SMALL = 4
 EVAL_BATCH, EVAL_SEED = 8, 4
 # published peaks of one H100 SXM: device memory rate, f32 FMA rate outside
 # the tensor cores, dense bf16 rate of the tensor cores (the inverted
@@ -109,16 +126,20 @@ MBCONV_EXTRA_CASES = [(3, 37, 29, 24, 144, 24, 1, True), (1, 64, 64, 160, 960, 1
 ASPP_CASES = [((1, 32, 32, 320), (6, 12, 18)), ((8, 32, 32, 320), (6, 12, 18)),
               ((1, 64, 64, 320), (12, 24, 36)), ((1, 16, 16, 320), (3, 6, 9)),
               ((1, 16, 16, 100), (6, 12, 18)), ((2, 37, 29, 136), (12, 24, 36)),
-              ((3, 5, 4, 7), (3, 6, 9, 1))]
+              ((3, 5, 4, 7), (3, 6, 9, 1)),
+              ((1, 32, 32, 160), (6, 12, 18)), ((1, 32, 32, 96), (6, 12, 18))]
+# the serving calls of mobilenetv3large (160 channels) and mobilenetv3small (96)
+ASPP_V3_CASES = {7: "aspp_c160", 8: "aspp_c96"}
 # (x_enc shape, skip shape) decoder cases: the serving path's, a ragged one with
 # non-integer scales, the serving maps at batch 8, OS8's scale 2, and channel
 # counts that are no multiple of 4 (one channel a thread)
 DECODER_CASES = [((1, 32, 32, 256), (1, 128, 128, 48)), ((2, 13, 11, 200), (2, 50, 41, 48)),
                  ((8, 32, 32, 256), (8, 128, 128, 48)), ((1, 64, 64, 256), (1, 128, 128, 48)),
                  ((1, 16, 16, 100), (1, 64, 64, 46))]
-# (B, h, w, C) -> (H, W) loss-tail cases; the first is the training slice's
+# (B, h, w, C) -> (H, W) loss-tail cases; the first is the training slice's, the
+# last mobilenetv3large_lite's --fused_loss call (OS16 logits, x16)
 UPSAMPLE_CE_CASES = [((16, 128, 128, 21), (512, 512)), ((2, 32, 32, 21), (512, 512)),
-                     ((3, 29, 37, 21), (116, 148))]
+                     ((3, 29, 37, 21), (116, 148)), ((16, 32, 32, 21), (512, 512))]
 # the backward kernel alone also at scale 1 and at an odd scale
 UPSAMPLE_CE_BACKWARD_CASES = [((2, 24, 40, 21), (24, 40)), ((2, 24, 40, 21), (72, 120))]
 # the forward kernel alone also there, at 6 and 151 classes (above 32 the batch-
@@ -253,7 +274,8 @@ def aspp_checks(torch, kaspp) -> dict:
                       f"aspp {shape} rates {rates} {dtype} {'bn_relu' if fuse else 'bare'}: "
                       f"max|err| {err:.3g} <= {tol:.3g} (max|ref| {ref:.3g}), two calls "
                       f"bit-equal: {same}; {aspp_plan_text(torch, kaspp, x, rates)}")
-                key = {(0, bf16): "aspp", (1, bf16): "aspp_b8", (0, f32): "aspp_f32"}.get(
+                key = {(0, bf16): "aspp", (1, bf16): "aspp_b8", (0, f32): "aspp_f32",
+                       **{(j, bf16): name for j, name in ASPP_V3_CASES.items()}}.get(
                     (i, dtype))
                 if key and fuse:
                     records[key] = {"max_abs_err": err, "case": (x, k, r, s, b)}
@@ -378,6 +400,19 @@ def make_requests(preprocess_image):
     return requests
 
 
+def serve_requests(torch, deeplab, requests):
+    """(masks, ms a request): each request through `predict`, host clock
+    around it, synchronized."""
+    masks, times = [], []
+    for data, hw in requests:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        masks.append(deeplab.predict(data, hw))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return masks, times
+
+
 def main() -> None:
     try:
         import torch
@@ -469,6 +504,8 @@ def main() -> None:
         rec = upsample_ce_check(torch, kce, shape, out_hw)
         if shape == UPSAMPLE_CE_CASES[0][0]:  # the training path's call
             records["upsample_ce"] = rec
+        if shape == UPSAMPLE_CE_CASES[-1][0]:  # mobilenetv3large_lite --fused_loss
+            records["upsample_ce_x16"] = rec
     for shape, out_hw in UPSAMPLE_CE_BACKWARD_CASES:
         upsample_ce_backward_check(torch, kce, shape, out_hw)
     for shape, out_hw in UPSAMPLE_CE_FORWARD_CASES:
@@ -501,14 +538,7 @@ def main() -> None:
     torch.cuda.synchronize()
 
     def serve(deeplab):
-        masks, times = [], []
-        for data, hw in requests:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            masks.append(deeplab.predict(data, hw))
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        return masks, times
+        return serve_requests(torch, deeplab, requests)
 
     kernels.reset_launch_counts()                    # the main path starts here
     masks, times = serve(served)
@@ -581,6 +611,19 @@ def main() -> None:
     # -- 5c. the evaluation path, through its entry point ---------------------------
     eval_launches, eval_state = evaluation_path(torch, kernels, classes_path, train_dir)
 
+    # -- 5d. the train CLI with its own defaults (mobilenetv3large_lite, the
+    # stochastic augmentation), then --fused_loss and --device_cache ---------------
+    v3_launches, v3_root = default_training_path(torch, kernels, train_main, train_args,
+                                                 classes_path)
+    v3_batch = v3_train_batch(torch, v3_root)
+    augment_card_vs_cpu(torch, v3_batch)
+
+    # -- 5e. mobilenetv3 serving: the ASPP kernel at 160 and 96 channels ---------------
+    v3_serve = v3_serving(torch, kernels, classes_path, requests)
+
+    # -- 5f. the eval CLI with its own default model ----------------------------------
+    default_evaluation_path(torch, kernels, classes_path, train_dir)
+
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
         return float(np.percentile(v, q))
@@ -606,6 +649,7 @@ def main() -> None:
 
     train_step_numbers(torch, batch)
     eval_numbers(torch, eval_state)
+    default_train_numbers(torch, v3_batch)
 
     kernels = [aspp_times(torch, kaspp, records, launches["multirate_atrous_depthwise"])]
     # the decoder: both inputs read once, the concat's depthwise output written
@@ -635,12 +679,21 @@ def main() -> None:
     kernels += upsample_ce_times(torch, kce, records["upsample_ce"], train_launches)
     kernels.append(confusion_times(torch, kconf, records["confusion"], eval_launches[0]))
     kernels.append(mbconv_times(torch, kmb, records["mbconv"], eval_launches[1], eval_state))
+    # this slice's new shapes, each held and timed on its own path's run
+    kernels[0]["at_other_shapes"] = [
+        aspp_shape_row(torch, kaspp, records[key], v3_serve[model], model)
+        for key, model in (("aspp_c160", "mobilenetv3large"), ("aspp_c96", "mobilenetv3small"))]
+    for row in upsample_ce_times(torch, kce, records["upsample_ce_x16"], v3_launches):
+        row["path"] = "mobilenetv3large_lite --fused_loss"
+        next(r for r in kernels if r["name"] == row["name"])["at_other_shapes"] = [row]
     for row in kernels:
-        print(f"  {row['name']}: {row['ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
-              f"by {row['bound_by']} ({row['bound_ms'] / row['ms']:.3f} of it), plain "
-              f"{row['plain_ms'] * 1e3:.2f} us, library "
-              f"{'none' if row['library_ms'] is None else format(row['library_ms'] * 1e3, '.2f') + ' us'}"
-              f", {row['launches']} launches on its path  [{card}]")
+        for r in [row, *row.get("at_other_shapes", [])]:
+            print(f"  {r['name']}{' (' + r['path'] + ')' if 'path' in r else ''}: "
+                  f"{r['ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+                  f"by {r['bound_by']} ({r['bound_ms'] / r['ms']:.3f} of it), plain "
+                  f"{r['plain_ms'] * 1e3:.2f} us, library "
+                  f"{'none' if r['library_ms'] is None else format(r['library_ms'] * 1e3, '.2f') + ' us'}"
+                  f", {r['launches']} launches on its path  [{card}]")
 
     leaked = [m for m in ("jax", "flax", "deeplabv3p_tpu") if m in sys.modules]
     check(not leaked, f"no JAX module imported ({leaked or 'none'})")
@@ -831,19 +884,18 @@ def upsample_ce_backward_check(torch, kce, shape, out_hw, case=None):
     return lse
 
 
-def write_train_dataset(root: str, n: int, hw, num_classes: int, seed: int) -> str:
-    """n seeded pairs <root>/images/<id>.jpg + labels/<id>.png: smooth random
-    images, labels of 64-px class cells with 4-px 255 bands on their
-    borders; returns the list file."""
+def write_train_dataset(root: str, sizes, num_classes: int, seed: int) -> str:
+    """Seeded pairs <root>/images/<id>.jpg + labels/<id>.png, one a (h, w) of
+    `sizes`: smooth random images, labels of 64-px class cells with 4-px 255
+    bands on their borders; returns the list file."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
-    h, w = hw
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
     os.makedirs(os.path.join(root, "labels"), exist_ok=True)
-    band = (np.arange(h)[:, None] % 64 < 4) | (np.arange(w)[None, :] % 64 < 4)
     names = []
-    for i in range(n):
+    for i, (h, w) in enumerate(sizes):
+        band = (np.arange(h)[:, None] % 64 < 4) | (np.arange(w)[None, :] % 64 < 4)
         coarse = rng.integers(0, 256, (h // 32 + 1, w // 32 + 1, 3), dtype=np.uint8)
         Image.fromarray(coarse).resize((w, h), Image.BILINEAR).save(
             os.path.join(root, "images", f"s{i:03d}.jpg"), quality=90)
@@ -872,7 +924,7 @@ def training_path(torch, kernels, train_main, train_args, classes_path, request)
     log_dir = os.path.join(OUT_DIR, "smoke_train_logs")
     shutil.rmtree(log_dir, ignore_errors=True)
     t0 = time.perf_counter()
-    list_path = write_train_dataset(root, TRAIN_IMAGES, INPUT, 21, TRAIN_SEED)
+    list_path = write_train_dataset(root, [INPUT] * TRAIN_IMAGES, 21, TRAIN_SEED)
     print(f"training path: wrote {TRAIN_IMAGES} pairs of {INPUT} in "
           f"{time.perf_counter() - t0:.1f} s; python -m deeplabv3p_torch.train ...")
     argv = ["--model_type", "mobilenetv2", "--model_input_shape", "512x512",
@@ -922,8 +974,21 @@ def training_path(torch, kernels, train_main, train_args, classes_path, request)
           f"stage 1 (freeze level 1): the {len(backbone)} backbone tensors, its "
           f"{len(bn_bufs)} BN buffers included, are as initialised")
     head = [k for k in start if not k.startswith("backbone.")]
-    check(all(not torch.equal(stage1[k], start[k]) for k in head if k.endswith(".weight")),
-          "stage 1 moved every head weight")
+    # Three head BN scales reach a training-mode BN through per-channel ops only,
+    # which normalises their scale away but for its epsilon: from this init their
+    # gradients are 1e-6 to 1e-5 of the head's largest (tests/test_torch_train.py),
+    # so two steps move them by a few ulps or not at all. Every other head weight
+    # must move; theirs is printed.
+    invariant = ("aspp.concat_projection_BN.weight", "decoder.feature_projection0_BN.weight",
+                 "decoder.decoder_conv0.pointwise_BN.weight")
+    unmoved = [k for k in head if k.endswith(".weight") and k not in invariant
+               and torch.equal(stage1[k], start[k])]
+    ulps = {k.split(".")[-2]: int(((stage1[k] - start[k]).abs()
+                                   / (torch.finfo(torch.float32).eps * start[k].abs())).max())
+            for k in invariant}
+    check(not unmoved, f"stage 1 moved every head weight but the 3 nearly scale-invariant BN "
+                       f"scales (unmoved: {unmoved or 'none'}; those 3 moved by at most "
+                       f"{ulps} ulps)")
     convs = [k for k in backbone if k.endswith(".weight") and "_BN." not in k]
     moved = [k for k in convs + bn_bufs if not torch.equal(final[k], start[k])]
     check(len(moved) == len(convs + bn_bufs),
@@ -937,6 +1002,357 @@ def training_path(torch, kernels, train_main, train_args, classes_path, request)
     check(mask.shape == hw and mask.min() >= 0 and mask.max() < 21,
           f"trained_final.npz serves a request through DeepLab: mask {mask.shape} for {hw}")
     return launches, root
+
+
+def default_training_path(torch, kernels, train_main, train_args, classes_path):
+    """`python -m deeplabv3p_torch.train` with its own defaults (no
+    --model_type, no --no_augment, no --fused_loss: mobilenetv3large_lite,
+    512x512, OS16, b16, bf16, the stochastic augmentation), 2+2 steps on a
+    seeded set whose every other pair is 720x1280; then the same with
+    --fused_loss and with --device_cache. Returns the --fused_loss run's
+    launch counts and the dataset dir."""
+    import shutil
+
+    from deeplabv3p_torch.data import augment
+    from deeplabv3p_torch.inference import DeepLab
+
+    root = os.path.join(OUT_DIR, "smoke_v3_train_data")
+    sizes = [V3_LARGE_HW if i % 2 == 0 else INPUT for i in range(TRAIN_IMAGES)]
+    t0 = time.perf_counter()
+    list_path = write_train_dataset(root, sizes, 21, V3_SEED)
+    print(f"training with the CLI's defaults: wrote {TRAIN_IMAGES} pairs, half {V3_LARGE_HW} "
+          f"and half {INPUT}, in {time.perf_counter() - t0:.1f} s")
+    seen = []
+    real = augment.apply_augment
+
+    def spy(params, images, labels, orig_hw, cfg=augment.AugmentConfig()):
+        larger = (orig_hw[:, 0] > images.shape[1]) & (orig_hw[:, 1] > images.shape[2])
+        seen.append((int(larger.sum()), int((params.crop & larger).sum())))
+        return real(params, images, labels, orig_hw, cfg)
+
+    augment.apply_augment = spy
+    zeros = {"multirate_atrous_depthwise": 0, "fused_decoder_frontend": 0,
+             "upsample_ce_forward": 0, "upsample_ce_backward": 0,
+             "confusion_matrix_fused": 0, "fused_inverted_residual": 0}
+    steps = 2 * (TRAIN_IMAGES // TRAIN_BATCH)
+    fused_launches = None
+    try:
+        for extra in ((), ("--fused_loss",), ("--device_cache",)):
+            log_dir = os.path.join(OUT_DIR, "smoke_v3_logs" + "".join(extra).replace("-", "_"))
+            shutil.rmtree(log_dir, ignore_errors=True)
+            argv = ["--dataset_path", root, "--dataset_file", list_path, "--classes_path",
+                    classes_path, "--transfer_epoch", "1", "--total_epoch", "2",
+                    "--log_dir", log_dir, *extra]
+            args = train_args(argv)
+            what = " ".join(extra) or "(defaults)"
+            check((args.model_type, args.augment, args.batch_size, args.model_input_shape,
+                   args.device) == ("mobilenetv3large_lite", True, 16, "512x512", "cuda"),
+                  f"train CLI {what}: mobilenetv3large_lite, --augment, b16, 512x512, cuda "
+                  "by default")
+            print("  python -m deeplabv3p_torch.train " + " ".join(argv))
+            seen.clear()
+            kernels.reset_launch_counts()            # this path starts here
+            t0 = time.perf_counter()
+            trainer = train_main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()       # ... and ends here
+            larger, cropped = sum(a for a, _ in seen), sum(b for _, b in seen)
+            print(f"  {what}: {steps} steps in {wall:.1f} s wall (set-up, caching and first-call "
+                  f"cuDNN tuning included); {len(seen)} augmented batches, {larger} samples "
+                  f"larger than the input, the crop fired on {cropped}; launch counts {launches}")
+            want = dict(zeros)
+            if "--fused_loss" in extra:
+                want.update(upsample_ce_forward=steps, upsample_ce_backward=steps)
+                fused_launches = launches
+            check(launches == want, f"train CLI {what}: launch counts as the path runs them "
+                                    f"(the loss kernels {want['upsample_ce_forward']} times "
+                                    "each, every other kernel never)")
+            check(len(seen) == steps, f"train CLI {what}: every batch augmented ({len(seen)})")
+            if "--device_cache" in extra:
+                check(larger == 0, "train CLI --device_cache: orig_hw is the input shape, "
+                                   "the crop cannot fire")
+            else:
+                check(larger > 0, f"train CLI {what}: {larger} samples larger than the input "
+                                  "reach the augmentation, the crop can fire")
+            with open(os.path.join(log_dir, "history.jsonl")) as f:
+                hist = [json.loads(line) for line in f]
+            check(len(hist) == 2 and all(np.isfinite(r["loss"]) and r["steps"] == 2
+                                         for r in hist) and trainer.history == hist,
+                  f"train CLI {what}: history.jsonl has 2 records of 2 steps, finite losses "
+                  f"{[round(r['loss'], 5) for r in hist]}")
+    finally:
+        augment.apply_augment = real
+    served = DeepLab(model_type="mobilenetv3large_lite", classes_path=classes_path,
+                     model_input_shape=INPUT, device="cuda",
+                     weights_path=os.path.join(log_dir, "trained_final.npz"))
+    data = np.random.default_rng(1).uniform(-1, 1, (1, *INPUT, 3)).astype(np.float32)
+    mask = served.predict(data, (375, 500))
+    check(mask.shape == (375, 500) and mask.min() >= 0 and mask.max() < 21,
+          f"the last run's trained_final.npz loads strictly and serves: mask {mask.shape}")
+    return fused_launches, root
+
+
+def v3_train_batch(torch, root):
+    """The first TRAIN_BATCH pairs of the CLI-defaults set as the loader
+    gives them, on the card: (images u8, labels u8, orig_hw f32)."""
+    from deeplabv3p_torch.data.pipeline import SegmentationDataset
+
+    ids = [f"s{i:03d}" for i in range(TRAIN_BATCH)]
+    ds = SegmentationDataset(root, ids, batch_size=TRAIN_BATCH, num_classes=21,
+                             input_shape=INPUT, augment=False, shuffle=False)
+    return tuple(torch.from_numpy(a).cuda() for a in next(iter(ds.epoch_batches())))
+
+
+def augment_card_vs_cpu(torch, batch) -> None:
+    """The chain on the card against its CPU run on one b16 batch, the
+    parameters drawn once on the CPU with every gate at 0.5 (each op fires
+    on some samples): labels EQUAL, images within 1e-3 on the 0..255 scale,
+    then the weight maps equal."""
+    from deeplabv3p_torch.data import augment
+
+    images, labels, orig_hw = batch
+    b, h, w = labels.shape
+    cfg = augment.AugmentConfig(flip_prob=0.5, vflip_prob=0.5, zoom_rotate_prob=0.5,
+                                gridmask_prob=0.5, grayscale_prob=0.5, blur_prob=0.5,
+                                crop_prob=0.5)
+    params = augment.draw_augment_params(torch.Generator().manual_seed(3), b, h, w, cfg)
+    larger = (orig_hw[:, 0] > h) & (orig_hw[:, 1] > w)
+    gates = {g: int(getattr(params, g).sum()) for g in (
+        "hflip", "vflip", "zoom_rotate", "gridmask", "grayscale", "blur")}
+    gates["crop"] = int((params.crop & larger.cpu()).sum())
+    cpu_i, cpu_l = augment.apply_augment(params, images.cpu(), labels.cpu(), orig_hw.cpu(), cfg)
+    card_i, card_l = augment.apply_augment(params.to("cuda"), images, labels, orig_hw, cfg)
+    torch.cuda.synchronize()
+    err = (card_i.cpu() - cpu_i).abs().max().item()
+    diff = int((card_l.cpu() != cpu_l).sum())
+    check(all(v > 0 for v in gates.values()),
+          f"augmentation check: every gated op fires on some of the {b} samples {gates}")
+    check(diff == 0 and err <= 1e-3,
+          f"augmentation, card vs CPU on the same parameters ({b}x{h}x{w}): labels equal "
+          f"({diff} differ), images max|err| {err:.3g} <= 1e-3 (0..255)")
+    same_w = torch.equal(augment.adaptive_class_weights(card_l).cpu(),
+                         augment.adaptive_class_weights(cpu_l))
+    check(same_w, "augmentation, card vs CPU: the adaptive weight maps are equal")
+
+
+def v3_serving(torch, kernels, classes_path, requests) -> dict:
+    """mobilenetv3large (full head, bf16, b1) with the ASPP and decoder
+    kernels on N_REQUESTS requests, then mobilenetv3small on
+    V3_REQUESTS_SMALL: launch counts, masks against the same weights in f32
+    with no kernel (>= 0.98 of pixels), latency. Returns each run's counts."""
+    from deeplabv3p_torch.inference import DeepLab
+
+    card = card_line()
+    out = {}
+    for model_type, reqs in (("mobilenetv3large", requests),
+                             ("mobilenetv3small", requests[:V3_REQUESTS_SMALL])):
+        common = dict(model_type=model_type, classes_path=classes_path,
+                      model_input_shape=INPUT, output_stride=16, device="cuda")
+        served = DeepLab(fused_aspp=True, fused_decoder=True, **common)
+        plain = DeepLab(dtype=torch.float32, fused_aspp=False, fused_decoder=False, **common)
+        for data, hw in reqs[:WARMUP]:
+            served.predict(data, hw)
+        kernels.reset_launch_counts()                # this path starts here
+        masks, times = serve_requests(torch, served, reqs)
+        launches = kernels.launch_counts()           # ... and ends here
+        n = len(reqs)
+        check(launches == {"multirate_atrous_depthwise": n, "fused_decoder_frontend": n,
+                           "upsample_ce_forward": 0, "upsample_ce_backward": 0,
+                           "confusion_matrix_fused": 0, "fused_inverted_residual": 0},
+              f"{model_type} serving: the ASPP kernel ({served.model.backbone.out_channels} "
+              f"channels) and the decoder kernel once a request ({n}): {launches}")
+        agree = min(float((m == plain.predict(data, hw)).mean())
+                    for m, (data, hw) in zip(masks, reqs))
+        shapes_ok = all(m.shape == hw and m.min() >= 0 and m.max() < 21
+                        for m, (_, hw) in zip(masks, reqs))
+        check(shapes_ok and agree >= 0.98,
+              f"{model_type} serving, bf16 with both kernels vs f32 with none: masks of the "
+              f"requests' sizes agree on >= 0.98 of pixels (min {agree:.5f})")
+        configs = {"bf16, no kernels": DeepLab(fused_aspp=False, **common),
+                   "bf16, ASPP + decoder kernels": served}
+        for data, hw in reqs[:WARMUP]:
+            configs["bf16, no kernels"].predict(data, hw)
+        pooled = {name: [] for name in configs}
+        for name in [*configs, *reversed(configs)]:  # in turns: P K K P
+            pooled[name] += serve_requests(torch, configs[name], reqs)[1]
+        print(f"  {model_type} latency in turns P K K P of {n} requests (host clock around "
+              f"predict, synchronized)  [{card}]:")
+        for name, ts in pooled.items():
+            print(f"    {name}: median {statistics.median(ts):.3f} ms, p90 "
+                  f"{float(np.percentile(ts, 90)):.3f} ms over {len(ts)} requests")
+        if model_type == "mobilenetv3large":
+            profile_one(torch, lambda: served.predict(*reqs[0]), "one mobilenetv3large request",
+                        "profile_one_request_v3large.txt", top=8)
+        out[model_type] = launches["multirate_atrous_depthwise"]
+    return out
+
+
+def default_evaluation_path(torch, kernels, classes_path, root) -> None:
+    """`python -m deeplabv3p_torch.eval` with its own default model
+    (mobilenetv3large_lite), b8 512x512, on the 32 synthetic pairs and a
+    seeded .npz: the confusion kernel once a batch, no other kernel, and
+    the matrix EQUAL to torch.argmax + bincount on the same model's
+    logits."""
+    import contextlib
+    import io
+
+    from deeplabv3p_torch import eval as eval_cli
+    from deeplabv3p_torch import metrics as metrics_lib
+    from deeplabv3p_torch.data.augment import preprocess_eval_batch
+    from deeplabv3p_torch.data.pipeline import SegmentationDataset
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.train import accumulate_confusion
+    from deeplabv3p_torch.utils.config import get_data_list
+    from deeplabv3p_torch.utils.weights import (
+        from_jax_variables,
+        load_npz,
+        save_npz,
+        to_jax_variables,
+    )
+
+    weights = os.path.join(OUT_DIR, "smoke_v3_eval_weights.npz")
+    seeded = build_deeplab_model("mobilenetv3large_lite", 21, device="cpu")
+    init_parameters(seeded, torch.Generator().manual_seed(EVAL_SEED))
+    save_npz(weights, to_jax_variables(seeded))
+    argv = ["--model_path", weights, "--dataset_path", root, "--dataset_file",
+            os.path.join(root, "list.txt"), "--classes_path", classes_path,
+            "--out_dir", os.path.join(OUT_DIR, "smoke_v3_eval_result")]
+    args = eval_cli.parse_args(argv)
+    check((args.model_type, args.batch_size, args.model_input_shape) ==
+          ("mobilenetv3large_lite", EVAL_BATCH, "512x512"),
+          "eval CLI defaults: mobilenetv3large_lite, b8, 512x512")
+    print("  python -m deeplabv3p_torch.eval " + " ".join(argv))
+    text = io.StringIO()
+    kernels.reset_launch_counts()                    # this path starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        m = eval_cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()               # ... and ends here
+    batches = TRAIN_IMAGES // EVAL_BATCH
+    summary = [ln for ln in text.getvalue().splitlines() if "=" in ln and ":" not in ln]
+    print(f"  {wall:.2f} s wall (set-up and first-call cuDNN tuning included); "
+          f"{' '.join(summary)}; launch counts {launches}  [{card_line()}]")
+    check(launches == {"confusion_matrix_fused": batches, "multirate_atrous_depthwise": 0,
+                       "fused_decoder_frontend": 0, "upsample_ce_forward": 0,
+                       "upsample_ce_backward": 0, "fused_inverted_residual": 0},
+          f"eval CLI, default model: the confusion kernel once a batch ({batches}), the lite "
+          "head runs no other kernel")
+    model = build_deeplab_model("mobilenetv3large_lite", 21, fused_aspp=True,
+                                dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(from_jax_variables(load_npz(weights), model), strict=True)
+
+    @torch.no_grad()
+    def library_step(images_u8, labels_u8):
+        images, labels = preprocess_eval_batch(images_u8, labels_u8, num_classes=21)
+        preds = torch.argmax(model(images.permute(0, 3, 1, 2)), dim=1)
+        return metrics_lib.confusion_matrix(labels, preds, 21)
+
+    ds = SegmentationDataset(root, get_data_list(os.path.join(root, "list.txt"), shuffle=False),
+                             batch_size=EVAL_BATCH, num_classes=21, input_shape=INPUT,
+                             augment=False, shuffle=False, drop_remainder=False)
+    want = accumulate_confusion(library_step, ds, 21, "cuda")
+    check(np.array_equal(m.confusion, want) and int(want.sum()) > 0,
+          "eval CLI, default model: the matrix EQUALS torch.argmax + bincount on the same "
+          f"model's logits (sum|diff| {int(np.abs(m.confusion - want).sum())})")
+
+
+def default_train_numbers(torch, batch, steps: int = 6) -> None:
+    """The CLI default's step (mobilenetv3large_lite b16 bf16, SGD at the
+    CLI's LR, freeze level 0), each step augmenting the same uint8 batch
+    anew on the card, unfused and --fused_loss in turns U F F U of `steps`
+    after 2 warm-up steps each: step time (host clock, synchronized,
+    augmentation included), img/s, peak memory, the augmentation's own time
+    by CUDA events and its share of the step; the loss must be finite and
+    fall over the steps."""
+    from deeplabv3p_torch.data.augment import AugmentConfig, augment_batch
+    from deeplabv3p_torch.losses import get_loss_fn
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.train import StageConfig, Trainer
+
+    images_u8, labels_u8, orig_hw = batch
+    model = build_deeplab_model("mobilenetv3large_lite", 21, dtype=torch.bfloat16,
+                                device="cuda")
+    init_parameters(model, torch.Generator().manual_seed(V3_SEED), bn_identity=True)
+    trainer = Trainer(model, 21, get_loss_fn("crossentropy"), device="cuda",
+                      log_dir=os.path.join(OUT_DIR, "smoke_v3_step_logs"))
+    stage = StageConfig(freeze_level=0, optim_type="sgd", learning_rate=1e-2)
+    state = trainer.build_stage_state(stage)
+    variants = {}
+    for fused in (False, True):
+        trainer.fused_loss = fused
+        variants["--fused_loss" if fused else "default"] = trainer.make_train_step(stage)
+    gen = torch.Generator(device="cuda").manual_seed(V3_SEED)
+    cfg = AugmentConfig()
+    losses = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def run(step, n):
+        times, aug = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            start.record()
+            images, labels, weights = augment_batch(gen, images_u8, labels_u8, orig_hw, cfg,
+                                                    num_classes=21)
+            end.record()
+            metrics = step(state, images, labels, weights)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            aug.append(start.elapsed_time(end))
+            losses.append(metrics["loss"].item())
+        return times, aug
+
+    for step in variants.values():
+        run(step, 2)
+    times = {k: [] for k in variants}
+    aug = {k: [] for k in variants}
+    peak = {k: 0 for k in variants}
+    for name in ("default", "--fused_loss", "--fused_loss", "default"):
+        torch.cuda.reset_peak_memory_stats()
+        t, a = run(variants[name], steps)
+        times[name] += t
+        aug[name] += a
+        peak[name] = max(peak[name], torch.cuda.max_memory_allocated())
+    card = card_line()
+    print(f"train step with the CLI's defaults, mobilenetv3large_lite OS16 512x512 "
+          f"b{TRAIN_BATCH} bf16, SGD, freeze level 0, the augmentation on the card each step, "
+          f"in turns U F F U of {steps} steps (host clock, synchronized)  [{card}]:")
+    for name, ts in times.items():
+        med, aug_ms = statistics.median(ts), statistics.mean(aug[name])
+        print(f"  {name}: median {med:.3f} ms, p90 {float(np.percentile(ts, 90)):.3f} ms over "
+              f"{len(ts)} steps, {TRAIN_BATCH / med * 1e3:.1f} img/s; peak memory "
+              f"{peak[name] / 2**20:.1f} MiB; augmentation {aug_ms:.3f} ms a b{TRAIN_BATCH} "
+              f"batch by CUDA events (median {statistics.median(aug[name]):.3f}), "
+              f"{aug_ms / med:.3f} of the step  [{card}]")
+    profile_one(torch, lambda: augment_batch(gen, images_u8, labels_u8, orig_hw, cfg, 21),
+                f"the augmentation of one b{TRAIN_BATCH} batch", "profile_one_augment.txt",
+                top=12)
+    profile_one(torch, lambda: variants["default"](state, *augment_batch(
+        gen, images_u8, labels_u8, orig_hw, cfg, 21)), "one CLI-default step",
+        "profile_one_train_step_v3.txt", top=8)
+    first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
+    check(all(np.isfinite(losses)) and last < first,
+          f"CLI-default training: {len(losses)} losses finite and falling (first four "
+          f"{first:.4f}, last four {last:.4f}): {[round(x, 3) for x in losses]}")
+
+
+def aspp_shape_row(torch, kaspp, rec, launches, model_type) -> dict:
+    """The ASPP kernel's kernels-JSON record at a new shape: its check's
+    error, its times against the plain version, and its launches on that
+    model's serving run."""
+    t = aspp_timing(torch, kaspp, rec["case"], iters=200)
+    return {"name": "multirate_atrous_depthwise", "route": "cuda",
+            "source": "deeplabv3p_torch/ops/kernels/csrc/aspp.cu",
+            "replaces": "deeplabv3p_tpu/ops/pallas/aspp.py:85", "launches": launches,
+            "max_abs_err": rec["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "device_us": t["device_us"], "shape": t["shape"], "dtype": t["dtype"],
+            "path": f"{model_type} serving"}
 
 
 def train_batch(torch, root, classes_path):

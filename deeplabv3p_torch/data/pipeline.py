@@ -232,17 +232,30 @@ class _FeedError:
 def to_device(batch, device) -> tuple:
     """numpy arrays -> tensors on `device`. For CUDA the host copy is pinned
     and the copy is non_blocking, on the current stream: the consumer's
-    work on that stream runs after it."""
+    work on that stream runs after it. Tensors already on `device` (a
+    `DeviceCachedDataset`'s batches) pass through as they are, uncopied."""
     import torch
 
     device = torch.device(device)
     out = []
     for a in batch:
+        if isinstance(a, torch.Tensor):
+            out.append(a if _on(a, device) else a.to(device))
+            continue
         t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out.append(t)
     return tuple(out)
+
+
+def _on(t, device) -> bool:
+    """t lies on `device` (an index-less 'cuda' means the current card)."""
+    if t.device.type != device.type:
+        return False
+    if device.index is None or t.device.index is None:
+        return True
+    return t.device.index == device.index
 
 
 def device_feed(batches, device, depth: int = 2):

@@ -273,7 +273,8 @@ def parse_args(argv=None):
                    help="a port .npz of the JAX variables tree (.h5, .ckpt and the "
                         "exported formats are not ported)")
     p.add_argument("--model_type", default="mobilenetv3large_lite",
-                   help="ported: mobilenetv2, mobilenetv2_lite")
+                   help="ported: mobilenetv2(_lite), mobilenetv3large(_lite), "
+                        "mobilenetv3small(_lite)")
     p.add_argument("--model_input_shape", default="512x512",
                    help="HxW (e.g. 512x512 or 1024x512) or a single int")
     p.add_argument("--output_stride", type=int, default=16, choices=[8, 16, 32])

@@ -28,6 +28,7 @@ from deeplabv3p_torch.models.layers import (
     channels_last,
 )
 from deeplabv3p_torch.models.mobilenetv2 import MobileNetV2Body
+from deeplabv3p_torch.models.mobilenetv3 import MobileNetV3LargeBody, MobileNetV3SmallBody
 from deeplabv3p_torch.ops.resize import resize_bilinear
 
 
@@ -39,7 +40,8 @@ class DeeplabV3Plus(nn.Module):
     residuals through the hand-written kernels (ops/kernels) — inference
     only, same parameters as the standard path: a module in training mode
     takes the standard path, as JAX does. `fused_mbconv` needs a backbone
-    that takes the flag (the MobileNetV2 body).
+    that takes the flag (the MobileNetV2 body); the MobileNetV3 bodies
+    refuse it.
     """
 
     def __init__(
@@ -96,6 +98,10 @@ class DeeplabV3Plus(nn.Module):
 DEEPLAB_MODEL_REGISTRY: dict[str, tuple[Callable[..., nn.Module], bool]] = {
     "mobilenetv2": (partial(MobileNetV2Body, alpha=1.0), False),
     "mobilenetv2_lite": (partial(MobileNetV2Body, alpha=1.0), True),
+    "mobilenetv3large": (partial(MobileNetV3LargeBody, alpha=1.0), False),
+    "mobilenetv3large_lite": (partial(MobileNetV3LargeBody, alpha=1.0), True),
+    "mobilenetv3small": (partial(MobileNetV3SmallBody, alpha=1.0), False),
+    "mobilenetv3small_lite": (partial(MobileNetV3SmallBody, alpha=1.0), True),
 }
 
 

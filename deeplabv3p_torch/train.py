@@ -1,8 +1,12 @@
 """Training engine and CLI (deeplabv3p_tpu/train.py and the root train.py).
 
-    python -m deeplabv3p_torch.train --model_type mobilenetv2 \
-        --dataset_path VOC2012/ --dataset_file VOC2012/train.txt \
-        --classes_path configs/voc_classes.txt --fused_loss --no_augment
+    python -m deeplabv3p_torch.train --dataset_path VOC2012/ \
+        --dataset_file VOC2012/train.txt --classes_path configs/voc_classes.txt
+
+runs the root train.py's defaults: mobilenetv3large_lite, 512x512, OS16,
+b16, bf16 activations with f32 parameters, and the stochastic
+augmentation on the device (`data/augment.py`). `--fused_loss`,
+`--device_cache`, `--no_augment` and `--model_type` as there.
 
 * `make_train_step`: forward (bf16 activations, f32 parameters, BN
   statistics and loss), loss, backward, optimizer and weight averaging.
@@ -418,9 +422,6 @@ def _refuse_unported(args) -> None:
     """Flags of the root train.py the port does not run yet: each raises,
     naming its ROADMAP item; none is ignored."""
     unported = [
-        (args.augment, "the stochastic augmentation (the default --augment; pass "
-                       "--no_augment)", "Queue A item 8"),
-        (args.device_cache, "--device_cache", "Queue A item 8"),
         (args.spatial_partition > 1, "--spatial_partition > 1", "Queue A item 11"),
         (args.num_devices > 1, "--num_devices > 1", "Queue A item 11"),
         (args.remat != "off", "--remat", "Queue A item 14"),
@@ -471,6 +472,14 @@ def main(args):
         train_ds = SegmentationDataset(
             args.dataset_path, train_list, batch_size=args.batch_size,
             num_classes=num_classes, input_shape=input_shape, augment=args.augment)
+
+    if args.device_cache:
+        # the whole uint8 set resident on the device, batches gathered there
+        # (root train.py:149-156): a step's host traffic is B indices
+        from deeplabv3p_torch.data.device_cache import DeviceCachedDataset
+
+        print("caching the train set into device memory ...")
+        train_ds = DeviceCachedDataset.from_source(train_ds, device=device)
 
     val_ds = None
     if args.val_dataset_file and is_packed_dataset(args.val_dataset_file):
@@ -540,7 +549,7 @@ def main(args):
         grad_accum=args.grad_accum, state_dtype=args.optim_state_dtype))
 
     ckpt = CheckpointManager(args.log_dir)
-    aug_cfg = AugmentConfig.identity()  # --augment raised above
+    aug_cfg = AugmentConfig() if args.augment else AugmentConfig.identity()
     aug_generator = torch.Generator(device=device).manual_seed(args.seed + 1)
 
     def augment_fn(images, labels, orig_hw):
@@ -564,7 +573,8 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     # model (reference train.py:253-266)
     p.add_argument("--model_type", default="mobilenetv3large_lite",
-                   help="ported: mobilenetv2, mobilenetv2_lite")
+                   help="ported: mobilenetv2(_lite), mobilenetv3large(_lite), "
+                        "mobilenetv3small(_lite)")
     p.add_argument("--model_input_shape", default="512x512",
                    help="HxW (e.g. 512x512 or 1024x512) or a single int")
     p.add_argument("--output_stride", type=int, default=16, choices=[8, 16, 32])
@@ -600,10 +610,12 @@ def parse_args(argv=None):
     p.add_argument("--spatial_partition", type=int, default=1,
                    help="1 only: spatial partitioning is not ported")
     p.add_argument("--bn_recalibrate", action="store_true", help="not ported")
-    p.add_argument("--device_cache", action="store_true", help="not ported")
+    p.add_argument("--device_cache", action="store_true",
+                   help="keep the uint8 train set on the device and gather each batch "
+                        "there (data/device_cache.py); the random crop then never fires")
     p.add_argument("--augment", dest="augment", action="store_true", default=True,
-                   help="the default; the stochastic ops are not ported, so it "
-                        "raises: pass --no_augment")
+                   help="the default: the 12-op stochastic augmentation on the device "
+                        "(data/augment.py), CLAHE on the host")
     p.add_argument("--no_augment", dest="augment", action="store_false",
                    help="normalise and compute the adaptive weights only")
     p.add_argument("--mixed_precision", action="store_true", default=True,
@@ -619,7 +631,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (the default) needs a card; cpu runs the plain versions")
     p.add_argument("--seed", type=int, default=0,
-                   help="seeds the initial weights (without --weights_path) and dropout")
+                   help="seeds the initial weights (without --weights_path), dropout and "
+                        "the augmentation (seed + 1)")
     return p.parse_args(argv)
 
 

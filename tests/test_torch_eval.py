@@ -201,6 +201,32 @@ def test_cli_end_to_end_on_the_cpu(toy, tmp_path):
     assert abs(fused.miou - m.miou) <= 0.02
 
 
+def test_cli_runs_with_its_default_model(toy, tmp_path, capsys):
+    """No --model_type: the eval CLI builds mobilenetv3large_lite (bf16, as
+    the CLI always does) and its matrix equals `eval_miou` of that model
+    on the same weights; every valid label pixel is counted."""
+    root, list_path, _, _ = toy
+    model = build_deeplab_model("mobilenetv3large_lite", 4, device="cpu")
+    init_parameters(model, torch.Generator().manual_seed(6))
+    weights = str(tmp_path / "v3.npz")
+    save_npz(weights, to_jax_variables(model))
+    args = teval.parse_args(["--model_path", weights, "--model_input_shape", "64",
+                             "--dataset_path", root, "--dataset_file", list_path,
+                             "--classes_path", os.path.join(root, "classes.txt"),
+                             "--device", "cpu", "--out_dir", str(tmp_path / "result")])
+    assert args.model_type == "mobilenetv3large_lite"
+    m = teval.main(args)
+    assert "mIoU=" in capsys.readouterr().out
+    bf16 = build_deeplab_model("mobilenetv3large_lite", 4, fused_aspp=True,
+                               dtype=torch.bfloat16, device="cpu")
+    bf16.load_state_dict(model.state_dict())
+    ids = get_data_list(list_path, shuffle=False)
+    want = teval.eval_miou(bf16, root, ids, get_classes(os.path.join(root, "classes.txt")),
+                           model_input_shape=(64, 64), batch_size=args.batch_size)
+    np.testing.assert_array_equal(m.confusion, want.confusion)
+    assert m.confusion.sum() == _label_pixels(root, ids, (64, 64), 4)
+
+
 @pytest.mark.parametrize("suffix,item", [
     (".h5", "Queue A item 1"), (".ckpt", "Queue A item 5"), (".shlo", "Queue A item 12"),
     (".onnx", "Queue A item 12"), (".tflite", "Queue A item 12"), (".pb", "Queue A item 12"),

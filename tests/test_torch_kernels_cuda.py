@@ -95,6 +95,9 @@ ASPP_CASES = [
     ((1, 16, 16, 320), (3, 6, 9)),    # OS32's rates on a 16x16 map
     ((1, 16, 16, 100), (6, 12, 18)),  # C no multiple of 8; rate 18 past the map
     ((1, 8, 8, 320), (6, 12, 18)),    # 128 px: rates 12 and 18 past the map
+    ((1, 32, 32, 160), (6, 12, 18)),  # mobilenetv3large serving: 160 channels
+    ((8, 32, 32, 160), (6, 12, 18)),  # ... at the eval path's batch 8
+    ((1, 32, 32, 96), (6, 12, 18)),   # mobilenetv3small: 96 channels
 ]
 
 
@@ -207,9 +210,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 # (B, h, w, C) -> (H, W): the training slice (512 px, OS4 logits after the
-# decoder), the lite head's OS16 logits, and a ragged case
+# decoder), the lite head's OS16 logits (x16: mobilenetv3large_lite's b16
+# training call and a b2 one), and a ragged case
 UPSAMPLE_CE_CASES = [
     ((16, 128, 128, 21), (512, 512)),
+    ((16, 32, 32, 21), (512, 512)),
     ((2, 32, 32, 21), (512, 512)),
     ((3, 29, 37, 21), (116, 148)),
 ]

@@ -9,7 +9,11 @@ it has a counterpart:
 * the data copies (pipeline, shards, toy, config) equal their originals, and
   the identity `augment_batch` equals the JAX one;
 * `python -m deeplabv3p_torch.train` end to end on the toy dataset at 64 px
-  with `--fused_loss --no_augment`, both stages, and the flags that raise.
+  with `--fused_loss --no_augment`, both stages, with its own defaults
+  (`mobilenetv3large_lite`, the stochastic augmentation), with
+  `--device_cache`, and the flags that raise.
+
+The stochastic ops against the JAX ones are in test_torch_augment.py.
 
 The one-step parity of the whole train step is in test_torch_train_step.py.
 """
@@ -140,6 +144,39 @@ def test_model_training_forward_matches_flax(model_variables):
                                        atol=1e-6, err_msg=path)
             moved += not np.array_equal(want_stats[path], flatten(variables)[path])
     assert moved == len([p for p in want_stats if p.startswith("batch_stats/")])
+
+
+# BN scales of the mobilenetv2 head whose output reaches a training-mode BN
+# through per-channel ops only (ReLU, dropout, resize, concat, a depthwise
+# conv): that BN normalises their scale away but for its epsilon
+NEARLY_SCALE_INVARIANT_BN = ("aspp.concat_projection_BN.weight",
+                             "decoder.feature_projection0_BN.weight",
+                             "decoder.decoder_conv0.pointwise_BN.weight")
+
+
+def test_nearly_scale_invariant_head_bn_scales_get_almost_no_gradient():
+    """From the trainer's init (flax's identity BN) in training mode, those
+    three BN scales get gradients below 1e-4 of the head's largest (f64
+    activations; measured 6e-7 to 1.5e-5 at 128 px) and every other head
+    weight above 1e-3 (measured >= 5e-3): after two f32 SGD steps the three
+    move by a few ulps or not at all, so chip_smoke.py's training check
+    holds them apart."""
+    model = build_deeplab_model("mobilenetv2", 21, dtype=torch.float64, device="cpu")
+    init_parameters(model, torch.Generator().manual_seed(0), bn_identity=True)
+    set_train_mode(model, 0)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    x = torch.from_numpy(np.random.RandomState(4).uniform(-1, 1, (2, 3, 128, 128)))
+    labels = torch.from_numpy(np.random.RandomState(5).randint(0, 21, (2, 128, 128)))
+    torch.nn.functional.cross_entropy(model(x).double(), labels.long()).backward()
+    head = {n: p.grad.abs().max().item() for n, p in model.named_parameters()
+            if not n.startswith("backbone.") and n.endswith(".weight")}
+    top = max(head.values())
+    for name in NEARLY_SCALE_INVARIANT_BN:
+        assert head[name] < 1e-4 * top, name
+    others = {n: g for n, g in head.items() if n not in NEARLY_SCALE_INVARIANT_BN}
+    assert min(others.values()) > 1e-3 * top, min(others, key=others.get)
 
 
 def test_freeze_levels_set_the_modes():
@@ -312,9 +349,15 @@ def test_identity_augment_and_eval_preprocess_match_jax():
     qi, ql = jaug.preprocess_eval_batch(images, labels, num_classes=6)
     np.testing.assert_allclose(pi.numpy(), np.asarray(qi), rtol=0, atol=2.4e-7)  # XLA's FMA
     np.testing.assert_array_equal(pl.numpy(), np.asarray(ql))
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        taug.augment_batch(None, torch.from_numpy(images), torch.from_numpy(labels), None,
-                           taug.AugmentConfig(), num_classes=6)
+    # the default config runs the stochastic chain (held op by op against JAX in
+    # test_torch_augment.py): same shapes and types, labels in range
+    di, dl, dw = taug.augment_batch(torch.Generator().manual_seed(0), torch.from_numpy(images),
+                                    torch.from_numpy(labels), None, taug.AugmentConfig(),
+                                    num_classes=6)
+    assert di.shape == ti.shape and di.dtype == torch.float32
+    assert -1.0 <= di.min() and di.max() <= 1.0
+    assert dl.dtype == torch.int32 and set(dl.unique().tolist()) <= {*range(6), 255}
+    torch.testing.assert_close(dw, taug.adaptive_class_weights(dl), rtol=0, atol=0)
 
 
 # -- the CLI -----------------------------------------------------------------------
@@ -383,6 +426,49 @@ def test_cli_unfused_with_val_and_eval_online(toy_dataset, tmp_path):
     assert any(p.startswith("eval_ep000-") for p in os.listdir(log_dir))
 
 
+def default_cli_args(toy, log_dir, *extra):
+    """Only what a user must give (data, classes), the size cut to 64 px and
+    b4, two one-epoch stages: the default model and --augment."""
+    root, list_path = toy
+    return parse_args([
+        "--dataset_path", root, "--dataset_file", list_path,
+        "--classes_path", os.path.join(root, "classes.txt"), "--model_input_shape", "64",
+        "--batch_size", "4", "--transfer_epoch", "1", "--total_epoch", "2",
+        "--device", "cpu", "--log_dir", str(log_dir), *extra])
+
+
+@pytest.mark.parametrize("extra", [(), ("--fused_loss",), ("--device_cache",)])
+def test_cli_runs_with_its_defaults(toy_dataset, tmp_path, extra, monkeypatch):
+    """mobilenetv3large_lite with the stochastic augmentation (the defaults),
+    alone and with --fused_loss or --device_cache: both stages train, the
+    augmentation ran on every batch, and the final weights load strictly
+    into the default model. Under --device_cache the batches come from the
+    resident set, whose orig_hw is the input shape."""
+    calls = []
+    real = taug.apply_augment
+
+    def spy(params, images, labels, orig_hw, cfg=taug.AugmentConfig()):
+        calls.append((images.shape, orig_hw.clone()))
+        return real(params, images, labels, orig_hw, cfg)
+
+    monkeypatch.setattr(taug, "apply_augment", spy)
+    log_dir = tmp_path / "logs"
+    args = default_cli_args(toy_dataset, log_dir, *extra)
+    assert (args.model_type, args.augment) == ("mobilenetv3large_lite", True)
+    trainer = main(args)
+    records = [json.loads(line) for line in (log_dir / "history.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in records] == [0, 1] and trainer.history == records
+    assert all(np.isfinite(r["loss"]) and r["steps"] == 2 for r in records)
+    assert len(calls) == 4 and all(shape == (4, 64, 64, 3) for shape, _ in calls)
+    if "--device_cache" in extra:
+        assert all(torch.equal(hw, torch.tensor([[64.0, 64.0]] * 4)) for _, hw in calls)
+    else:  # the toy pairs keep their original sizes
+        assert any(not torch.equal(hw, torch.tensor([[64.0, 64.0]] * 4)) for _, hw in calls)
+    m = build_deeplab_model("mobilenetv3large_lite", 4, device="cpu")
+    m.load_state_dict(from_jax_variables(load_npz(str(log_dir / "trained_final.npz")), m),
+                      strict=True)
+
+
 class SameBatch:
     """A dataset whose every epoch is one fixed host batch."""
 
@@ -419,8 +505,6 @@ def test_fit_reduces_lr_on_plateau_and_stops_early_or_on_nan(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    ([], "augment"),
-    (["--no_augment", "--device_cache"], "device_cache"),
     (["--no_augment", "--spatial_partition", "2"], "spatial_partition"),
     (["--no_augment", "--num_devices", "2"], "num_devices"),
     (["--no_augment", "--remat"], "remat"),
