@@ -61,13 +61,30 @@
    kernel at 160 and 96 channels and the decoder kernel, masks against the
    f32 model with no kernel; the eval CLI with its own default model, its
    matrix equal to torch.argmax + bincount;
-10. latency of the serving path, train-step time and peak memory fused and
+10. (a) the learning proof: the train CLI on the toy set of data/toy.py
+   with bench.py's `learn` recipe (mobilenetv2, 256x256, b8, adam 1e-3,
+   cosine, adaptive weights, --no_augment, 2 + 118 epochs,
+   --bn_recalibrate), the eval CLI on its output: mIoU >= 0.95, seconds to
+   it; the same weights as a .ckpt give the same matrix; (b) on those
+   weights, the masks of --fused_mbconv against the default's, each against
+   the f32 model with no kernel (>= 0.98), and each eval matrix (default and
+   --fused_mbconv) equal to torch.argmax + bincount (the kernels at this
+   eval's shapes are also held in steps 3-4);
+11. (c) xception served (bf16, b1, the ASPP kernel at 2048 channels and the
+   decoder kernel; masks against the f32 model with no kernel, >= 0.98) and
+   evaluated at b8 through the eval CLI (the ASPP kernel at (8,32,32,2048));
+   (d) the train CLI on xception b8 with --fused_loss and
+   --optim_state_dtype bfloat16;
+12. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
-   share of it, device-time profiles of one request, one train step and one
-   eval batch, and each kernel's time against its plain version, its bound
-   and, where there is one, the library's calls (the ASPP kernel's and the
-   loss tail's rows also at this slice's shapes, `at_other_shapes`).
+   share of it, xception's step unfused, fused and with bf16 optimizer
+   state in turns (time, peak memory, the state's bytes), device-time
+   profiles of one request, one train step and one eval batch, and each
+   kernel's time against its plain version, its bound and, where there is
+   one, the library's calls (the ASPP kernel's and the loss tail's rows also
+   at the later slices' shapes, `at_other_shapes`; the decoder runs at the
+   serving shapes on every path).
 
 Exits non-zero on any failure, and without printing a result when there is
 no CUDA device or no checkout around the script. The line before the last is
@@ -106,6 +123,9 @@ TRAIN_IMAGES, TRAIN_BATCH, TRAIN_SEED = 32, 16, 0
 V3_LARGE_HW, V3_SEED = (720, 1280), 5
 V3_REQUESTS_SMALL = 4
 EVAL_BATCH, EVAL_SEED = 8, 4
+# the learning proof (bench.py:790-858): the toy set at 256x256, b8, 120 epochs
+LEARN_HW, LEARN_BATCH, LEARN_EPOCHS, LEARN_TARGET = 256, 8, 120, 0.95
+XCEPTION_BATCH = 8
 # published peaks of one H100 SXM: device memory rate, f32 FMA rate outside
 # the tensor cores, dense bf16 rate of the tensor cores (the inverted
 # residual's two products; every other kernel multiplies by f32 weights in f32)
@@ -114,7 +134,8 @@ HBM_BYTES_PER_S, F32_FLOPS, BF16_TENSOR_FLOPS = 3.35e12, 67e12, 989e12
 CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
                    ((8, 512, 512, 21), "bfloat16", "uint8"),
                    ((3, 37, 41, 6), "float32", "int64"),
-                   ((2, 50, 30, 151), "float32", "uint8")]
+                   ((2, 50, 30, 151), "float32", "uint8"),
+                   ((8, 256, 256, 4), "bfloat16", "int32")]  # the learning proof's eval
 # (n, h, w, cin, cexp, cout, rate, residual) of tests/test_pallas_mbconv.py
 MBCONV_TEST_CASES = [(2, 16, 16, 24, 144, 24, 1, True), (1, 16, 16, 64, 384, 96, 1, False),
                      (2, 8, 8, 32, 192, 32, 2, True), (1, 32, 16, 16, 96, 24, 1, False)]
@@ -127,9 +148,13 @@ ASPP_CASES = [((1, 32, 32, 320), (6, 12, 18)), ((8, 32, 32, 320), (6, 12, 18)),
               ((1, 64, 64, 320), (12, 24, 36)), ((1, 16, 16, 320), (3, 6, 9)),
               ((1, 16, 16, 100), (6, 12, 18)), ((2, 37, 29, 136), (12, 24, 36)),
               ((3, 5, 4, 7), (3, 6, 9, 1)),
-              ((1, 32, 32, 160), (6, 12, 18)), ((1, 32, 32, 96), (6, 12, 18))]
-# the serving calls of mobilenetv3large (160 channels) and mobilenetv3small (96)
-ASPP_V3_CASES = {7: "aspp_c160", 8: "aspp_c96"}
+              ((1, 32, 32, 160), (6, 12, 18)), ((1, 32, 32, 96), (6, 12, 18)),
+              ((1, 32, 32, 2048), (6, 12, 18)), ((8, 32, 32, 2048), (6, 12, 18)),
+              ((8, 16, 16, 320), (6, 12, 18))]
+# the serving calls of mobilenetv3large (160 channels) and mobilenetv3small (96),
+# xception's serving (2048) and eval (b8) calls; the learning proof's eval
+# call (256 px, OS16) is held but not timed
+ASPP_SHAPE_CASES = {7: "aspp_c160", 8: "aspp_c96", 9: "aspp_c2048", 10: "aspp_c2048_b8"}
 # (x_enc shape, skip shape) decoder cases: the serving path's, a ragged one with
 # non-integer scales, the serving maps at batch 8, OS8's scale 2, and channel
 # counts that are no multiple of 4 (one channel a thread)
@@ -137,9 +162,11 @@ DECODER_CASES = [((1, 32, 32, 256), (1, 128, 128, 48)), ((2, 13, 11, 200), (2, 5
                  ((8, 32, 32, 256), (8, 128, 128, 48)), ((1, 64, 64, 256), (1, 128, 128, 48)),
                  ((1, 16, 16, 100), (1, 64, 64, 46))]
 # (B, h, w, C) -> (H, W) loss-tail cases; the first is the training slice's, the
-# last mobilenetv3large_lite's --fused_loss call (OS16 logits, x16)
+# fourth mobilenetv3large_lite's --fused_loss call (OS16 logits, x16), the last
+# xception's at b8
 UPSAMPLE_CE_CASES = [((16, 128, 128, 21), (512, 512)), ((2, 32, 32, 21), (512, 512)),
-                     ((3, 29, 37, 21), (116, 148)), ((16, 32, 32, 21), (512, 512))]
+                     ((3, 29, 37, 21), (116, 148)), ((16, 32, 32, 21), (512, 512)),
+                     ((8, 128, 128, 21), (512, 512))]
 # the backward kernel alone also at scale 1 and at an odd scale
 UPSAMPLE_CE_BACKWARD_CASES = [((2, 24, 40, 21), (24, 40)), ((2, 24, 40, 21), (72, 120))]
 # the forward kernel alone also there, at 6 and 151 classes (above 32 the batch-
@@ -160,6 +187,28 @@ def check(ok: bool, what: str) -> None:
     print(f"  [{'ok' if ok else 'FAIL'}] {what}")
     if not ok:
         failures.append(what)
+
+
+ZERO_LAUNCHES = {"multirate_atrous_depthwise": 0, "fused_decoder_frontend": 0,
+                 "upsample_ce_forward": 0, "upsample_ce_backward": 0,
+                 "confusion_matrix_fused": 0, "fused_inverted_residual": 0}
+
+
+def run_cli(torch, kernels, cli_main, args, quiet: bool = True):
+    """(result, wall s, launch counts, captured output) of one in-process CLI
+    run, the counts set to 0 just before it and read just after; its prints
+    captured when `quiet` (they are long), else shown."""
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    kernels.reset_launch_counts()                    # the path starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text) if quiet else contextlib.nullcontext():
+        out = cli_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, kernels.launch_counts(), text.getvalue()  # ... and ends here
 
 
 def tolerance(ref_max: float, dtype) -> float:
@@ -275,7 +324,8 @@ def aspp_checks(torch, kaspp) -> dict:
                       f"max|err| {err:.3g} <= {tol:.3g} (max|ref| {ref:.3g}), two calls "
                       f"bit-equal: {same}; {aspp_plan_text(torch, kaspp, x, rates)}")
                 key = {(0, bf16): "aspp", (1, bf16): "aspp_b8", (0, f32): "aspp_f32",
-                       **{(j, bf16): name for j, name in ASPP_V3_CASES.items()}}.get(
+                       (9, f32): "aspp_c2048_f32",
+                       **{(j, bf16): name for j, name in ASPP_SHAPE_CASES.items()}}.get(
                     (i, dtype))
                 if key and fuse:
                     records[key] = {"max_abs_err": err, "case": (x, k, r, s, b)}
@@ -504,8 +554,10 @@ def main() -> None:
         rec = upsample_ce_check(torch, kce, shape, out_hw)
         if shape == UPSAMPLE_CE_CASES[0][0]:  # the training path's call
             records["upsample_ce"] = rec
-        if shape == UPSAMPLE_CE_CASES[-1][0]:  # mobilenetv3large_lite --fused_loss
+        if shape == UPSAMPLE_CE_CASES[3][0]:  # mobilenetv3large_lite --fused_loss
             records["upsample_ce_x16"] = rec
+        if shape == UPSAMPLE_CE_CASES[4][0]:  # xception --fused_loss
+            records["upsample_ce_b8"] = rec
     for shape, out_hw in UPSAMPLE_CE_BACKWARD_CASES:
         upsample_ce_backward_check(torch, kce, shape, out_hw)
     for shape, out_hw in UPSAMPLE_CE_FORWARD_CASES:
@@ -523,6 +575,9 @@ def main() -> None:
     check(len(body_shapes) == 13, f"the OS16 body has 13 stride-1 expanded blocks: "
                                   f"{[(s[1], s[3], s[4], s[5], s[6]) for s in body_shapes]}")
     records["mbconv"] = mbconv_checks(torch, kmb, body_shapes)
+    learn_shapes = body_block_shapes(LEARN_BATCH, (LEARN_HW, LEARN_HW))
+    print(f"  ... and at the learning proof's {len(learn_shapes)} body shapes (256 px, b8):")
+    mbconv_checks(torch, kmb, learn_shapes, others=())
 
     # -- 5. the serving path ---------------------------------------------------
     common = dict(model_type="mobilenetv2", classes_path=classes_path,
@@ -545,14 +600,11 @@ def main() -> None:
     after_first = kernels.launch_counts()
     masks_dec, times_dec = serve(served_dec)
     launches = kernels.launch_counts()               # ... and ends here
-    no_loss = {"upsample_ce_forward": 0, "upsample_ce_backward": 0,
-               "confusion_matrix_fused": 0, "fused_inverted_residual": 0}
-    check(after_first == {"multirate_atrous_depthwise": N_REQUESTS, "fused_decoder_frontend": 0,
-                          **no_loss},
+    check(after_first == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": N_REQUESTS},
           f"default DeepLab: launch counts {after_first} (ASPP one a request, every other "
           "kernel none)")
-    check(launches == {"multirate_atrous_depthwise": 2 * N_REQUESTS,
-                       "fused_decoder_frontend": N_REQUESTS, **no_loss},
+    check(launches == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": 2 * N_REQUESTS,
+                       "fused_decoder_frontend": N_REQUESTS},
           f"with fused_decoder=True: launch counts {launches}")
     for m, (_, hw) in zip(masks + masks_dec, requests + requests):
         if m.shape != hw or m.dtype != np.int32 or m.min() < 0 or m.max() >= served.num_classes:
@@ -619,10 +671,24 @@ def main() -> None:
     augment_card_vs_cpu(torch, v3_batch)
 
     # -- 5e. mobilenetv3 serving: the ASPP kernel at 160 and 96 channels ---------------
-    v3_serve = v3_serving(torch, kernels, classes_path, requests)
+    v3_serve = more_serving(torch, kernels, classes_path, [
+        ("mobilenetv3large", requests), ("mobilenetv3small", requests[:V3_REQUESTS_SMALL])])
 
     # -- 5f. the eval CLI with its own default model ----------------------------------
     default_evaluation_path(torch, kernels, classes_path, train_dir)
+
+    # -- 5g. (a) the learning proof, (b) fused_mbconv on its trained weights ---------
+    learn = learning_proof(torch, kernels, train_main, train_args)
+    fused_mbconv_on_trained_weights(torch, learn)
+
+    # -- 5h. (c) xception served (the ASPP kernel at 2048 channels, the decoder
+    # kernel) and evaluated at b8 ------------------------------------------------------
+    x_serve = more_serving(torch, kernels, classes_path, [("xception", requests)])
+    x_eval_aspp = xception_evaluation_path(torch, kernels, classes_path, train_dir)
+
+    # -- 5i. (d) xception trained, --fused_loss and bf16 optimizer state --------------
+    x_train_launches = xception_training_path(torch, kernels, train_main, train_args,
+                                              classes_path, train_dir)
 
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
@@ -650,6 +716,7 @@ def main() -> None:
     train_step_numbers(torch, batch)
     eval_numbers(torch, eval_state)
     default_train_numbers(torch, v3_batch)
+    xception_train_numbers(torch, train_dir, classes_path)
 
     kernels = [aspp_times(torch, kaspp, records, launches["multirate_atrous_depthwise"])]
     # the decoder: both inputs read once, the concat's depthwise output written
@@ -680,12 +747,23 @@ def main() -> None:
     kernels.append(confusion_times(torch, kconf, records["confusion"], eval_launches[0]))
     kernels.append(mbconv_times(torch, kmb, records["mbconv"], eval_launches[1], eval_state))
     # this slice's new shapes, each held and timed on its own path's run
-    kernels[0]["at_other_shapes"] = [
-        aspp_shape_row(torch, kaspp, records[key], v3_serve[model], model)
-        for key, model in (("aspp_c160", "mobilenetv3large"), ("aspp_c96", "mobilenetv3small"))]
-    for row in upsample_ce_times(torch, kce, records["upsample_ce_x16"], v3_launches):
-        row["path"] = "mobilenetv3large_lite --fused_loss"
-        next(r for r in kernels if r["name"] == row["name"])["at_other_shapes"] = [row]
+    aspp_rows = [
+        aspp_shape_row(torch, kaspp, records[key], served_more[model]["multirate_atrous_depthwise"],
+                       f"{model} serving")
+        for key, model, served_more in (("aspp_c160", "mobilenetv3large", v3_serve),
+                                        ("aspp_c96", "mobilenetv3small", v3_serve),
+                                        ("aspp_c2048", "xception", x_serve))]
+    aspp_rows[-1]["f32_b1"] = aspp_timing(torch, kaspp, records["aspp_c2048_f32"]["case"], 200)
+    aspp_rows.append(aspp_shape_row(torch, kaspp, records["aspp_c2048_b8"], x_eval_aspp,
+                                    "xception eval b8"))
+    kernels[0]["at_other_shapes"] = aspp_rows
+    for key, launches_of, path in (("upsample_ce_x16", v3_launches,
+                                    "mobilenetv3large_lite --fused_loss"),
+                                   ("upsample_ce_b8", x_train_launches, "xception --fused_loss")):
+        for row in upsample_ce_times(torch, kce, records[key], launches_of):
+            row["path"] = path
+            next(r for r in kernels if r["name"] == row["name"]).setdefault(
+                "at_other_shapes", []).append(row)
     for row in kernels:
         for r in [row, *row.get("at_other_shapes", [])]:
             print(f"  {r['name']}{' (' + r['path'] + ')' if 'path' in r else ''}: "
@@ -935,18 +1013,13 @@ def training_path(torch, kernels, train_main, train_args, classes_path, request)
             "--classes_path", classes_path, "--log_dir", log_dir,
             "--seed", str(TRAIN_SEED), "--device", "cuda"]
     print("  " + " ".join(argv))
-    kernels.reset_launch_counts()                    # the training path starts here
-    t0 = time.perf_counter()
-    trainer = train_main(train_args(argv))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()               # ... and ends here
+    trainer, wall, launches, _ = run_cli(torch, kernels, train_main, train_args(argv),
+                                         quiet=False)
     steps = 2 * (TRAIN_IMAGES // TRAIN_BATCH)
     print(f"  trained {steps} steps in {wall:.1f} s wall (set-up and first-call cuDNN "
           f"tuning included); launch counts {launches}")
-    check(launches == {"multirate_atrous_depthwise": 0, "fused_decoder_frontend": 0,
-                       "upsample_ce_forward": steps, "upsample_ce_backward": steps,
-                       "confusion_matrix_fused": 0, "fused_inverted_residual": 0},
+    check(launches == {**ZERO_LAUNCHES, "upsample_ce_forward": steps,
+                       "upsample_ce_backward": steps},
           f"training: each loss kernel launched once a step ({steps}), every other "
           "kernel never")
     with open(os.path.join(log_dir, "history.jsonl")) as f:
@@ -1031,9 +1104,6 @@ def default_training_path(torch, kernels, train_main, train_args, classes_path):
         return real(params, images, labels, orig_hw, cfg)
 
     augment.apply_augment = spy
-    zeros = {"multirate_atrous_depthwise": 0, "fused_decoder_frontend": 0,
-             "upsample_ce_forward": 0, "upsample_ce_backward": 0,
-             "confusion_matrix_fused": 0, "fused_inverted_residual": 0}
     steps = 2 * (TRAIN_IMAGES // TRAIN_BATCH)
     fused_launches = None
     try:
@@ -1051,17 +1121,12 @@ def default_training_path(torch, kernels, train_main, train_args, classes_path):
                   "by default")
             print("  python -m deeplabv3p_torch.train " + " ".join(argv))
             seen.clear()
-            kernels.reset_launch_counts()            # this path starts here
-            t0 = time.perf_counter()
-            trainer = train_main(args)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = kernels.launch_counts()       # ... and ends here
+            trainer, wall, launches, _ = run_cli(torch, kernels, train_main, args, quiet=False)
             larger, cropped = sum(a for a, _ in seen), sum(b for _, b in seen)
             print(f"  {what}: {steps} steps in {wall:.1f} s wall (set-up, caching and first-call "
                   f"cuDNN tuning included); {len(seen)} augmented batches, {larger} samples "
                   f"larger than the input, the crop fired on {cropped}; launch counts {launches}")
-            want = dict(zeros)
+            want = dict(ZERO_LAUNCHES)
             if "--fused_loss" in extra:
                 want.update(upsample_ce_forward=steps, upsample_ce_backward=steps)
                 fused_launches = launches
@@ -1136,17 +1201,17 @@ def augment_card_vs_cpu(torch, batch) -> None:
     check(same_w, "augmentation, card vs CPU: the adaptive weight maps are equal")
 
 
-def v3_serving(torch, kernels, classes_path, requests) -> dict:
-    """mobilenetv3large (full head, bf16, b1) with the ASPP and decoder
-    kernels on N_REQUESTS requests, then mobilenetv3small on
-    V3_REQUESTS_SMALL: launch counts, masks against the same weights in f32
-    with no kernel (>= 0.98 of pixels), latency. Returns each run's counts."""
+def more_serving(torch, kernels, classes_path, runs) -> dict:
+    """Each (model type, requests) of `runs` served (full head, bf16, b1)
+    with the ASPP and decoder kernels: launch counts, masks against the same
+    weights in f32 with no kernel (>= 0.98 of pixels), latency in turns with
+    no kernel, and the profile of one mobilenetv3large or xception request.
+    Returns each run's launch counts."""
     from deeplabv3p_torch.inference import DeepLab
 
     card = card_line()
     out = {}
-    for model_type, reqs in (("mobilenetv3large", requests),
-                             ("mobilenetv3small", requests[:V3_REQUESTS_SMALL])):
+    for model_type, reqs in runs:
         common = dict(model_type=model_type, classes_path=classes_path,
                       model_input_shape=INPUT, output_stride=16, device="cuda")
         served = DeepLab(fused_aspp=True, fused_decoder=True, **common)
@@ -1157,9 +1222,8 @@ def v3_serving(torch, kernels, classes_path, requests) -> dict:
         masks, times = serve_requests(torch, served, reqs)
         launches = kernels.launch_counts()           # ... and ends here
         n = len(reqs)
-        check(launches == {"multirate_atrous_depthwise": n, "fused_decoder_frontend": n,
-                           "upsample_ce_forward": 0, "upsample_ce_backward": 0,
-                           "confusion_matrix_fused": 0, "fused_inverted_residual": 0},
+        check(launches == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": n,
+                           "fused_decoder_frontend": n},
               f"{model_type} serving: the ASPP kernel ({served.model.backbone.out_channels} "
               f"channels) and the decoder kernel once a request ({n}): {launches}")
         agree = min(float((m == plain.predict(data, hw)).mean())
@@ -1181,10 +1245,13 @@ def v3_serving(torch, kernels, classes_path, requests) -> dict:
         for name, ts in pooled.items():
             print(f"    {name}: median {statistics.median(ts):.3f} ms, p90 "
                   f"{float(np.percentile(ts, 90)):.3f} ms over {len(ts)} requests")
-        if model_type == "mobilenetv3large":
-            profile_one(torch, lambda: served.predict(*reqs[0]), "one mobilenetv3large request",
-                        "profile_one_request_v3large.txt", top=8)
-        out[model_type] = launches["multirate_atrous_depthwise"]
+        if model_type in ("mobilenetv3large", "xception"):
+            name = {"mobilenetv3large": "v3large"}.get(model_type, model_type)
+            profile_one(torch, lambda: served.predict(*reqs[0]), f"one {model_type} request",
+                        f"profile_one_request_{name}.txt", top=8)
+        out[model_type] = launches
+        del served, plain, configs
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1194,9 +1261,6 @@ def default_evaluation_path(torch, kernels, classes_path, root) -> None:
     seeded .npz: the confusion kernel once a batch, no other kernel, and
     the matrix EQUAL to torch.argmax + bincount on the same model's
     logits."""
-    import contextlib
-    import io
-
     from deeplabv3p_torch import eval as eval_cli
     from deeplabv3p_torch import metrics as metrics_lib
     from deeplabv3p_torch.data.augment import preprocess_eval_batch
@@ -1224,21 +1288,12 @@ def default_evaluation_path(torch, kernels, classes_path, root) -> None:
           ("mobilenetv3large_lite", EVAL_BATCH, "512x512"),
           "eval CLI defaults: mobilenetv3large_lite, b8, 512x512")
     print("  python -m deeplabv3p_torch.eval " + " ".join(argv))
-    text = io.StringIO()
-    kernels.reset_launch_counts()                    # this path starts here
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(text):
-        m = eval_cli.main(args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()               # ... and ends here
+    m, wall, launches, text = run_cli(torch, kernels, eval_cli.main, args)
     batches = TRAIN_IMAGES // EVAL_BATCH
-    summary = [ln for ln in text.getvalue().splitlines() if "=" in ln and ":" not in ln]
+    summary = [ln for ln in text.splitlines() if "=" in ln and ":" not in ln]
     print(f"  {wall:.2f} s wall (set-up and first-call cuDNN tuning included); "
           f"{' '.join(summary)}; launch counts {launches}  [{card_line()}]")
-    check(launches == {"confusion_matrix_fused": batches, "multirate_atrous_depthwise": 0,
-                       "fused_decoder_frontend": 0, "upsample_ce_forward": 0,
-                       "upsample_ce_backward": 0, "fused_inverted_residual": 0},
+    check(launches == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches},
           f"eval CLI, default model: the confusion kernel once a batch ({batches}), the lite "
           "head runs no other kernel")
     model = build_deeplab_model("mobilenetv3large_lite", 21, fused_aspp=True,
@@ -1341,10 +1396,280 @@ def default_train_numbers(torch, batch, steps: int = 6) -> None:
           f"{first:.4f}, last four {last:.4f}): {[round(x, 3) for x in losses]}")
 
 
-def aspp_shape_row(torch, kaspp, rec, launches, model_type) -> dict:
+def learning_proof(torch, kernels, train_main, train_args):
+    """(a) The learning proof on the card: bench.py's `learn` recipe through
+    `python -m deeplabv3p_torch.train` (mobilenetv2, the toy set of
+    data/toy.py, 256x256, b8, adam 1e-3, cosine, adaptive weights,
+    --no_augment, --freeze_level 1, 2 + 118 epochs, --bn_recalibrate), then
+    `python -m deeplabv3p_torch.eval` on trained_final.npz: mIoU >= 0.95.
+    The same weights written as the JAX package's .ckpt give the eval CLI
+    the same matrix. Returns what phase (b) reuses."""
+    import shutil
+
+    from deeplabv3p_torch import eval as eval_cli
+    from deeplabv3p_torch.data.toy import build_overfit_dataset
+    from deeplabv3p_torch.utils.checkpoint import save_variables
+    from deeplabv3p_torch.utils.weights import load_npz
+
+    root = os.path.join(OUT_DIR, "smoke_learn_data")
+    log_dir = os.path.join(OUT_DIR, "smoke_learn_logs")
+    for d in (root, log_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    list_path = build_overfit_dataset(root, source_dir=os.path.join(REPO, "example"))
+    common = ["--model_type", "mobilenetv2", "--model_input_shape", str(LEARN_HW),
+              "--batch_size", str(LEARN_BATCH), "--dataset_path", root, "--dataset_file",
+              list_path, "--classes_path", os.path.join(root, "classes.txt")]
+    argv = [*common, "--optimizer", "adam", "--learning_rate", "1e-3", "--decay_type", "cosine",
+            "--weighted_type", "adaptive", "--no_augment", "--freeze_level", "1",
+            "--transfer_epoch", "2", "--total_epoch", str(LEARN_EPOCHS), "--bn_recalibrate",
+            "--log_dir", log_dir, "--device", "cuda"]
+    print("learning proof: python -m deeplabv3p_torch.train " + " ".join(argv))
+    trainer, train_s, train_launches, _ = run_cli(torch, kernels, train_main, train_args(argv))
+    losses = [r["loss"] for r in trainer.history]
+    check(len(losses) == LEARN_EPOCHS and all(np.isfinite(losses)),
+          f"learning proof: {len(losses)} epochs of finite loss, first {losses[0]:.4f}, last "
+          f"{losses[-1]:.4f}; train jaccard last {trainer.history[-1]['jaccard']:.4f}")
+    check(train_launches == ZERO_LAUNCHES,
+          f"learning proof, training: no hand-written kernel on this path (unfused loss, "
+          f"training mode): {train_launches}")
+    final = os.path.join(log_dir, "trained_final.npz")
+
+    def evaluate(path, *extra):
+        args = eval_cli.parse_args([*common, "--model_path", path, "--device", "cuda",
+                                    "--out_dir", os.path.join(OUT_DIR, "smoke_learn_eval"),
+                                    *extra])
+        return run_cli(torch, kernels, eval_cli.main, args)
+
+    m, eval_s, eval_launches, _ = evaluate(final)
+    card = card_line()
+    print(f"  trained {LEARN_EPOCHS} epochs ({LEARN_EPOCHS} steps of b{LEARN_BATCH}) in "
+          f"{train_s:.2f} s (the CLI's wall: set-up, first-call cuDNN tuning and the BN "
+          f"recalibration included); eval CLI {eval_s:.2f} s; {train_s + eval_s:.2f} s to the "
+          f"eval's mIoU {m.miou:.5f} (FWIoU {m.fwiou:.5f}, PixelAcc {m.pixel_acc:.5f})  [{card}]")
+    check(m.miou >= LEARN_TARGET, f"learning proof: eval mIoU {m.miou:.5f} >= {LEARN_TARGET}")
+    batches = -(-8 // LEARN_BATCH)
+    check(eval_launches == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches,
+                            "multirate_atrous_depthwise": batches},
+          f"learning proof, eval: the confusion and ASPP kernels once a batch ({batches}): "
+          f"{eval_launches}")
+    ckpt = os.path.join(log_dir, "trained_final.ckpt")
+    save_variables(ckpt, load_npz(final))
+    m_ckpt = evaluate(ckpt)[0]
+    check(np.array_equal(m_ckpt.confusion, m.confusion),
+          f"learning proof: the weights as a .ckpt (save_variables) give the eval CLI the "
+          f".npz's matrix (sum|diff| {int(np.abs(m_ckpt.confusion - m.confusion).sum())})")
+    m_mb, _, mb_launches, _ = evaluate(final, "--fused_mbconv")
+    check(mb_launches["fused_inverted_residual"] == 13 * batches,
+          f"learning proof, eval --fused_mbconv: the inverted-residual kernel 13 times a batch "
+          f"({mb_launches['fused_inverted_residual']})")
+    print(f"  eval CLI --fused_mbconv on the trained weights: mIoU {m_mb.miou:.5f} against "
+          f"{m.miou:.5f} by default")
+    return {"root": root, "list": list_path, "weights": final, "launches": eval_launches,
+            "miou": m.miou, "confusion": {"default": m.confusion, "fused_mbconv": m_mb.confusion}}
+
+
+def fused_mbconv_on_trained_weights(torch, learn) -> None:
+    """(b) ROADMAP Queue C item 1: the masks of --fused_mbconv against the
+    default's, on the learning proof's trained weights and the toy images
+    (bf16, 256x256, as the eval CLI builds the model); printed. Each route's
+    masks agree with the f32 model's with no kernel on >= 0.98 of pixels, and
+    torch.argmax + bincount of them EQUALS the eval CLI's matrix of (a) for
+    that route (the confusion kernel at (8,256,256,4)). The default does not
+    change here."""
+    from deeplabv3p_torch import metrics as metrics_lib
+    from deeplabv3p_torch.data.augment import preprocess_eval_batch
+    from deeplabv3p_torch.data.pipeline import SegmentationDataset
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.utils.config import get_data_list
+    from deeplabv3p_torch.utils.weights import from_jax_variables, load_npz
+
+    variables = load_npz(learn["weights"])
+    ds = SegmentationDataset(learn["root"], get_data_list(learn["list"], shuffle=False),
+                             batch_size=LEARN_BATCH, num_classes=4,
+                             input_shape=(LEARN_HW, LEARN_HW), augment=False, shuffle=False,
+                             drop_remainder=False)
+    batches = [(b[0], b[1]) for b in ds.epoch_batches()]
+    labels = torch.cat([preprocess_eval_batch(torch.from_numpy(images_u8).cuda(),
+                                              torch.from_numpy(labels_u8).cuda(), 4)[1]
+                        for images_u8, labels_u8 in batches])
+
+    @torch.no_grad()
+    def masks_of(dtype, **flags):
+        model = build_deeplab_model("mobilenetv2", 4, dtype=dtype, device="cuda", **flags)
+        model.load_state_dict(from_jax_variables(variables, model), strict=True)
+        out = []
+        for images_u8, labels_u8 in batches:
+            images, _ = preprocess_eval_batch(torch.from_numpy(images_u8).cuda(),
+                                              torch.from_numpy(labels_u8).cuda(), 4)
+            out.append(torch.argmax(model(images.permute(0, 3, 1, 2)), dim=1))
+        return torch.cat(out)
+
+    default = masks_of(torch.bfloat16, fused_aspp=True)
+    fused = masks_of(torch.bfloat16, fused_aspp=True, fused_mbconv=True)
+    f32 = masks_of(torch.float32)
+    agree = (fused == default).float().mean().item()
+    check(fused.shape == default.shape == (8, LEARN_HW, LEARN_HW),
+          f"Queue C item 1, trained weights: --fused_mbconv masks agree with the default's "
+          f"on {agree:.5f} of {default.numel()} pixels (0.98152 on seeded random weights)")
+    for route, masks in (("default", default), ("fused_mbconv", fused)):
+        to_f32 = (masks == f32).float().mean().item()
+        check(to_f32 >= 0.98, f"trained weights, bf16 {route} vs f32 with no kernel: masks "
+                              f"agree on {to_f32:.5f} >= 0.98 of pixels")
+        want = metrics_lib.confusion_matrix(labels, masks, 4).cpu().numpy()
+        got = learn["confusion"][route]
+        check(np.array_equal(got, want) and int(want.sum()) > 0,
+              f"learning proof, eval CLI ({route}): the matrix EQUALS torch.argmax + bincount "
+              f"on the same model's logits (sum|diff| {int(np.abs(got - want).sum())})")
+
+
+def xception_evaluation_path(torch, kernels, classes_path, root) -> int:
+    """(c) `python -m deeplabv3p_torch.eval --model_type xception` on the 32
+    synthetic pairs at b8 and a seeded .npz: the ASPP kernel at
+    (8,32,32,2048) and the confusion kernel once a batch. Returns the ASPP
+    launches."""
+    from deeplabv3p_torch import eval as eval_cli
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.utils.weights import save_npz, to_jax_variables
+
+    weights = os.path.join(OUT_DIR, "smoke_xception_weights.npz")
+    seeded = build_deeplab_model("xception", 21, device="cpu")
+    init_parameters(seeded, torch.Generator().manual_seed(EVAL_SEED))
+    save_npz(weights, to_jax_variables(seeded))
+    del seeded
+    argv = [*eval_argv(weights, root, classes_path, os.path.join(OUT_DIR, "smoke_x_eval"))]
+    argv[argv.index("mobilenetv2")] = "xception"
+    print("  python -m deeplabv3p_torch.eval " + " ".join(argv))
+    m, wall, launches, _ = run_cli(torch, kernels, eval_cli.main, eval_cli.parse_args(argv))
+    batches = TRAIN_IMAGES // EVAL_BATCH
+    print(f"  xception eval: {wall:.2f} s wall (set-up and first-call cuDNN tuning included), "
+          f"mIoU {m.miou:.5f} (seeded weights); launch counts {launches}  [{card_line()}]")
+    check(launches == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches,
+                       "multirate_atrous_depthwise": batches}
+          and int(m.confusion.sum()) > 0,
+          f"xception eval b{EVAL_BATCH}: the ASPP kernel at 2048 channels and the confusion "
+          f"kernel once a batch ({batches})")
+    return launches["multirate_atrous_depthwise"]
+
+
+def xception_training_path(torch, kernels, train_main, train_args, classes_path, root):
+    """(d) `python -m deeplabv3p_torch.train --model_type xception` b8 bf16
+    512x512 --no_augment --fused_loss --optim_state_dtype bfloat16 at the
+    CLI's own LR (SGD 1e-2), 1 + 1 epochs of 4 steps on the 32 synthetic
+    pairs: the loss kernels once a step, no other kernel, finite losses.
+    Returns the launch counts."""
+    import shutil
+
+    log_dir = os.path.join(OUT_DIR, "smoke_x_train_logs")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    argv = ["--model_type", "xception", "--model_input_shape", f"{INPUT[0]}x{INPUT[1]}",
+            "--batch_size", str(XCEPTION_BATCH), "--no_augment", "--fused_loss",
+            "--optim_state_dtype", "bfloat16",
+            "--transfer_epoch", "1", "--total_epoch", "2",
+            "--dataset_path", root, "--dataset_file", os.path.join(root, "list.txt"),
+            "--classes_path", classes_path, "--log_dir", log_dir, "--device", "cuda"]
+    print("  python -m deeplabv3p_torch.train " + " ".join(argv))
+    trainer, wall, launches, _ = run_cli(torch, kernels, train_main, train_args(argv))
+    steps = 2 * (TRAIN_IMAGES // XCEPTION_BATCH)
+    print(f"  xception: {steps} steps in {wall:.1f} s wall (set-up and first-call cuDNN tuning "
+          f"included); launch counts {launches}")
+    check(launches == {**ZERO_LAUNCHES, "upsample_ce_forward": steps,
+                       "upsample_ce_backward": steps},
+          f"xception training --fused_loss: each loss kernel once a step ({steps}), every "
+          "other kernel never")
+    hist = trainer.history
+    check(len(hist) == 2 and all(np.isfinite(r["loss"]) for r in hist),
+          f"xception training: 2 epochs, finite losses {[round(r['loss'], 5) for r in hist]}")
+    return launches
+
+
+def xception_train_numbers(torch, root, classes_path, steps: int = 6) -> None:
+    """(d) xception b8 bf16 512x512 train steps (SGD 1e-2, freeze level 0,
+    one fixed batch of the synthetic set): unfused with f32 state (U),
+    --fused_loss (F) and --optim_state_dtype bfloat16 (B), each its own
+    model from the same seed, in turns U F B B F U of `steps` after 2
+    warm-up steps: step time, img/s, peak memory, the optimizer state's
+    bytes; the loss must fall in each run."""
+    from deeplabv3p_torch.losses import get_loss_fn
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.train import StageConfig, Trainer
+
+    images, labels = train_batch(torch, root, classes_path)
+    images, labels = images[:XCEPTION_BATCH], labels[:XCEPTION_BATCH]
+    variants = {}
+    for name, fused, state_dtype in (("U unfused, f32 state", False, None),
+                                     ("F --fused_loss, f32 state", True, None),
+                                     ("B unfused, bf16 state", False, "bfloat16")):
+        model = build_deeplab_model("xception", 21, dtype=torch.bfloat16, device="cuda")
+        init_parameters(model, torch.Generator().manual_seed(TRAIN_SEED), bn_identity=True)
+        trainer = Trainer(model, 21, get_loss_fn("crossentropy"), device="cuda",
+                          log_dir=os.path.join(OUT_DIR, "smoke_x_step_logs"), fused_loss=fused)
+        stage = StageConfig(freeze_level=0, optim_type="sgd", learning_rate=1e-2,
+                            state_dtype=state_dtype)
+        variants[name] = (trainer.build_stage_state(stage), trainer.make_train_step(stage))
+    losses = {name: [] for name in variants}
+
+    def run(name, n):
+        state, step = variants[name]
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = step(state, images, labels, None)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses[name].append(metrics["loss"].item())
+        return times
+
+    for name in variants:
+        run(name, 2)
+    times = {name: [] for name in variants}
+    peak = {name: 0 for name in variants}
+    for name in [*variants, *reversed(variants)]:
+        torch.cuda.reset_peak_memory_stats()
+        times[name] += run(name, steps)
+        peak[name] = max(peak[name], torch.cuda.max_memory_allocated())
+
+    def resident(name):
+        """Bytes of a variant's weights and optimizer state (its gradients are
+        freed after each step)."""
+        state = variants[name][0]
+        opt = sum(t.numel() * t.element_size() for s in state.optimizer.state.values()
+                  for t in s.values() if isinstance(t, torch.Tensor))
+        params = sum(p.numel() * p.element_size() for p in state.params.values())
+        return params, opt
+
+    card = card_line()
+    n_params = sum(p.numel() for p in variants["U unfused, f32 state"][0].params.values())
+    print(f"train step, xception OS16 512x512 b{XCEPTION_BATCH} bf16, SGD, freeze level 0, "
+          f"{n_params} parameters, in turns U F B B F U of {steps} steps (host clock, "
+          f"synchronized)  [{card}]:")
+    for name, ts in times.items():
+        med = statistics.median(ts)
+        params, opt = resident(name)
+        others = sum(sum(resident(o)) for o in variants if o != name)
+        print(f"  {name}: median {med:.3f} ms, p90 {float(np.percentile(ts, 90)):.3f} ms over "
+              f"{len(ts)} steps, {XCEPTION_BATCH / med * 1e3:.1f} img/s; peak memory "
+              f"{peak[name] / 2**20:.1f} MiB with all three variants resident, "
+              f"{(peak[name] - others) / 2**20:.1f} MiB less the other two's weights and "
+              f"state; its optimizer state {opt / 2**20:.1f} MiB, weights {params / 2**20:.1f} "
+              f"MiB  [{card}]")
+        first, last = statistics.mean(losses[name][:4]), statistics.mean(losses[name][-4:])
+        check(all(np.isfinite(losses[name])) and last < first,
+              f"xception training {name}: {len(losses[name])} losses finite and falling "
+              f"(first four {first:.4f}, last four {last:.4f})")
+    state_saved = resident("U unfused, f32 state")[1] - resident("B unfused, bf16 state")[1]
+    print(f"  bf16 optimizer state saves {state_saved / 2**20:.1f} MiB "
+          f"({state_saved / n_params:.2f} bytes a parameter)")
+    del variants
+    torch.cuda.empty_cache()
+
+
+def aspp_shape_row(torch, kaspp, rec, launches, path) -> dict:
     """The ASPP kernel's kernels-JSON record at a new shape: its check's
-    error, its times against the plain version, and its launches on that
-    model's serving run."""
+    error, its times against the plain version, and its launches on `path`,
+    the run that calls it at that shape."""
     t = aspp_timing(torch, kaspp, rec["case"], iters=200)
     return {"name": "multirate_atrous_depthwise", "route": "cuda",
             "source": "deeplabv3p_torch/ops/kernels/csrc/aspp.cu",
@@ -1352,7 +1677,7 @@ def aspp_shape_row(torch, kaspp, rec, launches, model_type) -> dict:
             "max_abs_err": rec["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "device_us": t["device_us"], "shape": t["shape"], "dtype": t["dtype"],
-            "path": f"{model_type} serving"}
+            "path": path}
 
 
 def train_batch(torch, root, classes_path):
@@ -1625,16 +1950,17 @@ def mbconv_case(torch, shape, dtype, seed=0):
     return x, we, se, be, wd, sd, bd, wp, sp, bp
 
 
-def mbconv_checks(torch, kmb, body_shapes) -> dict:
+def mbconv_checks(torch, kmb, body_shapes,
+                  others=(*MBCONV_TEST_CASES, *MBCONV_EXTRA_CASES)) -> dict:
     """The inverted-residual kernel against its plain version at the body's
-    13 shapes, the JAX tests' four, a ragged map and OS8's rate 4, bf16 and
-    f32, the weights prepared on the fly as a caller without a module has
+    13 shapes and `others` (by default the JAX tests' four, a ragged map and
+    OS8's rate 4), bf16 and f32, the weights prepared on the fly as a caller without a module has
     them. Both store e and d as
     bf16, and their f32 sums differ in order, so a sum an ulp apart can round
     to the other bf16 neighbour (2^-8 relative on one of Cexp terms): both x
     types are held to the bf16 bound of `tolerance`."""
     worst = 0.0
-    for shape in [*body_shapes, *MBCONV_TEST_CASES, *MBCONV_EXTRA_CASES]:
+    for shape in [*body_shapes, *others]:
         rate, residual = shape[6], shape[7]
         for dtype in (torch.bfloat16, torch.float32):
             args = mbconv_case(torch, shape, dtype)
@@ -1665,9 +1991,6 @@ def evaluation_path(torch, kernels, classes_path, root):
     """`deeplabv3p_torch.eval.main` in-process, twice (as built by default,
     then `--fused_mbconv`), on the synthetic set and a seeded .npz. Returns
     the two runs' launch counts and what the timing phase reuses."""
-    import contextlib
-    import io
-
     from deeplabv3p_torch import eval as eval_cli
     from deeplabv3p_torch import metrics as metrics_lib
     from deeplabv3p_torch.data.augment import preprocess_eval_batch
@@ -1696,15 +2019,9 @@ def evaluation_path(torch, kernels, classes_path, root):
     for extra in ((), ("--fused_mbconv",)):
         argv = eval_argv(weights, root, classes_path, out_dir, *extra)
         print("  " + " ".join(argv))
-        text = io.StringIO()
-        kernels.reset_launch_counts()                # the evaluation path starts here
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(text):
-            m = eval_cli.main(eval_cli.parse_args(argv))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = kernels.launch_counts()           # ... and ends here
-        summary = [ln for ln in text.getvalue().splitlines() if "=" in ln and ":" not in ln]
+        m, wall, launches, text = run_cli(torch, kernels, eval_cli.main,
+                                          eval_cli.parse_args(argv))
+        summary = [ln for ln in text.splitlines() if "=" in ln and ":" not in ln]
         print(f"  {wall:.2f} s wall (set-up and first-call cuDNN tuning included); "
               f"{' '.join(summary)}; launch counts {launches}")
         check([ln.split("=")[0] for ln in summary[-4:]] == ["mIoU", "FWIoU", "PixelAcc",
@@ -1712,13 +2029,13 @@ def evaluation_path(torch, kernels, classes_path, root):
               f"eval CLI {' '.join(extra) or '(default)'} printed its summary (mIoU= ...)")
         runs.append((m, launches))
     (m_default, l_default), (m_mbconv, l_mbconv) = runs
-    zeros = {"fused_decoder_frontend": 0, "upsample_ce_forward": 0, "upsample_ce_backward": 0}
-    check(l_default == {"confusion_matrix_fused": batches, "multirate_atrous_depthwise": batches,
-                        "fused_inverted_residual": 0, **zeros},
+    check(l_default == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches,
+                        "multirate_atrous_depthwise": batches},
           f"eval, default: confusion and ASPP kernels once a batch ({batches}), "
           "inverted-residual, decoder and loss kernels never")
-    check(l_mbconv == {"confusion_matrix_fused": batches, "multirate_atrous_depthwise": batches,
-                       "fused_inverted_residual": 13 * batches, **zeros},
+    check(l_mbconv == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches,
+                       "multirate_atrous_depthwise": batches,
+                       "fused_inverted_residual": 13 * batches},
           f"eval, --fused_mbconv: the inverted-residual kernel 13 times a batch "
           f"({13 * batches}), confusion and ASPP once a batch")
 

@@ -60,14 +60,17 @@ def main(args):
         do_crf=args.do_crf,
     )
     if args.dump_model:
-        if not args.output_model_file.endswith(".npz"):
-            raise SystemExit(
-                "the port dumps .npz weights only; StableHLO/.ckpt export "
-                "is not ported yet (ROADMAP Queue A item 12)"
-            )
+        from deeplabv3p_torch.utils.checkpoint import save_variables
         from deeplabv3p_torch.utils.weights import save_npz, to_jax_variables
 
-        save_npz(args.output_model_file, to_jax_variables(deeplab.model))
+        save = {".npz": save_npz, ".ckpt": save_variables}.get(
+            os.path.splitext(args.output_model_file)[1])
+        if save is None:
+            raise SystemExit(
+                "the port dumps .npz or .ckpt weights; StableHLO export is not "
+                "ported yet (ROADMAP Queue A item 12)"
+            )
+        save(args.output_model_file, to_jax_variables(deeplab.model))
         print(f"dumped inference model to {args.output_model_file}")
         return
     if args.image:
@@ -81,7 +84,8 @@ def main(args):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model_type", default="mobilenetv2_lite")
-    p.add_argument("--weights_path", default=None, help=".npz of the JAX variables")
+    p.add_argument("--weights_path", default=None,
+                   help=".npz of the JAX variables, the JAX package's .ckpt or a Keras .h5")
     p.add_argument("--classes_path", default="configs/voc_classes.txt")
     p.add_argument("--model_input_shape", default="512x512",
                    help="HxW (e.g. 512x512 or 1024x512) or a single int")

@@ -16,8 +16,10 @@ confusion matrix) are the JAX package's (reference eval.py:461-510 /
 The CLI takes the flags of the root eval.py plus `--fused_mbconv` and
 `--device {auto,cuda,cpu}`, where auto means the card: without one it is an
 error, not a CPU run. The model is built bf16 with the fused ASPP kernel on,
-as the root CLI builds it on its accelerator. `--model_path` takes the port's
-`.npz`; the other formats and `--do_crf` raise, naming their ROADMAP item.
+as the root CLI builds it on its accelerator. `--model_path` takes an `.npz`
+of the JAX variables tree, the JAX package's `.ckpt` or a Keras `.h5`
+(`utils/checkpoint.load_weights`); the exported formats and `--do_crf`
+raise, naming their ROADMAP item.
 matplotlib is imported inside the plot functions only, and the metrics are
 printed before any plot is tried.
 """
@@ -35,6 +37,7 @@ from deeplabv3p_torch import metrics as metrics_lib
 from deeplabv3p_torch.data.augment import preprocess_eval_batch
 from deeplabv3p_torch.postprocess import mask_argmax
 from deeplabv3p_torch.train import accumulate_confusion, make_eval_step, parse_input_shape
+from deeplabv3p_torch.utils.checkpoint import check_weights_path
 
 
 def plot_miou_result(ious: "OrderedDict[str, float]", miou: float, out_dir="result"):
@@ -209,27 +212,10 @@ def _finish_eval(cm_host, class_names, plots, out_dir):
 # CLI (root eval.py)
 # ---------------------------------------------------------------------------
 
-# --model_path suffixes of the root eval.py that the port does not read yet
-_UNPORTED_SUFFIXES = {
-    ".h5": "Queue A item 1",
-    ".ckpt": "Queue A item 5",
-    ".shlo": "Queue A item 12",
-    ".onnx": "Queue A item 12",
-    ".tflite": "Queue A item 12",
-    ".pb": "Queue A item 12",
-}
-
-
 def _refuse_unported(args) -> None:
     """Inputs of the root eval.py the port does not take yet: each raises,
     naming its ROADMAP item; none is ignored."""
-    suffix = os.path.splitext(args.model_path)[1]
-    if suffix in _UNPORTED_SUFFIXES:
-        raise NotImplementedError(
-            f"--model_path {suffix} is not ported yet (ROADMAP "
-            f"{_UNPORTED_SUFFIXES[suffix]}); the port reads its own .npz")
-    if suffix != ".npz":
-        raise ValueError(f"--model_path {args.model_path}: expected a port .npz")
+    check_weights_path(args.model_path)
     if args.do_crf:
         raise NotImplementedError(
             "--do_crf: the dense CRF is not ported yet (ROADMAP Queue A item 10)")
@@ -248,8 +234,9 @@ def resolve_device(name: str) -> torch.device:
 
 def main(args) -> metrics_lib.SegmentMetrics:
     from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.utils.checkpoint import load_weights
     from deeplabv3p_torch.utils.config import get_classes, get_data_list
-    from deeplabv3p_torch.utils.weights import from_jax_variables, load_npz
 
     _refuse_unported(args)
     device = resolve_device(args.device)
@@ -258,7 +245,10 @@ def main(args) -> metrics_lib.SegmentMetrics:
         args.model_type, len(class_names), output_stride=args.output_stride,
         fused_aspp=True, fused_mbconv=args.fused_mbconv,
         dtype=torch.bfloat16, device=device)
-    model.load_state_dict(from_jax_variables(load_npz(args.model_path), model), strict=True)
+    # an .h5 loads by layer name: what it lacks keeps this seeded init, as the
+    # JAX package's keeps model.init's
+    init_parameters(model, torch.Generator().manual_seed(0), bn_identity=True)
+    load_weights(args.model_path, model)
     return eval_miou(
         model, args.dataset_path, get_data_list(args.dataset_file, shuffle=False),
         class_names, model_input_shape=parse_input_shape(args.model_input_shape),
@@ -270,11 +260,12 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model_path", required=True,
-                   help="a port .npz of the JAX variables tree (.h5, .ckpt and the "
-                        "exported formats are not ported)")
+                   help="weights: an .npz of the JAX variables tree, the JAX package's "
+                        ".ckpt or a Keras .h5 (needs h5py); the exported formats are "
+                        "not ported")
     p.add_argument("--model_type", default="mobilenetv3large_lite",
                    help="ported: mobilenetv2(_lite), mobilenetv3large(_lite), "
-                        "mobilenetv3small(_lite)")
+                        "mobilenetv3small(_lite), xception")
     p.add_argument("--model_input_shape", default="512x512",
                    help="HxW (e.g. 512x512 or 1024x512) or a single int")
     p.add_argument("--output_stride", type=int, default=16, choices=[8, 16, 32])

@@ -10,6 +10,7 @@ is `preprocess_image` (PIL bicubic resize + [-1, 1] normalise, on the host)
 the device.
 
 Weights come from an `.npz` of the JAX variables tree (`utils/weights.py`),
+the JAX package's `.ckpt` or a Keras `.h5` (`utils/checkpoint.load_weights`),
 or, with no path, from a seeded init. PIL is imported only where an image
 is decoded or drawn, so `import deeplabv3p_torch.inference` works without it.
 """
@@ -27,7 +28,7 @@ from deeplabv3p_torch.models.factory import build_deeplab_model
 from deeplabv3p_torch.models.layers import init_parameters
 from deeplabv3p_torch.postprocess import mask_argmax, mask_resize
 from deeplabv3p_torch.utils.config import get_classes
-from deeplabv3p_torch.utils.weights import from_jax_variables, load_npz
+from deeplabv3p_torch.utils.checkpoint import load_weights
 
 DEFAULT_CONFIG = {
     # reference default_config (deeplab.py:31-40)
@@ -100,18 +101,10 @@ class DeepLab:
             dtype=dtype,
             device=self.device,
         )
+        # seeded random init (smoke/demo use; what an .h5 lacks keeps it)
+        init_parameters(self.model, torch.Generator().manual_seed(0))
         if self.weights_path:
-            path = os.path.expanduser(self.weights_path)
-            if not path.endswith(".npz"):
-                raise NotImplementedError(
-                    f"{path}: only .npz weights load in the port so far; the "
-                    ".h5 and .ckpt readers wait (ROADMAP Queue A item 1)"
-                )
-            self.model.load_state_dict(
-                from_jax_variables(load_npz(path), self.model), strict=True
-            )
-        else:  # seeded random init (smoke/demo use)
-            init_parameters(self.model, torch.Generator().manual_seed(0))
+            load_weights(os.path.expanduser(self.weights_path), self.model)
 
     @torch.inference_mode()
     def predict(self, image_data: np.ndarray, image_shape) -> np.ndarray:

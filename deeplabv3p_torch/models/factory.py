@@ -29,6 +29,7 @@ from deeplabv3p_torch.models.layers import (
 )
 from deeplabv3p_torch.models.mobilenetv2 import MobileNetV2Body
 from deeplabv3p_torch.models.mobilenetv3 import MobileNetV3LargeBody, MobileNetV3SmallBody
+from deeplabv3p_torch.models.xception import XceptionBody
 from deeplabv3p_torch.ops.resize import resize_bilinear
 
 
@@ -40,8 +41,8 @@ class DeeplabV3Plus(nn.Module):
     residuals through the hand-written kernels (ops/kernels) — inference
     only, same parameters as the standard path: a module in training mode
     takes the standard path, as JAX does. `fused_mbconv` needs a backbone
-    that takes the flag (the MobileNetV2 body); the MobileNetV3 bodies
-    refuse it.
+    that takes the flag (the MobileNetV2 body); the MobileNetV3 and Xception
+    bodies refuse it.
     """
 
     def __init__(
@@ -102,6 +103,7 @@ DEEPLAB_MODEL_REGISTRY: dict[str, tuple[Callable[..., nn.Module], bool]] = {
     "mobilenetv3large_lite": (partial(MobileNetV3LargeBody, alpha=1.0), True),
     "mobilenetv3small": (partial(MobileNetV3SmallBody, alpha=1.0), False),
     "mobilenetv3small_lite": (partial(MobileNetV3SmallBody, alpha=1.0), True),
+    "xception": (XceptionBody, False),
 }
 
 

@@ -8,7 +8,11 @@
 * Optimizers are torch's SGD (momentum 0.9) and Adam (eps 1e-7), whose
   update rules equal optax's `sgd` and `adam` for these settings, and
   `RMSprop` below: optax's `rmsprop` adds eps INSIDE the square root
-  (`eps_in_sqrt`), torch's outside, so the port carries its own. The
+  (`eps_in_sqrt`), torch's outside, so the port carries its own. With the
+  momentum state stored in bf16 (JAX `state_dtype='bfloat16'`), SGD and
+  Adam are the port's own `BF16StateSGD` / `BF16StateAdam`, which follow
+  optax's order of roundings: torch's keep their state in the parameter's
+  dtype. The
   trainer sets each group's `lr` to `schedule(count) * lr_scale` before
   each step (`set_learning_rate`), which is JAX's scaling of the update.
 * Freezing leaves the frozen parameters out of the optimizer
@@ -78,6 +82,84 @@ class RMSprop(torch.optim.Optimizer):
                 p.addcdiv_(p.grad, (nu + group["eps"]).sqrt_(), value=-group["lr"])
 
 
+def _bf16_decayed(states: list[torch.Tensor], decay: float) -> list[torch.Tensor]:
+    """`decay * t` for bf16 tensors t as JAX computes it with a Python float:
+    the weak-typed float becomes bf16 first, and the product (exact in f32)
+    is rounded to bf16, before any add."""
+    return torch._foreach_mul(states, float(torch.tensor(decay, dtype=torch.bfloat16)))
+
+
+class BF16StateSGD(torch.optim.Optimizer):
+    """optax `sgd(momentum=0.9, accumulator_dtype=bfloat16)`: the trace
+    `t <- g + decay * t` is computed in f32 from the bf16 trace (its decayed
+    value rounded to bf16 first, as JAX's weak typing does), the f32 result
+    is this step's update, `p -= lr * t`, and only what is stored is rounded
+    to bf16 (optax `trace`)."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9):
+        super().__init__(params, dict(lr=lr, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["trace"] = torch.zeros_like(p, dtype=torch.bfloat16)
+            traces = [self.state[p]["trace"] for p in params]
+            new = torch._foreach_add([p.grad for p in params],
+                                     _bf16_decayed(traces, group["momentum"]))
+            torch._foreach_add_(params, new, alpha=-group["lr"])
+            torch._foreach_copy_(traces, new)
+
+
+class BF16StateAdam(torch.optim.Optimizer):
+    """optax `adam(b1=0.9, b2=0.999, eps=1e-7, mu_dtype=bfloat16)`: the first
+    moment `mu <- (1 - b1) g + b1 mu` in f32 from the bf16 moment (`b1 * mu`
+    rounded to bf16 first), the second moment `nu` and all of the update in
+    f32, with optax's f32 bias corrections; only `mu` is stored in bf16,
+    after the update used it."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["b1"], group["b2"]
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(count=0, mu=torch.zeros_like(p, dtype=torch.bfloat16),
+                                         nu=torch.zeros_like(p))
+            count = self.state[params[0]]["count"] + 1
+            grads = [p.grad for p in params]
+            mus = [self.state[p]["mu"] for p in params]
+            nus = [self.state[p]["nu"] for p in params]
+            mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1), _bf16_decayed(mus, b1))
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, sq)
+            # optax's bias corrections 1 - b^count, taken in f32
+            c1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** count)
+            c2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** count)
+            denom = torch._foreach_div(nus, c2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            upd = torch._foreach_div(mu, c1)
+            torch._foreach_div_(upd, denom)
+            torch._foreach_add_(params, upd, alpha=-group["lr"])
+            torch._foreach_copy_(mus, mu)
+            for p in params:
+                self.state[p]["count"] = count
+
+
 def build_optimizer(
     optim_type: str,
     params: Iterable[torch.nn.Parameter],
@@ -85,18 +167,27 @@ def build_optimizer(
 ) -> torch.optim.Optimizer:
     """Optimizer factory (JAX optimizers.py:76-128, reference
     model_utils.py:112-130). The learning rate is set each step from the
-    schedule; f32 state only."""
-    if state_dtype not in (None, "float32", "f32"):
-        raise NotImplementedError(
-            f"optimizer state_dtype {state_dtype!r} is not ported yet (ROADMAP "
-            "Queue A item 5, optim_state_dtype); the port keeps f32 state")
+    schedule. `state_dtype` 'bfloat16' stores SGD's momentum trace and
+    Adam's first moment in bf16 (`BF16StateSGD`, `BF16StateAdam`); rmsprop
+    refuses it, as the JAX factory does."""
     params = list(params)
     optim_type = optim_type.lower()
+    if state_dtype not in (None, "float32", "f32", "bfloat16"):
+        raise ValueError(f"Unsupported optimizer state dtype {state_dtype!r}")
+    bf16 = state_dtype == "bfloat16"
     if optim_type == "sgd":
+        if bf16:
+            return BF16StateSGD(params, lr=0.0, momentum=0.9)
         return torch.optim.SGD(params, lr=0.0, momentum=0.9, nesterov=False)
     if optim_type == "adam":
+        if bf16:
+            return BF16StateAdam(params, lr=0.0, b1=0.9, b2=0.999, eps=1e-7)
         return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-7)
     if optim_type == "rmsprop":
+        if bf16:
+            raise ValueError(
+                "state_dtype is not supported for rmsprop (optax's scale_by_rms keeps "
+                "its EMA of squares in f32; bf16 would lose its dynamic range)")
         return RMSprop(params, lr=0.0, decay=0.9, eps=1e-7)
     raise ValueError(f"Unsupported optimizer type {optim_type!r}")
 

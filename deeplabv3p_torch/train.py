@@ -6,7 +6,9 @@
 runs the root train.py's defaults: mobilenetv3large_lite, 512x512, OS16,
 b16, bf16 activations with f32 parameters, and the stochastic
 augmentation on the device (`data/augment.py`). `--fused_loss`,
-`--device_cache`, `--no_augment` and `--model_type` as there.
+`--device_cache`, `--no_augment`, `--model_type`, `--bn_recalibrate`,
+`--optim_state_dtype` and `--weights_path` (`.npz`, `.ckpt` or `.h5`) as
+there.
 
 * `make_train_step`: forward (bf16 activations, f32 parameters, BN
   statistics and loss), loss, backward, optimizer and weight averaging.
@@ -23,6 +25,8 @@ augmentation on the device (`data/augment.py`). `--fused_loss`,
   weight averaging (reference train.py:172-244), with ReduceLROnPlateau
   through `lr_scale`, early stop, NaN stop, val / online eval, checkpoint
   retention and `history.jsonl`.
+* `recalibrate_batch_stats`: exact BN statistics over a dataset, after
+  training (`--bn_recalibrate`).
 
 PyTorch runs eagerly, so model, optimizer and averages are updated in
 place; `TrainState` carries the rest. Frozen parameters stay out of the
@@ -51,6 +55,7 @@ from deeplabv3p_torch.data.augment import preprocess_eval_batch
 from deeplabv3p_torch.data.pipeline import device_feed
 from deeplabv3p_torch.models.factory import set_train_mode, trainable_parameters
 from deeplabv3p_torch.models.layers import Dropout
+from deeplabv3p_torch.utils.checkpoint import check_weights_path
 from deeplabv3p_torch.utils.weights import to_jax_variables
 
 
@@ -69,7 +74,8 @@ class StageConfig:
     # update (the mean of the gradients, as optax.MultiSteps); the schedule
     # counts APPLIED updates
     grad_accum: int = 1
-    # storage dtype of the optimizer state: f32 only so far
+    # storage dtype of SGD's momentum / Adam's first moment: None or float32,
+    # or bfloat16 (the update math stays f32)
     state_dtype: Optional[str] = None
 
 
@@ -185,6 +191,64 @@ def accumulate_confusion(eval_step, data, num_classes: int, device) -> np.ndarra
     finally:
         feed.close()
     return cm.cpu().numpy()
+
+
+@torch.no_grad()
+def recalibrate_batch_stats(model, batches, num_classes: int, device, seed: int = 0) -> None:
+    """Replace every BatchNorm's running statistics by the exact statistics
+    of `batches` (JAX train.py:250-329), in place.
+
+    One training-mode pass at freeze level 0 over the host batches (images
+    u8, labels u8, ...), normalised as for evaluation; a forward pre-hook on
+    each `BatchNorm` pools its input's count, f32 sum and f32 sum of squares
+    over the pass (as the JAX interceptor does), and each BN then gets
+    `mean = s / n` and `var = max(sq / n - mean^2, 0)`. Frozen BNs are
+    recalibrated too. Dropout draws from a generator seeded with `seed` for
+    the pass, as the JAX pass draws from its own key: the decoder's BNs of a
+    full head see dropped activations, those of a lite head do not (its
+    dropout comes after its last BN). A short run ends with running
+    statistics still near their init (momentum 0.999 moves them over ~1000
+    steps); this is the fix."""
+    from deeplabv3p_torch.models.layers import BatchNorm
+
+    totals: dict = {}
+
+    def pool(bn, args):
+        x = args[0]
+        xf = x.float()
+        s, sq = xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))
+        n = x.numel() // x.shape[1]
+        if bn in totals:
+            t = totals[bn]
+            t[0], t[1], t[2] = t[0] + n, t[1] + s, t[2] + sq
+        else:
+            totals[bn] = [n, s, sq]
+
+    modes = {m: m.training for m in model.modules()}
+    dropouts = {m: m.generator for m in model.modules() if isinstance(m, Dropout)}
+    generator = torch.Generator(device=device).manual_seed(seed)
+    handles = [m.register_forward_pre_hook(pool)
+               for m in model.modules() if isinstance(m, BatchNorm)]
+    feed = device_feed(batches, device)
+    try:
+        for m in dropouts:
+            m.generator = generator
+        set_train_mode(model, 0)
+        for batch in feed:
+            images, _ = preprocess_eval_batch(batch[0], batch[1], num_classes=num_classes)
+            model(images.permute(0, 3, 1, 2))
+    finally:
+        feed.close()
+        for h in handles:
+            h.remove()
+        for m, g in dropouts.items():
+            m.generator = g
+        for m, training in modes.items():
+            m.training = training
+    for bn, (n, s, sq) in totals.items():
+        mean = s / n
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(torch.clamp_min(sq / n - mean * mean, 0.0))
 
 
 @contextlib.contextmanager
@@ -425,15 +489,12 @@ def _refuse_unported(args) -> None:
         (args.spatial_partition > 1, "--spatial_partition > 1", "Queue A item 11"),
         (args.num_devices > 1, "--num_devices > 1", "Queue A item 11"),
         (args.remat != "off", "--remat", "Queue A item 14"),
-        (args.bn_recalibrate, "--bn_recalibrate", "Queue A item 5"),
-        (args.optim_state_dtype not in (None, "float32"), "--optim_state_dtype bfloat16",
-         "Queue A item 5"),
-        (bool(args.weights_path) and not args.weights_path.endswith(".npz"),
-         "--weights_path other than a port .npz (.h5 / .ckpt)", "Queue A items 1 and 5"),
     ]
     for hit, what, item in unported:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+    if args.weights_path:
+        check_weights_path(args.weights_path)
 
 
 def main(args):
@@ -449,7 +510,7 @@ def main(args):
         get_data_list,
         load_class_weights,
     )
-    from deeplabv3p_torch.utils.weights import from_jax_variables, load_npz
+    from deeplabv3p_torch.utils.checkpoint import load_weights
 
     _refuse_unported(args)
     device = torch.device(args.device)
@@ -519,11 +580,10 @@ def main(args):
     model = build_deeplab_model(
         args.model_type, num_classes, output_stride=args.output_stride,
         dtype=torch.bfloat16 if args.mixed_precision else None, device=device)
+    # seeded as flax's init; an .h5 loads by layer name, what it lacks keeps this
+    init_parameters(model, torch.Generator().manual_seed(args.seed), bn_identity=True)
     if args.weights_path:
-        model.load_state_dict(
-            from_jax_variables(load_npz(args.weights_path), model), strict=True)
-    else:
-        init_parameters(model, torch.Generator().manual_seed(args.seed), bn_identity=True)
+        load_weights(args.weights_path, model)
 
     trainer = Trainer(
         model, num_classes, loss_fn, device=device,
@@ -561,6 +621,19 @@ def main(args):
         eval_data=val_ds if args.eval_online else None,
         eval_every=args.eval_epoch_interval if args.eval_online else 0,
         ckpt_manager=ckpt)
+    if args.bn_recalibrate:
+        # exact BN statistics over the un-augmented train set, in order (root
+        # train.py:255-275): a short run ends before the 0.999 EMA settles
+        if is_packed_dataset(args.dataset_path):
+            recal_ds = ShardedDataset(args.dataset_path, batch_size=args.batch_size,
+                                      shuffle=False)
+        else:
+            recal_ds = SegmentationDataset(
+                args.dataset_path, train_list, batch_size=args.batch_size,
+                num_classes=num_classes, input_shape=input_shape, augment=False,
+                shuffle=False)
+        print("recalibrating BN statistics over the train set ...")
+        recalibrate_batch_stats(model, recal_ds.epoch_batches(), num_classes, device)
     path = ckpt.save_final(to_jax_variables(model))  # the live weights, as JAX
     print(f"saved final model to {path}")
     for rec in trainer.history:
@@ -574,12 +647,13 @@ def parse_args(argv=None):
     # model (reference train.py:253-266)
     p.add_argument("--model_type", default="mobilenetv3large_lite",
                    help="ported: mobilenetv2(_lite), mobilenetv3large(_lite), "
-                        "mobilenetv3small(_lite)")
+                        "mobilenetv3small(_lite), xception")
     p.add_argument("--model_input_shape", default="512x512",
                    help="HxW (e.g. 512x512 or 1024x512) or a single int")
     p.add_argument("--output_stride", type=int, default=16, choices=[8, 16, 32])
     p.add_argument("--weights_path", default=None,
-                   help="a port .npz of the JAX variables tree (.h5/.ckpt not ported)")
+                   help="initial weights: an .npz of the JAX variables tree, the JAX "
+                        "package's .ckpt or a Keras .h5 (by layer name; needs h5py)")
     # data
     p.add_argument("--dataset_path", default="VOC2012/")
     p.add_argument("--dataset_file", default="VOC2012/train.txt")
@@ -589,7 +663,8 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--optimizer", default="sgd", choices=["adam", "rmsprop", "sgd"])
     p.add_argument("--optim_state_dtype", default=None, choices=["float32", "bfloat16"],
-                   help="float32 only: bfloat16 state is not ported")
+                   help="storage dtype of the optimizer's momentum state (sgd, adam); "
+                        "bfloat16 halves it, the update math stays f32")
     p.add_argument("--learning_rate", type=float, default=1e-2)
     p.add_argument("--decay_type", default="cosine",
                    choices=["none", "cosine", "exponential", "polynomial",
@@ -609,7 +684,9 @@ def parse_args(argv=None):
                    help="one device only: more is not ported")
     p.add_argument("--spatial_partition", type=int, default=1,
                    help="1 only: spatial partitioning is not ported")
-    p.add_argument("--bn_recalibrate", action="store_true", help="not ported")
+    p.add_argument("--bn_recalibrate", action="store_true",
+                   help="replace the BN running statistics by the exact statistics of "
+                        "the un-augmented train set before the final save (short runs)")
     p.add_argument("--device_cache", action="store_true",
                    help="keep the uint8 train set on the device and gather each batch "
                         "there (data/device_cache.py); the random crop then never fires")

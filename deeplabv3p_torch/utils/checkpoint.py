@@ -8,8 +8,14 @@ Names encode the metrics (reference `ep{epoch:03d}-loss..-Jaccard..
 checkpoints, the 2 best-mIOU eval checkpoints and the final one (reference
 CheckpointCleanCallBack, common/callbacks.py:11-30). "Last" and "best" are
 read off the epoch in the file name, not the file's mtime: two saves within
-one timestamp tick would sort in no defined order. Reading flax msgpack
-`.ckpt` files is not ported (ROADMAP Queue A item 5).
+one timestamp tick would sort in no defined order.
+
+Weights in the other packages' formats load and save too:
+`load_variables` / `save_variables` read and write the JAX package's
+`.ckpt` (flax msgpack of the variables tree, deeplabv3p_tpu/utils/
+checkpoint.py:29-43) through the port's own codec (`utils/msgpack.py`), and
+`load_weights(path, model)` loads any of `.npz`, `.ckpt` and Keras `.h5`
+(`utils/keras_import.py`, h5py imported there) into a model.
 """
 
 from __future__ import annotations
@@ -19,7 +25,72 @@ import os
 import re
 from typing import Any
 
-from deeplabv3p_torch.utils.weights import save_npz
+import torch.nn as nn
+
+from deeplabv3p_torch.utils import msgpack
+from deeplabv3p_torch.utils.weights import (
+    from_jax_variables,
+    load_npz,
+    save_npz,
+    to_jax_variables,
+)
+
+WEIGHT_SUFFIXES = (".npz", ".ckpt", ".h5")
+# weight files of the JAX package that the port does not read yet
+UNPORTED_SUFFIXES = {
+    ".shlo": "Queue A item 12",
+    ".onnx": "Queue A item 12",
+    ".tflite": "Queue A item 12",
+    ".pb": "Queue A item 12",
+}
+
+
+def save_variables(path: str, variables: Any) -> None:
+    """Write a `{'params', 'batch_stats'}` tree (numpy leaves) as the JAX
+    package's `.ckpt`: the bytes `flax.serialization.to_bytes` gives."""
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(variables))
+
+
+def load_variables(path: str) -> dict:
+    """Read a `.ckpt` into its nested dict (numpy leaves; bfloat16 leaves as
+    torch.bfloat16 tensors)."""
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read())
+    if not isinstance(tree, dict):
+        raise msgpack.MsgpackError(f"{path}: a {type(tree).__name__}, not a variables tree")
+    return tree
+
+
+def check_weights_path(path: str) -> None:
+    """Raise unless `path` is a weights file the port reads: `.npz`, `.ckpt`
+    or `.h5`. The JAX package's exported formats name their ROADMAP item."""
+    suffix = os.path.splitext(path)[1]
+    if suffix in UNPORTED_SUFFIXES:
+        raise NotImplementedError(
+            f"{path}: {suffix} is not ported yet (ROADMAP {UNPORTED_SUFFIXES[suffix]}); "
+            f"the port reads {', '.join(WEIGHT_SUFFIXES)}")
+    if suffix not in WEIGHT_SUFFIXES:
+        raise ValueError(f"{path}: expected one of {', '.join(WEIGHT_SUFFIXES)}")
+
+
+def load_weights(path: str, model: nn.Module) -> None:
+    """Load `path` into `model`, strictly: every leaf of an `.npz` or
+    `.ckpt` must map to the model and back (`from_jax_variables`). A Keras
+    `.h5` loads by layer name into the model's own weights, as the JAX
+    package loads it into `model.init`'s variables: a layer the file lacks
+    keeps its value (Keras `load_weights(by_name=True)`)."""
+    check_weights_path(path)
+    suffix = os.path.splitext(path)[1]
+    if suffix == ".npz":
+        variables = load_npz(path)
+    elif suffix == ".ckpt":
+        variables = load_variables(path)
+    else:
+        from deeplabv3p_torch.utils.keras_import import load_keras_h5_weights
+
+        variables = load_keras_h5_weights(path, to_jax_variables(model))
+    model.load_state_dict(from_jax_variables(variables, model), strict=True)
 
 
 def checkpoint_name(epoch: int, loss: float, jaccard: float, val_metric: float) -> str:

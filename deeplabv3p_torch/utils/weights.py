@@ -43,8 +43,8 @@ def flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
         path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(value, Mapping):
             flat.update(flatten(value, path))
-        else:
-            flat[path] = np.asarray(value)
+        else:  # torch tensors stay (a `.ckpt`'s bfloat16 leaves, utils/msgpack.py)
+            flat[path] = value if isinstance(value, torch.Tensor) else np.asarray(value)
     return flat
 
 
@@ -86,9 +86,10 @@ def _strict(what: str, left: set, right: set, lname: str, rname: str) -> None:
 
 
 def from_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
-    """JAX `{'params', 'batch_stats'}` tree (numpy leaves) -> `state_dict`
-    for `model`. Raises on any leaf missing or left over on either side,
-    or any shape mismatch."""
+    """JAX `{'params', 'batch_stats'}` tree (numpy leaves, or torch tensors
+    such as a `.ckpt`'s bfloat16 ones) -> f32 `state_dict` for `model`.
+    Raises on any leaf missing or left over on either side, or any shape
+    mismatch."""
     table = jax_path_table(model)
     flat = flatten(variables)
     _strict("JAX variables vs port model", set(flat), set(table), "JAX", "port")
@@ -98,14 +99,16 @@ def from_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.
     out = {}
     for path, (key, is_kernel) in table.items():
         a = flat[path]
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
         if is_kernel:
-            a = a.transpose(3, 2, 0, 1)
-        if tuple(a.shape) != tuple(target[key].shape):
+            t = t.permute(3, 2, 0, 1)
+        if tuple(t.shape) != tuple(target[key].shape):
             raise ValueError(
-                f"{path} -> {key}: shape {tuple(a.shape)} != "
+                f"{path} -> {key}: shape {tuple(t.shape)} != "
                 f"{tuple(target[key].shape)}"
             )
-        out[key] = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+        # a copy: the state dict shares no memory with the caller's arrays
+        out[key] = t.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
     return out
 
 

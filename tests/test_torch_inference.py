@@ -127,10 +127,11 @@ def test_cli_segments_piped_filenames(tmp_path):
     np.testing.assert_array_equal(saved, want)
 
 
-def test_cli_dump_model_round_trips(tmp_path, request_data):
+@pytest.mark.parametrize("suffix", [".npz", ".ckpt"])
+def test_cli_dump_model_round_trips(suffix, tmp_path, request_data):
     from deeplabv3p_torch import deeplab as cli
 
-    path = str(tmp_path / "dump.npz")
+    path = str(tmp_path / ("dump" + suffix))
     cli.main(cli.parse_args(["--device", "cpu", "--model_type", "mobilenetv2",
                              "--model_input_shape", str(PX), "--classes_path", VOC,
                              "--dump_model", "--output_model_file", path]))
@@ -149,8 +150,13 @@ def test_port_imports_no_jax_and_no_optional_packages():
         "import sys\n"
         "import deeplabv3p_torch, deeplabv3p_torch.inference, deeplabv3p_torch.deeplab\n"
         "import deeplabv3p_torch.ops.kernels\n"
+        "import deeplabv3p_torch.utils.checkpoint, deeplabv3p_torch.utils.keras_import\n"
         "bad = [m for m in ('jax', 'flax', 'deeplabv3p_tpu', 'PIL', 'cv2', 'h5py',"
-        " 'matplotlib', 'triton') if m in sys.modules]\n"
+        " 'msgpack', 'matplotlib', 'triton') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "import deeplabv3p_torch.train, deeplabv3p_torch.eval  # their data pipeline needs PIL\n"
+        "bad = [m for m in ('jax', 'flax', 'deeplabv3p_tpu', 'h5py', 'msgpack', 'matplotlib',"
+        " 'triton') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -171,8 +177,8 @@ def test_unported_options_raise(weights):
         tinf.DeepLab(do_crf=True, **kw)
     with pytest.raises(NotImplementedError, match="Queue A item 11"):
         tinf.DeepLab(mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match=".npz"):
-        tinf.DeepLab(weights_path="trained_final.h5", **kw)
+    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+        tinf.DeepLab(weights_path="trained_final.onnx", **kw)
     # segment_video is ported (test_torch_eval.py): a missing file is an IOError
     deeplab = tinf.DeepLab(**kw)
     with pytest.raises(IOError, match="Couldn't open"):

@@ -98,6 +98,8 @@ ASPP_CASES = [
     ((1, 32, 32, 160), (6, 12, 18)),  # mobilenetv3large serving: 160 channels
     ((8, 32, 32, 160), (6, 12, 18)),  # ... at the eval path's batch 8
     ((1, 32, 32, 96), (6, 12, 18)),   # mobilenetv3small: 96 channels
+    ((1, 32, 32, 2048), (6, 12, 18)),  # xception serving: 2048 channels
+    ((8, 32, 32, 2048), (6, 12, 18)),  # ... at batch 8
 ]
 
 
@@ -214,6 +216,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 # training call and a b2 one), and a ragged case
 UPSAMPLE_CE_CASES = [
     ((16, 128, 128, 21), (512, 512)),
+    ((8, 128, 128, 21), (512, 512)),  # xception --fused_loss at b8
     ((16, 32, 32, 21), (512, 512)),
     ((2, 32, 32, 21), (512, 512)),
     ((3, 29, 37, 21), (116, 148)),

@@ -260,7 +260,7 @@ def test_from_jax_variables_is_strict():
 
 def test_registry_and_modes():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_deeplab_model("xception", 21)
+        build_deeplab_model("resnet50", 21)
     model = build_deeplab_model("mobilenetv2_lite", 21, device="cpu")
     assert not model.training
     # training mode runs (batch statistics, moving the running buffers);

@@ -508,9 +508,6 @@ def test_fit_reduces_lr_on_plateau_and_stops_early_or_on_nan(tmp_path):
     (["--no_augment", "--spatial_partition", "2"], "spatial_partition"),
     (["--no_augment", "--num_devices", "2"], "num_devices"),
     (["--no_augment", "--remat"], "remat"),
-    (["--no_augment", "--bn_recalibrate"], "bn_recalibrate"),
-    (["--no_augment", "--optim_state_dtype", "bfloat16"], "optim_state_dtype"),
-    (["--no_augment", "--weights_path", "w.h5"], "weights_path"),
 ])
 def test_unported_flags_raise(flags, match, tmp_path):
     args = parse_args(["--device", "cpu", "--log_dir", str(tmp_path), *flags])

@@ -54,15 +54,15 @@ def setup():
     return model, variables, images, labels, sw
 
 
-def jax_step(setup, fused, freeze_level):
+def jax_step(setup, fused, freeze_level, lr=LR):
     with jax.enable_x64(True):
-        return _jax_step(setup, fused, freeze_level)
+        return _jax_step(setup, fused, freeze_level, lr)
 
 
-def _jax_step(setup, fused, freeze_level):
+def _jax_step(setup, fused, freeze_level, lr):
     model, variables, images, labels, sw = setup
     params = jax.tree.map(jnp.asarray, variables["params"])
-    tx = jopt.build_optimizer("sgd", LR, decay_type=None,
+    tx = jopt.build_optimizer("sgd", lr, decay_type=None,
                               trainable_mask=make_trainable_mask(params, freeze_level))
     state = JaxTrainState(
         step=jnp.zeros((), jnp.int32), params=params,
@@ -77,18 +77,19 @@ def _jax_step(setup, fused, freeze_level):
         np.asarray, {"params": new.params, "batch_stats": new.batch_stats}))
 
 
-def port_step(setup, fused, freeze_level, tmp_path):
+def port_step(setup, fused, freeze_level, tmp_path, model_type="mobilenetv2", num_classes=C,
+              lr=LR):
     _, variables, images, labels, sw = setup
-    model = build_deeplab_model("mobilenetv2", C, output_stride=16, dtype=torch.float64,
+    model = build_deeplab_model(model_type, num_classes, output_stride=16, dtype=torch.float64,
                                 device="cpu")
     model.load_state_dict(from_jax_variables(variables, model), strict=True)
     for m in model.modules():
         if isinstance(m, Dropout):
             m.rate = 0.0
-    trainer = Trainer(model, C, get_loss_fn("crossentropy"), device="cpu",
+    trainer = Trainer(model, num_classes, get_loss_fn("crossentropy"), device="cpu",
                       use_sample_weights=True, l2_factor=2e-5, log_dir=str(tmp_path),
                       fused_loss=fused)
-    stage = StageConfig(freeze_level=freeze_level, optim_type="sgd", learning_rate=LR)
+    stage = StageConfig(freeze_level=freeze_level, optim_type="sgd", learning_rate=lr)
     state = trainer.build_stage_state(stage)
     out = trainer.make_train_step(stage)(
         state, torch.from_numpy(images), torch.from_numpy(labels), torch.from_numpy(sw))
