@@ -75,16 +75,30 @@
    evaluated at b8 through the eval CLI (the ASPP kernel at (8,32,32,2048));
    (d) the train CLI on xception b8 with --fused_loss and
    --optim_state_dtype bfloat16;
-12. latency of the serving path, train-step time and peak memory fused and
+12. the rest of the zoo: resnet50, peleenet, ghostnet, mobilevit_s and
+   mobilevit_xs served (bf16, b1, 4 requests, the ASPP kernel at 2048, 704,
+   960, 640 and 384 channels and the decoder kernel, in turns with no
+   kernel; masks against the f32 model with no kernel, >= 0.98 but for
+   seeded ghostnet, whose bf16 is as far from its f32 in the JAX package;
+   the f32 model with both kernels against it, >= 0.999, as for
+   mobilenetv3 and xception) and peleenet_lite with no kernel; resnet50 and mobilevit_s trained b8
+   through the train CLI with --fused_loss (2 + 2 steps on 16 pairs, the
+   loss kernels once a step, the loss falling); peleenet_lite and
+   ghostnet_lite evaluated b8 through the eval CLI, each matrix equal to
+   torch.argmax + bincount;
+13. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
    share of it, xception's step unfused, fused and with bf16 optimizer
-   state in turns (time, peak memory, the state's bytes), device-time
-   profiles of one request, one train step and one eval batch, and each
-   kernel's time against its plain version, its bound and, where there is
-   one, the library's calls (the ASPP kernel's and the loss tail's rows also
-   at the later slices' shapes, `at_other_shapes`; the decoder runs at the
-   serving shapes on every path).
+   state in turns (time, peak memory, the state's bytes), resnet50's b8
+   step unfused and fused in turns and mobilevit_s's fused (time, img/s,
+   peak memory, a profile each), device-time profiles of one request (also
+   of resnet50 and mobilevit_s), one train step and one eval batch, and
+   each kernel's time against its plain version, its bound and, where there
+   is one, the library's calls (the ASPP kernel's and the loss tail's rows
+   also at the later slices' shapes, `at_other_shapes`, and launches at a
+   shape already timed under `also_on`; the decoder runs at the serving
+   shapes on every path).
 
 Exits non-zero on any failure, and without printing a result when there is
 no CUDA device or no checkout around the script. The line before the last is
@@ -125,7 +139,21 @@ V3_REQUESTS_SMALL = 4
 EVAL_BATCH, EVAL_SEED = 8, 4
 # the learning proof (bench.py:790-858): the toy set at 256x256, b8, 120 epochs
 LEARN_HW, LEARN_BATCH, LEARN_EPOCHS, LEARN_TARGET = 256, 8, 120, 0.95
-XCEPTION_BATCH = 8
+# the rest of the zoo: the full heads served with both kernels and
+# peleenet_lite (the bench's baseline) with none, 4 requests a turn;
+# resnet50 and mobilevit_s trained b8 (as xception is) through the train CLI
+# on the first 16 pairs (2 steps an epoch); the lite heads of two backbones
+# evaluated b8
+ZOO_SERVED = ("resnet50", "peleenet", "ghostnet", "mobilevit_s", "mobilevit_xs", "peleenet_lite")
+ZOO_REQUESTS = 4
+MODEL_TRAIN_BATCH, ZOO_TRAIN_IMAGES = 8, 16
+ZOO_EVALUATED = ("peleenet_lite", "ghostnet_lite")
+PROFILED_SERVING = ("mobilenetv3large", "xception", "resnet50", "mobilevit_s")
+# seeded ghostnet is as ill-conditioned in bf16 in the JAX package: at 256 px
+# its bf16 masks agree with its f32 ones on ~0.98 of pixels in both packages
+# (tests/test_torch_ghostnet.py). Its bf16 agreement is printed, not held to
+# 0.98; its kernels are held in f32 at 0.999, as every full head's are
+BF16_FLOOR_NOT_HELD = ("ghostnet",)
 # published peaks of one H100 SXM: device memory rate, f32 FMA rate outside
 # the tensor cores, dense bf16 rate of the tensor cores (the inverted
 # residual's two products; every other kernel multiplies by f32 weights in f32)
@@ -150,11 +178,18 @@ ASPP_CASES = [((1, 32, 32, 320), (6, 12, 18)), ((8, 32, 32, 320), (6, 12, 18)),
               ((3, 5, 4, 7), (3, 6, 9, 1)),
               ((1, 32, 32, 160), (6, 12, 18)), ((1, 32, 32, 96), (6, 12, 18)),
               ((1, 32, 32, 2048), (6, 12, 18)), ((8, 32, 32, 2048), (6, 12, 18)),
-              ((8, 16, 16, 320), (6, 12, 18))]
+              ((8, 16, 16, 320), (6, 12, 18)),
+              ((1, 32, 32, 704), (6, 12, 18)), ((1, 32, 32, 960), (6, 12, 18)),
+              ((1, 32, 32, 640), (6, 12, 18)), ((1, 32, 32, 384), (6, 12, 18))]
 # the serving calls of mobilenetv3large (160 channels) and mobilenetv3small (96),
-# xception's serving (2048) and eval (b8) calls; the learning proof's eval
-# call (256 px, OS16) is held but not timed
-ASPP_SHAPE_CASES = {7: "aspp_c160", 8: "aspp_c96", 9: "aspp_c2048", 10: "aspp_c2048_b8"}
+# xception's serving (2048, resnet50's too) and eval (b8) calls, the serving
+# calls of peleenet (704), ghostnet (960), mobilevit_s (640) and mobilevit_xs
+# (384); the learning proof's eval call (256 px, OS16) is held but not timed
+ASPP_SHAPE_CASES = {7: "aspp_c160", 8: "aspp_c96", 9: "aspp_c2048", 10: "aspp_c2048_b8",
+                    12: "aspp_c704", 13: "aspp_c960", 14: "aspp_c640", 15: "aspp_c384"}
+# each new shape's model, whose serving run gives its row's launches
+ZOO_ASPP_ROWS = (("aspp_c704", "peleenet"), ("aspp_c960", "ghostnet"),
+                 ("aspp_c640", "mobilevit_s"), ("aspp_c384", "mobilevit_xs"))
 # (x_enc shape, skip shape) decoder cases: the serving path's, a ragged one with
 # non-integer scales, the serving maps at batch 8, OS8's scale 2, and channel
 # counts that are no multiple of 4 (one channel a thread)
@@ -684,11 +719,27 @@ def main() -> None:
     # -- 5h. (c) xception served (the ASPP kernel at 2048 channels, the decoder
     # kernel) and evaluated at b8 ------------------------------------------------------
     x_serve = more_serving(torch, kernels, classes_path, [("xception", requests)])
-    x_eval_aspp = xception_evaluation_path(torch, kernels, classes_path, train_dir)
+    x_eval_aspp = model_evaluation_path(torch, kernels, classes_path, train_dir,
+                                        "xception")["multirate_atrous_depthwise"]
 
     # -- 5i. (d) xception trained, --fused_loss and bf16 optimizer state --------------
-    x_train_launches = xception_training_path(torch, kernels, train_main, train_args,
-                                              classes_path, train_dir)
+    x_train_launches = model_training_path(torch, kernels, train_main, train_args, classes_path,
+                                           train_dir, "xception", TRAIN_IMAGES,
+                                           "--optim_state_dtype", "bfloat16")
+
+    # -- 5j. the rest of the zoo served: resnet50 (the ASPP kernel at 2048 channels),
+    # peleenet (704), ghostnet (960), mobilevit_s (640), mobilevit_xs (384), each with
+    # the decoder kernel too, and peleenet_lite with no kernel ---------------------------
+    zoo_serve = more_serving(torch, kernels, classes_path,
+                             [(m, requests[:ZOO_REQUESTS]) for m in ZOO_SERVED])
+
+    # -- 5k. resnet50 and mobilevit_s (the attention's backward) trained b8 with
+    # --fused_loss; the lite heads of peleenet and ghostnet evaluated b8 ------------------
+    zoo_train = {m: model_training_path(torch, kernels, train_main, train_args, classes_path,
+                                        train_dir, m, ZOO_TRAIN_IMAGES)
+                 for m in ("resnet50", "mobilevit_s")}
+    zoo_eval = {m: model_evaluation_path(torch, kernels, classes_path, train_dir, m)
+                for m in ZOO_EVALUATED}
 
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
@@ -717,6 +768,12 @@ def main() -> None:
     eval_numbers(torch, eval_state)
     default_train_numbers(torch, v3_batch)
     xception_train_numbers(torch, train_dir, classes_path)
+    model_train_numbers(torch, train_dir, classes_path, "resnet50", MODEL_TRAIN_BATCH,
+                        (("U unfused", False, None), ("F --fused_loss", True, None)),
+                        profile="profile_one_train_step_resnet50.txt")
+    model_train_numbers(torch, train_dir, classes_path, "mobilevit_s", MODEL_TRAIN_BATCH,
+                        (("F --fused_loss", True, None),),
+                        profile="profile_one_train_step_mobilevit_s.txt")
 
     kernels = [aspp_times(torch, kaspp, records, launches["multirate_atrous_depthwise"])]
     # the decoder: both inputs read once, the concat's depthwise output written
@@ -742,9 +799,15 @@ def main() -> None:
                     "launches": launches["fused_decoder_frontend"],
                     "max_abs_err": records["decoder"]["max_abs_err"],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None, "device_us": dev_us})
+                    "bound_by": bound_by, "library_ms": None, "device_us": dev_us,
+                    # the same serving shapes on every full head's run
+                    "also_on": {f"{m} serving": served_more[m]["fused_decoder_frontend"]
+                                for served_more in (v3_serve, x_serve, zoo_serve)
+                                for m in served_more if served_more[m]["fused_decoder_frontend"]}})
     kernels += upsample_ce_times(torch, kce, records["upsample_ce"], train_launches)
     kernels.append(confusion_times(torch, kconf, records["confusion"], eval_launches[0]))
+    kernels[-1]["also_on"] = {f"{m} eval b{EVAL_BATCH}": zoo_eval[m]["confusion_matrix_fused"]
+                              for m in ZOO_EVALUATED}
     kernels.append(mbconv_times(torch, kmb, records["mbconv"], eval_launches[1], eval_state))
     # this slice's new shapes, each held and timed on its own path's run
     aspp_rows = [
@@ -754,14 +817,23 @@ def main() -> None:
                                         ("aspp_c96", "mobilenetv3small", v3_serve),
                                         ("aspp_c2048", "xception", x_serve))]
     aspp_rows[-1]["f32_b1"] = aspp_timing(torch, kaspp, records["aspp_c2048_f32"]["case"], 200)
+    # resnet50's serving calls are xception's shape: counted, not timed again
+    aspp_rows[-1]["also_on"] = {"resnet50 serving":
+                                zoo_serve["resnet50"]["multirate_atrous_depthwise"]}
     aspp_rows.append(aspp_shape_row(torch, kaspp, records["aspp_c2048_b8"], x_eval_aspp,
                                     "xception eval b8"))
+    aspp_rows += [aspp_shape_row(torch, kaspp, records[key],
+                                 zoo_serve[model]["multirate_atrous_depthwise"], f"{model} serving")
+                  for key, model in ZOO_ASPP_ROWS]
     kernels[0]["at_other_shapes"] = aspp_rows
     for key, launches_of, path in (("upsample_ce_x16", v3_launches,
                                     "mobilenetv3large_lite --fused_loss"),
                                    ("upsample_ce_b8", x_train_launches, "xception --fused_loss")):
         for row in upsample_ce_times(torch, kce, records[key], launches_of):
             row["path"] = path
+            if key == "upsample_ce_b8":  # the same shape on the zoo's b8 training runs
+                row["also_on"] = {f"{m} --fused_loss": zoo_train[m][row["name"]]
+                                  for m in zoo_train}
             next(r for r in kernels if r["name"] == row["name"]).setdefault(
                 "at_other_shapes", []).append(row)
     for row in kernels:
@@ -771,7 +843,8 @@ def main() -> None:
                   f"by {r['bound_by']} ({r['bound_ms'] / r['ms']:.3f} of it), plain "
                   f"{r['plain_ms'] * 1e3:.2f} us, library "
                   f"{'none' if r['library_ms'] is None else format(r['library_ms'] * 1e3, '.2f') + ' us'}"
-                  f", {r['launches']} launches on its path  [{card}]")
+                  f", {r['launches']} launches on its path"
+                  f"{', and ' + str(r['also_on']) if 'also_on' in r else ''}  [{card}]")
 
     leaked = [m for m in ("jax", "flax", "deeplabv3p_tpu") if m in sys.modules]
     check(not leaked, f"no JAX module imported ({leaked or 'none'})")
@@ -1202,10 +1275,13 @@ def augment_card_vs_cpu(torch, batch) -> None:
 
 
 def more_serving(torch, kernels, classes_path, runs) -> dict:
-    """Each (model type, requests) of `runs` served (full head, bf16, b1)
-    with the ASPP and decoder kernels: launch counts, masks against the same
-    weights in f32 with no kernel (>= 0.98 of pixels), latency in turns with
-    no kernel, and the profile of one mobilenetv3large or xception request.
+    """Each (model type, requests) of `runs` served (bf16, b1) with the ASPP
+    and decoder kernels: launch counts (a full head once a request each, a
+    lite head none), masks against the same weights in f32 with no kernel
+    (>= 0.98 of pixels, but for BF16_FLOOR_NOT_HELD), a full head's f32
+    masks with both kernels against them (>= 0.999), latency in turns with
+    no kernel (a lite head has none to turn off: its turns are one model),
+    and the profile of one request of the models in PROFILED_SERVING.
     Returns each run's launch counts."""
     from deeplabv3p_torch.inference import DeepLab
 
@@ -1222,21 +1298,42 @@ def more_serving(torch, kernels, classes_path, runs) -> dict:
         masks, times = serve_requests(torch, served, reqs)
         launches = kernels.launch_counts()           # ... and ends here
         n = len(reqs)
-        check(launches == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": n,
-                           "fused_decoder_frontend": n},
-              f"{model_type} serving: the ASPP kernel ({served.model.backbone.out_channels} "
-              f"channels) and the decoder kernel once a request ({n}): {launches}")
-        agree = min(float((m == plain.predict(data, hw)).mean())
-                    for m, (data, hw) in zip(masks, reqs))
+        lite = served.model.lite
+        check(launches == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": 0 if lite else n,
+                           "fused_decoder_frontend": 0 if lite else n},
+              f"{model_type} serving: " + ("a lite head, no kernel to launch" if lite else
+                                           f"the ASPP kernel ({served.model.backbone.out_channels}"
+                                           f" channels) and the decoder kernel once a request "
+                                           f"({n})") + f": {launches}")
+        ref_masks = [plain.predict(data, hw) for data, hw in reqs]
+        agree = min(float((m == r).mean()) for m, r in zip(masks, ref_masks))
         shapes_ok = all(m.shape == hw and m.min() >= 0 and m.max() < 21
                         for m, (_, hw) in zip(masks, reqs))
-        check(shapes_ok and agree >= 0.98,
+        held = model_type not in BF16_FLOOR_NOT_HELD
+        check(shapes_ok and (agree >= 0.98 or not held),
               f"{model_type} serving, bf16 with both kernels vs f32 with none: masks of the "
-              f"requests' sizes agree on >= 0.98 of pixels (min {agree:.5f})")
-        configs = {"bf16, no kernels": DeepLab(fused_aspp=False, **common),
-                   "bf16, ASPP + decoder kernels": served}
+              f"requests' sizes agree on " + (">= 0.98" if held else
+                                              "(floor not held: bf16-ill-conditioned weights)")
+              + f" of pixels (min {agree:.5f})")
+        configs = {"bf16, lite head (no kernel)": served} if lite else {
+            "bf16, no kernels": DeepLab(fused_aspp=False, **common),
+            "bf16, ASPP + decoder kernels": served}
+        if not lite:
+            # the kernels in f32, against the same model without them
+            fused32 = DeepLab(dtype=torch.float32, fused_aspp=True, fused_decoder=True, **common)
+            agree32 = min(float((fused32.predict(data, hw) == r).mean())
+                          for (data, hw), r in zip(reqs, ref_masks))
+            check(agree32 >= 0.999,
+                  f"{model_type} serving, f32 with both kernels vs f32 with none: masks agree on "
+                  f">= 0.999 of pixels (min {agree32:.5f})")
+            del fused32
+        if not held:  # whether the kernels move the bf16 masks at all
+            plain16 = configs["bf16, no kernels"]
+            print(f"  {model_type} bf16 with no kernel vs f32: min "
+                  f"{min(float((plain16.predict(d, hw) == r).mean()) for (d, hw), r in zip(reqs, ref_masks)):.5f}")
         for data, hw in reqs[:WARMUP]:
-            configs["bf16, no kernels"].predict(data, hw)
+            for deeplab in configs.values():
+                deeplab.predict(data, hw)
         pooled = {name: [] for name in configs}
         for name in [*configs, *reversed(configs)]:  # in turns: P K K P
             pooled[name] += serve_requests(torch, configs[name], reqs)[1]
@@ -1245,7 +1342,7 @@ def more_serving(torch, kernels, classes_path, runs) -> dict:
         for name, ts in pooled.items():
             print(f"    {name}: median {statistics.median(ts):.3f} ms, p90 "
                   f"{float(np.percentile(ts, 90)):.3f} ms over {len(ts)} requests")
-        if model_type in ("mobilenetv3large", "xception"):
+        if model_type in PROFILED_SERVING:
             name = {"mobilenetv3large": "v3large"}.get(model_type, model_type)
             profile_one(torch, lambda: served.predict(*reqs[0]), f"one {model_type} request",
                         f"profile_one_request_{name}.txt", top=8)
@@ -1262,19 +1359,9 @@ def default_evaluation_path(torch, kernels, classes_path, root) -> None:
     the matrix EQUAL to torch.argmax + bincount on the same model's
     logits."""
     from deeplabv3p_torch import eval as eval_cli
-    from deeplabv3p_torch import metrics as metrics_lib
-    from deeplabv3p_torch.data.augment import preprocess_eval_batch
-    from deeplabv3p_torch.data.pipeline import SegmentationDataset
     from deeplabv3p_torch.models.factory import build_deeplab_model
     from deeplabv3p_torch.models.layers import init_parameters
-    from deeplabv3p_torch.train import accumulate_confusion
-    from deeplabv3p_torch.utils.config import get_data_list
-    from deeplabv3p_torch.utils.weights import (
-        from_jax_variables,
-        load_npz,
-        save_npz,
-        to_jax_variables,
-    )
+    from deeplabv3p_torch.utils.weights import save_npz, to_jax_variables
 
     weights = os.path.join(OUT_DIR, "smoke_v3_eval_weights.npz")
     seeded = build_deeplab_model("mobilenetv3large_lite", 21, device="cpu")
@@ -1296,8 +1383,26 @@ def default_evaluation_path(torch, kernels, classes_path, root) -> None:
     check(launches == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches},
           f"eval CLI, default model: the confusion kernel once a batch ({batches}), the lite "
           "head runs no other kernel")
-    model = build_deeplab_model("mobilenetv3large_lite", 21, fused_aspp=True,
-                                dtype=torch.bfloat16, device="cuda")
+    want = library_confusion(torch, "mobilenetv3large_lite", weights, root)
+    check(np.array_equal(m.confusion, want) and int(want.sum()) > 0,
+          "eval CLI, default model: the matrix EQUALS torch.argmax + bincount on the same "
+          f"model's logits (sum|diff| {int(np.abs(m.confusion - want).sum())})")
+
+
+def library_confusion(torch, model_type, weights, root):
+    """The (C, C) matrix of `model_type` (bf16, OS16) with the weights of
+    the .npz `weights` over the synthetic set at b8, by `torch.argmax` and
+    `bincount` of its logits: what the eval CLI's matrix must EQUAL."""
+    from deeplabv3p_torch import metrics as metrics_lib
+    from deeplabv3p_torch.data.augment import preprocess_eval_batch
+    from deeplabv3p_torch.data.pipeline import SegmentationDataset
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.train import accumulate_confusion
+    from deeplabv3p_torch.utils.config import get_data_list
+    from deeplabv3p_torch.utils.weights import from_jax_variables, load_npz
+
+    model = build_deeplab_model(model_type, 21, fused_aspp=True, dtype=torch.bfloat16,
+                                device="cuda")
     model.load_state_dict(from_jax_variables(load_npz(weights), model), strict=True)
 
     @torch.no_grad()
@@ -1309,10 +1414,83 @@ def default_evaluation_path(torch, kernels, classes_path, root) -> None:
     ds = SegmentationDataset(root, get_data_list(os.path.join(root, "list.txt"), shuffle=False),
                              batch_size=EVAL_BATCH, num_classes=21, input_shape=INPUT,
                              augment=False, shuffle=False, drop_remainder=False)
-    want = accumulate_confusion(library_step, ds, 21, "cuda")
+    return accumulate_confusion(library_step, ds, 21, "cuda")
+
+
+def model_evaluation_path(torch, kernels, classes_path, root, model_type) -> dict:
+    """`python -m deeplabv3p_torch.eval --model_type <model_type>` b8
+    512x512 on the 32 synthetic pairs and a seeded .npz: the confusion
+    kernel once a batch, the ASPP kernel too for a full head, no other
+    kernel, and the matrix EQUAL to torch.argmax + bincount of the same
+    model's logits. Returns the launch counts."""
+    from deeplabv3p_torch import eval as eval_cli
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.utils.weights import save_npz, to_jax_variables
+
+    weights = os.path.join(OUT_DIR, f"smoke_{model_type}_weights.npz")
+    seeded = build_deeplab_model(model_type, 21, device="cpu")
+    init_parameters(seeded, torch.Generator().manual_seed(EVAL_SEED))
+    save_npz(weights, to_jax_variables(seeded))
+    lite = seeded.lite
+    del seeded
+    argv = eval_argv(weights, root, classes_path, os.path.join(OUT_DIR, f"smoke_{model_type}_eval"))
+    argv[argv.index("mobilenetv2")] = model_type
+    print("  python -m deeplabv3p_torch.eval " + " ".join(argv))
+    m, wall, launches, _ = run_cli(torch, kernels, eval_cli.main, eval_cli.parse_args(argv))
+    batches = TRAIN_IMAGES // EVAL_BATCH
+    print(f"  {model_type} eval: {wall:.2f} s wall (set-up and first-call cuDNN tuning "
+          f"included), mIoU {m.miou:.5f} (seeded weights); launch counts {launches}  "
+          f"[{card_line()}]")
+    check(launches == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches,
+                       "multirate_atrous_depthwise": 0 if lite else batches},
+          f"{model_type} eval b{EVAL_BATCH}: the confusion kernel" +
+          (" once a batch, the lite head runs no other kernel" if lite else
+           " and the ASPP kernel once a batch") + f" ({batches})")
+    want = library_confusion(torch, model_type, weights, root)
     check(np.array_equal(m.confusion, want) and int(want.sum()) > 0,
-          "eval CLI, default model: the matrix EQUALS torch.argmax + bincount on the same "
+          f"{model_type} eval CLI: the matrix EQUALS torch.argmax + bincount on the same "
           f"model's logits (sum|diff| {int(np.abs(m.confusion - want).sum())})")
+    return launches
+
+
+def model_training_path(torch, kernels, train_main, train_args, classes_path, root, model_type,
+                        images: int, *extra) -> dict:
+    """`python -m deeplabv3p_torch.train --model_type <model_type>` b8 bf16
+    512x512 --no_augment --fused_loss (and `extra`) at the CLI's own LR (SGD
+    1e-2), 1 + 1 epochs on the first `images` synthetic pairs: the loss
+    kernels once a step, no other kernel, finite losses, the second epoch's
+    below the first's; the peak memory of the run. Returns the launch
+    counts."""
+    import shutil
+
+    list_path = os.path.join(root, f"list{images}.txt")
+    with open(list_path, "w") as f:
+        f.write("\n".join(f"s{i:03d}" for i in range(images)) + "\n")
+    log_dir = os.path.join(OUT_DIR, f"smoke_{model_type}_train_logs")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    argv = ["--model_type", model_type, "--model_input_shape", f"{INPUT[0]}x{INPUT[1]}",
+            "--batch_size", str(MODEL_TRAIN_BATCH), "--no_augment", "--fused_loss", *extra,
+            "--transfer_epoch", "1", "--total_epoch", "2",
+            "--dataset_path", root, "--dataset_file", list_path,
+            "--classes_path", classes_path, "--log_dir", log_dir, "--device", "cuda"]
+    print("  python -m deeplabv3p_torch.train " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    trainer, wall, launches, _ = run_cli(torch, kernels, train_main, train_args(argv))
+    steps = 2 * (images // MODEL_TRAIN_BATCH)
+    print(f"  {model_type}: {steps} steps in {wall:.1f} s wall (set-up and first-call cuDNN "
+          f"tuning included), peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+          f"launch counts {launches}  [{card_line()}]")
+    check(launches == {**ZERO_LAUNCHES, "upsample_ce_forward": steps,
+                       "upsample_ce_backward": steps},
+          f"{model_type} training --fused_loss: each loss kernel once a step ({steps}), every "
+          "other kernel never")
+    losses = [r["loss"] for r in trainer.history]
+    check(len(losses) == 2 and all(np.isfinite(losses)) and losses[1] < losses[0],
+          f"{model_type} training: 2 epochs, finite losses, falling {[round(x, 5) for x in losses]}")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
 
 
 def default_train_numbers(torch, batch, steps: int = 6) -> None:
@@ -1522,89 +1700,40 @@ def fused_mbconv_on_trained_weights(torch, learn) -> None:
               f"on the same model's logits (sum|diff| {int(np.abs(got - want).sum())})")
 
 
-def xception_evaluation_path(torch, kernels, classes_path, root) -> int:
-    """(c) `python -m deeplabv3p_torch.eval --model_type xception` on the 32
-    synthetic pairs at b8 and a seeded .npz: the ASPP kernel at
-    (8,32,32,2048) and the confusion kernel once a batch. Returns the ASPP
-    launches."""
-    from deeplabv3p_torch import eval as eval_cli
-    from deeplabv3p_torch.models.factory import build_deeplab_model
-    from deeplabv3p_torch.models.layers import init_parameters
-    from deeplabv3p_torch.utils.weights import save_npz, to_jax_variables
-
-    weights = os.path.join(OUT_DIR, "smoke_xception_weights.npz")
-    seeded = build_deeplab_model("xception", 21, device="cpu")
-    init_parameters(seeded, torch.Generator().manual_seed(EVAL_SEED))
-    save_npz(weights, to_jax_variables(seeded))
-    del seeded
-    argv = [*eval_argv(weights, root, classes_path, os.path.join(OUT_DIR, "smoke_x_eval"))]
-    argv[argv.index("mobilenetv2")] = "xception"
-    print("  python -m deeplabv3p_torch.eval " + " ".join(argv))
-    m, wall, launches, _ = run_cli(torch, kernels, eval_cli.main, eval_cli.parse_args(argv))
-    batches = TRAIN_IMAGES // EVAL_BATCH
-    print(f"  xception eval: {wall:.2f} s wall (set-up and first-call cuDNN tuning included), "
-          f"mIoU {m.miou:.5f} (seeded weights); launch counts {launches}  [{card_line()}]")
-    check(launches == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches,
-                       "multirate_atrous_depthwise": batches}
-          and int(m.confusion.sum()) > 0,
-          f"xception eval b{EVAL_BATCH}: the ASPP kernel at 2048 channels and the confusion "
-          f"kernel once a batch ({batches})")
-    return launches["multirate_atrous_depthwise"]
-
-
-def xception_training_path(torch, kernels, train_main, train_args, classes_path, root):
-    """(d) `python -m deeplabv3p_torch.train --model_type xception` b8 bf16
-    512x512 --no_augment --fused_loss --optim_state_dtype bfloat16 at the
-    CLI's own LR (SGD 1e-2), 1 + 1 epochs of 4 steps on the 32 synthetic
-    pairs: the loss kernels once a step, no other kernel, finite losses.
-    Returns the launch counts."""
-    import shutil
-
-    log_dir = os.path.join(OUT_DIR, "smoke_x_train_logs")
-    shutil.rmtree(log_dir, ignore_errors=True)
-    argv = ["--model_type", "xception", "--model_input_shape", f"{INPUT[0]}x{INPUT[1]}",
-            "--batch_size", str(XCEPTION_BATCH), "--no_augment", "--fused_loss",
-            "--optim_state_dtype", "bfloat16",
-            "--transfer_epoch", "1", "--total_epoch", "2",
-            "--dataset_path", root, "--dataset_file", os.path.join(root, "list.txt"),
-            "--classes_path", classes_path, "--log_dir", log_dir, "--device", "cuda"]
-    print("  python -m deeplabv3p_torch.train " + " ".join(argv))
-    trainer, wall, launches, _ = run_cli(torch, kernels, train_main, train_args(argv))
-    steps = 2 * (TRAIN_IMAGES // XCEPTION_BATCH)
-    print(f"  xception: {steps} steps in {wall:.1f} s wall (set-up and first-call cuDNN tuning "
-          f"included); launch counts {launches}")
-    check(launches == {**ZERO_LAUNCHES, "upsample_ce_forward": steps,
-                       "upsample_ce_backward": steps},
-          f"xception training --fused_loss: each loss kernel once a step ({steps}), every "
-          "other kernel never")
-    hist = trainer.history
-    check(len(hist) == 2 and all(np.isfinite(r["loss"]) for r in hist),
-          f"xception training: 2 epochs, finite losses {[round(r['loss'], 5) for r in hist]}")
-    return launches
-
-
 def xception_train_numbers(torch, root, classes_path, steps: int = 6) -> None:
-    """(d) xception b8 bf16 512x512 train steps (SGD 1e-2, freeze level 0,
-    one fixed batch of the synthetic set): unfused with f32 state (U),
-    --fused_loss (F) and --optim_state_dtype bfloat16 (B), each its own
-    model from the same seed, in turns U F B B F U of `steps` after 2
-    warm-up steps: step time, img/s, peak memory, the optimizer state's
-    bytes; the loss must fall in each run."""
+    """(d) xception b8 bf16 512x512 train steps: unfused with f32 state (U),
+    --fused_loss (F) and --optim_state_dtype bfloat16 (B), in turns U F B B
+    F U (`model_train_numbers`)."""
+    model_train_numbers(torch, root, classes_path, "xception", MODEL_TRAIN_BATCH,
+                        (("U unfused, f32 state", False, None),
+                         ("F --fused_loss, f32 state", True, None),
+                         ("B unfused, bf16 state", False, "bfloat16")), steps)
+
+
+def model_train_numbers(torch, root, classes_path, model_type, batch_size, variants_of,
+                        steps: int = 6, profile: str | None = None) -> dict:
+    """`model_type` b`batch_size` bf16 512x512 train steps (SGD 1e-2, the
+    CLI's, freeze level 0, one fixed batch of the synthetic set), one model
+    from the same seed a (name, fused loss, optimizer state dtype) of
+    `variants_of`, in turns (A B .. B A) of `steps` after 2 warm-up steps
+    each: step time, img/s, peak memory, the optimizer state's bytes; the
+    loss must fall in each run. With `profile`, the profile of one step of
+    the first variant goes to build/<profile>. Returns {name: (median ms,
+    peak bytes)}."""
     from deeplabv3p_torch.losses import get_loss_fn
     from deeplabv3p_torch.models.factory import build_deeplab_model
     from deeplabv3p_torch.models.layers import init_parameters
     from deeplabv3p_torch.train import StageConfig, Trainer
 
     images, labels = train_batch(torch, root, classes_path)
-    images, labels = images[:XCEPTION_BATCH], labels[:XCEPTION_BATCH]
+    images, labels = images[:batch_size], labels[:batch_size]
     variants = {}
-    for name, fused, state_dtype in (("U unfused, f32 state", False, None),
-                                     ("F --fused_loss, f32 state", True, None),
-                                     ("B unfused, bf16 state", False, "bfloat16")):
-        model = build_deeplab_model("xception", 21, dtype=torch.bfloat16, device="cuda")
+    for name, fused, state_dtype in variants_of:
+        model = build_deeplab_model(model_type, 21, dtype=torch.bfloat16, device="cuda")
         init_parameters(model, torch.Generator().manual_seed(TRAIN_SEED), bn_identity=True)
         trainer = Trainer(model, 21, get_loss_fn("crossentropy"), device="cuda",
-                          log_dir=os.path.join(OUT_DIR, "smoke_x_step_logs"), fused_loss=fused)
+                          log_dir=os.path.join(OUT_DIR, f"smoke_{model_type}_step_logs"),
+                          fused_loss=fused)
         stage = StageConfig(freeze_level=0, optim_type="sgd", learning_rate=1e-2,
                             state_dtype=state_dtype)
         variants[name] = (trainer.build_stage_state(stage), trainer.make_train_step(stage))
@@ -1641,29 +1770,40 @@ def xception_train_numbers(torch, root, classes_path, steps: int = 6) -> None:
         return params, opt
 
     card = card_line()
-    n_params = sum(p.numel() for p in variants["U unfused, f32 state"][0].params.values())
-    print(f"train step, xception OS16 512x512 b{XCEPTION_BATCH} bf16, SGD, freeze level 0, "
-          f"{n_params} parameters, in turns U F B B F U of {steps} steps (host clock, "
+    first_name = next(iter(variants))
+    n_params = sum(p.numel() for p in variants[first_name][0].params.values())
+    order = " ".join(n.split()[0] for n in [*variants, *reversed(variants)])
+    print(f"train step, {model_type} OS16 512x512 b{batch_size} bf16, SGD, freeze level 0, "
+          f"{n_params} parameters, in turns {order} of {steps} steps (host clock, "
           f"synchronized)  [{card}]:")
+    out = {}
     for name, ts in times.items():
         med = statistics.median(ts)
         params, opt = resident(name)
         others = sum(sum(resident(o)) for o in variants if o != name)
         print(f"  {name}: median {med:.3f} ms, p90 {float(np.percentile(ts, 90)):.3f} ms over "
-              f"{len(ts)} steps, {XCEPTION_BATCH / med * 1e3:.1f} img/s; peak memory "
-              f"{peak[name] / 2**20:.1f} MiB with all three variants resident, "
-              f"{(peak[name] - others) / 2**20:.1f} MiB less the other two's weights and "
+              f"{len(ts)} steps, {batch_size / med * 1e3:.1f} img/s; peak memory "
+              f"{peak[name] / 2**20:.1f} MiB with all {len(variants)} variant(s) resident, "
+              f"{(peak[name] - others) / 2**20:.1f} MiB less the others' weights and "
               f"state; its optimizer state {opt / 2**20:.1f} MiB, weights {params / 2**20:.1f} "
               f"MiB  [{card}]")
         first, last = statistics.mean(losses[name][:4]), statistics.mean(losses[name][-4:])
         check(all(np.isfinite(losses[name])) and last < first,
-              f"xception training {name}: {len(losses[name])} losses finite and falling "
+              f"{model_type} training {name}: {len(losses[name])} losses finite and falling "
               f"(first four {first:.4f}, last four {last:.4f})")
-    state_saved = resident("U unfused, f32 state")[1] - resident("B unfused, bf16 state")[1]
-    print(f"  bf16 optimizer state saves {state_saved / 2**20:.1f} MiB "
-          f"({state_saved / n_params:.2f} bytes a parameter)")
+        out[name] = (med, peak[name])
+    bf16 = [name for name, _, dtype in variants_of if dtype == "bfloat16"]
+    if bf16:
+        state_saved = resident(first_name)[1] - resident(bf16[0])[1]
+        print(f"  bf16 optimizer state saves {state_saved / 2**20:.1f} MiB "
+              f"({state_saved / n_params:.2f} bytes a parameter)")
+    if profile:
+        state, step = variants[first_name]
+        profile_one(torch, lambda: step(state, images, labels, None),
+                    f"one {model_type} b{batch_size} train step ({first_name})", profile, top=10)
     del variants
     torch.cuda.empty_cache()
+    return out
 
 
 def aspp_shape_row(torch, kaspp, rec, launches, path) -> dict:

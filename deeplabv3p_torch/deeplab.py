@@ -82,8 +82,10 @@ def main(args):
 
 
 def parse_args(argv=None):
+    from deeplabv3p_torch.models.factory import ported_models_text
+
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model_type", default="mobilenetv2_lite")
+    p.add_argument("--model_type", default="mobilenetv2_lite", help=ported_models_text())
     p.add_argument("--weights_path", default=None,
                    help=".npz of the JAX variables, the JAX package's .ckpt or a Keras .h5")
     p.add_argument("--classes_path", default="configs/voc_classes.txt")

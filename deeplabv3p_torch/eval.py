@@ -35,6 +35,7 @@ import torch
 
 from deeplabv3p_torch import metrics as metrics_lib
 from deeplabv3p_torch.data.augment import preprocess_eval_batch
+from deeplabv3p_torch.models.factory import ported_models_text
 from deeplabv3p_torch.postprocess import mask_argmax
 from deeplabv3p_torch.train import accumulate_confusion, make_eval_step, parse_input_shape
 from deeplabv3p_torch.utils.checkpoint import check_weights_path
@@ -264,8 +265,7 @@ def parse_args(argv=None):
                         ".ckpt or a Keras .h5 (needs h5py); the exported formats are "
                         "not ported")
     p.add_argument("--model_type", default="mobilenetv3large_lite",
-                   help="ported: mobilenetv2(_lite), mobilenetv3large(_lite), "
-                        "mobilenetv3small(_lite), xception")
+                   help=ported_models_text())
     p.add_argument("--model_input_shape", default="512x512",
                    help="HxW (e.g. 512x512 or 1024x512) or a single int")
     p.add_argument("--output_stride", type=int, default=16, choices=[8, 16, 32])

@@ -27,8 +27,12 @@ from deeplabv3p_torch.models.layers import (
     Decoder,
     channels_last,
 )
+from deeplabv3p_torch.models.ghostnet import GhostNetBody
 from deeplabv3p_torch.models.mobilenetv2 import MobileNetV2Body
 from deeplabv3p_torch.models.mobilenetv3 import MobileNetV3LargeBody, MobileNetV3SmallBody
+from deeplabv3p_torch.models.mobilevit import MobileViTBody
+from deeplabv3p_torch.models.peleenet import PeleeNetBody
+from deeplabv3p_torch.models.resnet50 import ResNet50Body
 from deeplabv3p_torch.models.xception import XceptionBody
 from deeplabv3p_torch.ops.resize import resize_bilinear
 
@@ -104,7 +108,23 @@ DEEPLAB_MODEL_REGISTRY: dict[str, tuple[Callable[..., nn.Module], bool]] = {
     "mobilenetv3small": (partial(MobileNetV3SmallBody, alpha=1.0), False),
     "mobilenetv3small_lite": (partial(MobileNetV3SmallBody, alpha=1.0), True),
     "xception": (XceptionBody, False),
+    "resnet50": (ResNet50Body, False),
+    "peleenet": (PeleeNetBody, False),
+    "peleenet_lite": (PeleeNetBody, True),
+    "ghostnet": (GhostNetBody, False),
+    "ghostnet_lite": (GhostNetBody, True),
+    "mobilevit_s": (partial(MobileViTBody, size="s"), False),
+    "mobilevit_s_lite": (partial(MobileViTBody, size="s"), True),
+    "mobilevit_xs": (partial(MobileViTBody, size="xs"), False),
+    "mobilevit_xs_lite": (partial(MobileViTBody, size="xs"), True),
+    "mobilevit_xxs": (partial(MobileViTBody, size="xxs"), False),
+    "mobilevit_xxs_lite": (partial(MobileViTBody, size="xxs"), True),
 }
+
+
+def ported_models_text() -> str:
+    """The registry's names for a CLI's help."""
+    return "ported: " + ", ".join(DEEPLAB_MODEL_REGISTRY)
 
 
 def build_deeplab_model(
@@ -123,7 +143,8 @@ def build_deeplab_model(
     if model_type not in DEEPLAB_MODEL_REGISTRY:
         raise NotImplementedError(
             f"model type {model_type!r} is not ported yet (ROADMAP Queue A "
-            f"item 9); ported: {sorted(DEEPLAB_MODEL_REGISTRY)}"
+            f"item 9.5: UNet and Fast-SCNN; the subpixel head is item 7); ported: "
+            f"{sorted(DEEPLAB_MODEL_REGISTRY)}"
         )
     backbone_fn, lite = DEEPLAB_MODEL_REGISTRY[model_type]
     model = DeeplabV3Plus(

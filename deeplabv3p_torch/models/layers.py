@@ -121,6 +121,49 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm` over the last axis (JAX mobilevit.py:140,144):
+    the statistics in f32 with the fast variance E[x^2] - E[x]^2 clipped at
+    0 (flax's `_compute_stats`), normalised and scaled in f32, returned in
+    the compute dtype. `weight`/`bias` are flax's `scale`/`bias`."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = _dtype(dtype)
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.weight) + self.bias
+        return y.to(self.dtype)
+
+
+class Dense(nn.Module):
+    """flax `nn.Dense` / `nn.DenseGeneral`: the product over the input's
+    last `len(in_shape)` axes with a kernel of shape (*in_shape,
+    *out_shape), kept in flax's layout, plus a bias of `out_shape`. Kernel,
+    bias and input are cast to the compute dtype, the product is rounded to
+    it and the bias added there, as flax does."""
+
+    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.n_in = len(in_shape)
+        self.dtype = _dtype(dtype)
+        self.weight = nn.Parameter(torch.zeros(*in_shape, *out_shape, device=device))
+        self.bias = nn.Parameter(torch.zeros(*out_shape, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = torch.tensordot(x.to(dt), self.weight.to(dt), dims=self.n_in)
+        return y + self.bias.to(dt)
+
+
 class Dropout(nn.Module):
     """flax `nn.Dropout`: in training, keep each element with probability
     1 - rate and scale it by 1 / (1 - rate); the identity in eval mode.
@@ -446,12 +489,13 @@ class Decoder(nn.Module):
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator,
                     bn_identity: bool = False) -> None:
-    """Seeded init: conv kernels ~ N(0, 1/fan_in) (flax's lecun_normal
-    scale), conv biases 0. BN scale and variance ~ U(0.5, 1.5), bias and
-    mean ~ N(0, 0.1): unlike flax's identity BN init, every folded-BN path
-    sees non-trivial statistics. `bn_identity` gives flax's BN init instead
-    (scale and variance 1, bias and mean 0), as a model trained from
-    scratch starts. Drawn on the CPU from `generator`, so the same seed
+    """Seeded init: conv and dense kernels ~ N(0, 1/fan_in) (flax's
+    lecun_normal scale), their biases 0. BN scale and variance ~ U(0.5,
+    1.5), bias and mean ~ N(0, 0.1), and the same for a LayerNorm's scale
+    and bias: unlike flax's identity init, every folded-BN path sees
+    non-trivial statistics. `bn_identity` gives flax's BN and LayerNorm
+    init instead (scale and variance 1, bias and mean 0), as a model
+    trained from scratch starts. Drawn on the CPU from `generator`, so the same seed
     gives the same weights on every device."""
 
     def draw(shape, kind):
@@ -460,11 +504,18 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
         return torch.rand(shape, generator=generator)
 
     for m in module.modules():
-        if isinstance(m, Conv):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (Conv, Dense)):
+            fan_in = m.weight[0].numel() if isinstance(m, Conv) else math.prod(
+                m.weight.shape[:m.n_in])
             m.weight.copy_(draw(m.weight.shape, "normal") / math.sqrt(fan_in))
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, LayerNorm) and bn_identity:
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, LayerNorm):
+            m.weight.copy_(0.5 + draw(m.weight.shape, "uniform"))
+            m.bias.copy_(0.1 * draw(m.bias.shape, "normal"))
         elif isinstance(m, BatchNorm) and bn_identity:
             m.weight.fill_(1.0)
             m.bias.zero_()

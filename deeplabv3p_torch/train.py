@@ -53,7 +53,11 @@ from deeplabv3p_torch import metrics as metrics_lib
 from deeplabv3p_torch import optimizers as opt_lib
 from deeplabv3p_torch.data.augment import preprocess_eval_batch
 from deeplabv3p_torch.data.pipeline import device_feed
-from deeplabv3p_torch.models.factory import set_train_mode, trainable_parameters
+from deeplabv3p_torch.models.factory import (
+    ported_models_text,
+    set_train_mode,
+    trainable_parameters,
+)
 from deeplabv3p_torch.models.layers import Dropout
 from deeplabv3p_torch.utils.checkpoint import check_weights_path
 from deeplabv3p_torch.utils.weights import to_jax_variables
@@ -646,8 +650,7 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     # model (reference train.py:253-266)
     p.add_argument("--model_type", default="mobilenetv3large_lite",
-                   help="ported: mobilenetv2(_lite), mobilenetv3large(_lite), "
-                        "mobilenetv3small(_lite), xception")
+                   help=ported_models_text())
     p.add_argument("--model_input_shape", default="512x512",
                    help="HxW (e.g. 512x512 or 1024x512) or a single int")
     p.add_argument("--output_stride", type=int, default=16, choices=[8, 16, 32])

@@ -45,11 +45,21 @@ UNPORTED_SUFFIXES = {
 }
 
 
+def _sorted_keys(tree: Any) -> Any:
+    """The tree with every dict's keys in sorted order, as JAX's
+    `tree_map` leaves them."""
+    if isinstance(tree, dict):
+        return {k: _sorted_keys(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def save_variables(path: str, variables: Any) -> None:
     """Write a `{'params', 'batch_stats'}` tree (numpy leaves) as the JAX
-    package's `.ckpt`: the bytes `flax.serialization.to_bytes` gives."""
+    package's `.ckpt`: the bytes its `save_variables` writes, which are
+    `flax.serialization.to_bytes` of the tree with its keys sorted (its
+    `tree_map` sorts them), whatever order the model's tree has."""
     with open(path, "wb") as f:
-        f.write(msgpack.packb(variables))
+        f.write(msgpack.packb(_sorted_keys(variables)))
 
 
 def load_variables(path: str) -> dict:

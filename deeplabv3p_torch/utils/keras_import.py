@@ -15,6 +15,9 @@ Weight-level mapping:
   DepthwiseConv2D depthwise_kernel:0 (H,W,C,1)  <-> dw kernel (H,W,1,C)
   BatchNorm       gamma/beta <-> scale/bias (params);
                   moving_mean/moving_variance <-> mean/var (batch_stats)
+  LayerNorm       gamma/beta <-> scale/bias
+  Dense, EinsumDense (MultiHeadAttention's query/key/value/attention_output)
+                  kernel:0, bias:0              <-> kernel, bias (same layout)
 
 Files of Keras 3 (no ':0' suffix) and doubled scopes
 (`<layer>/<layer>/<sub>/<w>`) read too. h5py is imported inside the
@@ -29,11 +32,15 @@ from typing import Any, Iterator
 
 import numpy as np
 
-# the containers and wrapper scopes of the ported models; a backbone that
-# brings others (ResNet's stages, PeleeNet's, MobileViT's) adds them with it
-_CONTAINER_RE = re.compile(r"^(backbone|aspp|decoder|image_pool_branch|block_\d+|se_\d+)$")
-# 'bn'/'dw' are structural wrapper scopes inside BatchNorm/DepthwiseConv modules
-_WRAPPER_NAMES = frozenset({"bn", "dw"})
+# the containers and wrapper scopes of the ported models: ResNet's stages
+# (`stage2a`) and MobileViT's blocks (`mvit_0`) are containers too
+_CONTAINER_RE = re.compile(
+    r"^(backbone|aspp|decoder|image_pool_branch|block_\d+|stage\d+[a-z]|se_\d+|mvit_\d+)$")
+# 'bn'/'dw' are structural wrapper scopes inside BatchNorm/DepthwiseConv
+# modules, 'c' inside MobileViT's ConvBlock and 'mha' around its attention
+# (whose '<block>_attention/query' Keras names come from the '--' scopes);
+# PeleeNet's 'conv' stays
+_WRAPPER_NAMES = frozenset({"bn", "dw", "c", "mha"})
 
 _PARAM_TO_KERAS = {
     # leaf name -> candidate Keras weight names, in priority order

@@ -7,6 +7,9 @@ leaves) into the port's `state_dict`:
 * conv kernel HWIO -> OIHW, depthwise (kh,kw,1,C) -> (C,1,kh,kw): both
   `transpose(3, 2, 0, 1)`;
 * BN scale/bias/mean/var -> weight/bias/running_mean/running_var;
+* LayerNorm scale/bias -> weight/bias;
+* Dense and DenseGeneral kernels ((in, out), (C, H, Dk) or (H, Dk, C)) and
+  biases as they are: the port keeps them in flax's layout;
 * flax's wrapper scopes `dw` and `bn` are dropped from the names.
 
 The mapping is built from the model's own modules and is strict: a leaf
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from deeplabv3p_torch.models.layers import BatchNorm, Conv, DepthwiseConv
+from deeplabv3p_torch.models.layers import BatchNorm, Conv, Dense, DepthwiseConv, LayerNorm
 
 _BN_LEAVES = (
     ("params", "scale", "weight"),
@@ -73,6 +76,10 @@ def jax_path_table(model: nn.Module) -> dict[str, tuple[str, bool]]:
             table[f"params/{inner}/kernel"] = (f"{name}.weight", True)
             if m.bias is not None:
                 table[f"params/{inner}/bias"] = (f"{name}.bias", False)
+        elif isinstance(m, (Dense, LayerNorm)):
+            leaf = "kernel" if isinstance(m, Dense) else "scale"
+            table[f"params/{scope}/{leaf}"] = (f"{name}.weight", False)
+            table[f"params/{scope}/bias"] = (f"{name}.bias", False)
     return table
 
 

@@ -185,6 +185,32 @@ def test_launch_plan(shape, rates, dtype, want):
     assert plan.groups * plan.nv * plan.vec >= shape[3]
 
 
+@pytest.mark.parametrize("channels,n,want", [
+    # the serving (b1) and eval (b8) calls of each full head's backbone:
+    # resnet50 (2048, xception's shape), peleenet, ghostnet, mobilevit_s, _xs
+    (2048, 1, dict(groups=128, band=7, bands=5, segmented=0, slab_rows=32)),
+    (704, 1, dict(groups=44, band=2, bands=16, segmented=1, slab_rows=14)),
+    (960, 1, dict(groups=60, band=3, bands=11, segmented=1, slab_rows=21)),
+    (640, 1, dict(groups=40, band=2, bands=16, segmented=1, slab_rows=14)),
+    (384, 1, dict(groups=24, band=1, bands=32, segmented=1, slab_rows=7)),
+    (704, 8, dict(groups=44, band=16, bands=2, segmented=0, slab_rows=32)),
+    (960, 8, dict(groups=60, band=16, bands=2, segmented=0, slab_rows=32)),
+    (640, 8, dict(groups=40, band=16, bands=2, segmented=0, slab_rows=32)),
+    (384, 8, dict(groups=24, band=11, bands=3, segmented=0, slab_rows=32)),
+])
+def test_launch_plan_at_the_zoo_backbones_channels(channels, n, want):
+    """512 px OS16: 16 bytes a thread, every channel and row covered, the
+    shared memory within the card's; the one-row band's refusal is far."""
+    shape = (n, 32, 32, channels)
+    plan = _plan(shape, (6, 12, 18))
+    assert {k: getattr(plan, k) for k in want} == want
+    assert (plan.vec, plan.nv) == (8, 2)
+    assert plan.groups * plan.nv * plan.vec == channels
+    assert plan.bands * plan.band >= 32 > (plan.bands - 1) * plan.band
+    assert plan.smem_bytes <= kaspp.MAX_SHARED_BYTES and plan.threads <= 256
+    assert plan.blocks >= H100_SMS
+
+
 def test_launch_plan_takes_one_channel_a_thread_for_an_unaligned_x():
     assert _plan((1, 32, 32, 320), (6, 12, 18), aligned=False).vec == 1
 

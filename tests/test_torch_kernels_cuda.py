@@ -100,6 +100,10 @@ ASPP_CASES = [
     ((1, 32, 32, 96), (6, 12, 18)),   # mobilenetv3small: 96 channels
     ((1, 32, 32, 2048), (6, 12, 18)),  # xception serving: 2048 channels
     ((8, 32, 32, 2048), (6, 12, 18)),  # ... at batch 8
+    ((1, 32, 32, 704), (6, 12, 18)),   # peleenet serving: 704 channels
+    ((1, 32, 32, 960), (6, 12, 18)),   # ghostnet: 960
+    ((1, 32, 32, 640), (6, 12, 18)),   # mobilevit_s: 640
+    ((1, 32, 32, 384), (6, 12, 18)),   # mobilevit_xs: 384
 ]
 
 

@@ -50,8 +50,9 @@ def one_torch_thread():
 
 def random_variables(variables, seed: int) -> dict:
     """numpy-seeded values for a JAX `{'params', 'batch_stats'}` tree (or
-    its `jax.eval_shape`): kernels N(0, 1/fan_in), conv biases N(0, 0.2),
-    BN scale and var U(0.5, 1.5), BN bias N(0, 0.2) and mean N(0, 0.3)."""
+    its `jax.eval_shape`): kernels N(0, 1/fan_in), conv and dense biases
+    N(0, 0.2), BN and LayerNorm scale and BN var U(0.5, 1.5), BN and
+    LayerNorm bias N(0, 0.2) and BN mean N(0, 0.3)."""
     rng = np.random.default_rng(seed)
     shapes = flatten(jax.tree.map(lambda a: np.zeros(a.shape, np.float32), variables))
     out = {}
@@ -59,7 +60,7 @@ def random_variables(variables, seed: int) -> dict:
         if path.endswith("/kernel"):
             fan_in = int(np.prod(a.shape[:-1]))
             v = rng.standard_normal(a.shape) / np.sqrt(fan_in)
-        elif path.endswith("bn/scale") or path.endswith("bn/var"):
+        elif path.endswith("/scale") or path.endswith("bn/var"):
             v = rng.uniform(0.5, 1.5, a.shape)
         elif path.endswith("bn/mean"):
             v = rng.normal(0.0, 0.3, a.shape)
@@ -259,8 +260,9 @@ def test_from_jax_variables_is_strict():
 
 
 def test_registry_and_modes():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_deeplab_model("resnet50", 21)
+    # UNet is another family, with its own factory (ROADMAP Queue A item 9.5)
+    with pytest.raises(NotImplementedError, match="not ported yet.*item 9.5"):
+        build_deeplab_model("unet_standard", 21)
     model = build_deeplab_model("mobilenetv2_lite", 21, device="cpu")
     assert not model.training
     # training mode runs (batch statistics, moving the running buffers);
