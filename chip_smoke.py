@@ -86,17 +86,32 @@
    loss kernels once a step, the loss falling); peleenet_lite and
    ghostnet_lite evaluated b8 through the eval CLI, each matrix equal to
    torch.argmax + bincount;
-13. latency of the serving path, train-step time and peak memory fused and
+13. UNet and Fast-SCNN: (a) unet_standard, unet_lite and unet_simple served at
+   512x512 with 21 classes and fast_scnn at Cityscapes' 1024x2048 with its 19
+   (bf16, b1, 4 requests a turn, original sizes around 1024x2048 for
+   fast_scnn): no kernel on the path, masks against the f32 model (>= 0.98),
+   median and p90 latency, one unet_standard request profiled with its
+   convolutions' device time against their bound at the dense bf16 rate;
+   (b) unet_standard (512x512) and fast_scnn (1024x2048, 16 synthetic pairs
+   of 19 classes written to build/) trained b8 through the train CLI at its
+   own --freeze_level 1, which must move every parameter in stage 1 (no
+   backbone), 2 + 2 steps; (c) fast_scnn (1024x2048) and unet_simple evaluated
+   b8 through the eval CLI, the confusion kernel at (8,1024,2048,19) once a
+   batch, each matrix equal to torch.argmax + bincount; (d) mobilenetv2 with
+   the subpixel head, its ASPP and decoder kernels in f32 against none
+   (>= 0.999 of pixels);
+14. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
    share of it, xception's step unfused, fused and with bf16 optimizer
    state in turns (time, peak memory, the state's bytes), resnet50's b8
-   step unfused and fused in turns and mobilevit_s's fused (time, img/s,
-   peak memory, a profile each), device-time profiles of one request (also
+   step unfused and fused in turns, mobilevit_s's fused, unet_standard's b8
+   step against its bound at the dense bf16 rate and fast_scnn's at
+   1024x2048 (time, img/s, peak memory, a profile each), device-time profiles of one request (also
    of resnet50 and mobilevit_s), one train step and one eval batch, and
    each kernel's time against its plain version, its bound and, where there
-   is one, the library's calls (the ASPP kernel's and the loss tail's rows
-   also at the later slices' shapes, `at_other_shapes`, and launches at a
+   is one, the library's calls (the ASPP kernel's, the loss tail's and the
+   confusion kernel's rows also at the later slices' shapes, `at_other_shapes`, and launches at a
    shape already timed under `also_on`; the decoder runs at the serving
    shapes on every path).
 
@@ -158,12 +173,22 @@ BF16_FLOOR_NOT_HELD = ("ghostnet",)
 # the tensor cores, dense bf16 rate of the tensor cores (the inverted
 # residual's two products; every other kernel multiplies by f32 weights in f32)
 HBM_BYTES_PER_S, F32_FLOPS, BF16_TENSOR_FLOPS = 3.35e12, 67e12, 989e12
+# UNet x3 served at 512x512 with 21 classes; Fast-SCNN served, trained and
+# evaluated at Cityscapes' 1024x2048 with its 19 classes (Poudel et al., 2019),
+# its requests of original sizes around the Cityscapes frame; unet_standard and
+# fast_scnn trained b8 through the train CLI (2 + 2 steps on 16 pairs), then
+# timed; fast_scnn and unet_simple evaluated b8 through the eval CLI
+UNET_SERVED = ("unet_standard", "unet_lite", "unet_simple")
+CITYSCAPES_HW = (1024, 2048)
+CITYSCAPES_REQUEST_SHAPES = [(1024, 2048), (1080, 1920), (960, 1920), (1024, 2048)]
+FAMILY_REQUESTS, FAMILY_TRAIN_IMAGES, CITYSCAPES_SEED = 4, 16, 7
 # (logits shape, logits dtype name, labels dtype name): the eval slice's call first
 CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
                    ((8, 512, 512, 21), "bfloat16", "uint8"),
                    ((3, 37, 41, 6), "float32", "int64"),
                    ((2, 50, 30, 151), "float32", "uint8"),
-                   ((8, 256, 256, 4), "bfloat16", "int32")]  # the learning proof's eval
+                   ((8, 256, 256, 4), "bfloat16", "int32"),  # the learning proof's eval
+                   ((8, 1024, 2048, 19), "float32", "int32")]  # Fast-SCNN's Cityscapes eval
 # (n, h, w, cin, cexp, cout, rate, residual) of tests/test_pallas_mbconv.py
 MBCONV_TEST_CASES = [(2, 16, 16, 24, 144, 24, 1, True), (1, 16, 16, 64, 384, 96, 1, False),
                      (2, 8, 8, 32, 192, 32, 2, True), (1, 32, 16, 16, 96, 24, 1, False)]
@@ -465,23 +490,23 @@ def aspp_times(torch, kaspp, records, launches) -> dict:
             "shape": row["shape"], "dtype": row["dtype"], "b8": b8, "f32_b1": f32_b1}
 
 
-def make_requests(preprocess_image):
-    """Seeded uint8 images at the original sizes, preprocessed as a user's
-    request is (PIL bicubic resize + normalise), or, where PIL is missing,
-    seeded arrays at the model size."""
+def make_requests(preprocess_image, shapes=REQUEST_SHAPES, input_hw=INPUT):
+    """Seeded uint8 images at the original sizes `shapes`, preprocessed as a
+    user's request is (PIL bicubic resize to `input_hw` + normalise), or,
+    where PIL is missing, seeded arrays at the model size."""
     rng = np.random.default_rng(0)
     try:
         from PIL import Image
     except ImportError:
         print("  PIL missing: requests are seeded arrays at the model size")
-        return [(rng.uniform(-1, 1, (1, *INPUT, 3)).astype(np.float32), hw)
-                for hw in REQUEST_SHAPES]
+        return [(rng.uniform(-1, 1, (1, *input_hw, 3)).astype(np.float32), hw)
+                for hw in shapes]
     requests = []
-    for h, w in REQUEST_SHAPES:
+    for h, w in shapes:
         # smooth random image: a coarse noise field, bilinearly enlarged
         coarse = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
         img = Image.fromarray(coarse).resize((w, h), Image.BILINEAR)
-        requests.append((preprocess_image(img, INPUT), (h, w)))
+        requests.append((preprocess_image(img, input_hw), (h, w)))
     return requests
 
 
@@ -604,6 +629,8 @@ def main() -> None:
         rec = confusion_check(torch, kconf, *case)
         if i == 0:  # the eval path's call
             records["confusion"] = rec
+        if case[0] == (EVAL_BATCH, *CITYSCAPES_HW, 19):  # fast_scnn's eval call
+            records["confusion_cityscapes"] = rec
     argmax_check(torch, kconf, mask_argmax)
     print("fused_inverted_residual (csrc/mbconv.cu) vs plain:")
     body_shapes = body_block_shapes(EVAL_BATCH, INPUT)
@@ -741,6 +768,37 @@ def main() -> None:
     zoo_eval = {m: model_evaluation_path(torch, kernels, classes_path, train_dir, m)
                 for m in ZOO_EVALUATED}
 
+    # -- 5l. (a) UNet x3 served at 512x512 with 21 classes, Fast-SCNN at Cityscapes'
+    # 1024x2048 with its 19, no kernel on either path ------------------------------------
+    city_classes = os.path.join(REPO, "configs", "cityscapes_classes.txt")
+    city_requests = make_requests(preprocess_image, CITYSCAPES_REQUEST_SHAPES, CITYSCAPES_HW)
+    print(f"UNet x3 and Fast-SCNN serving (bf16, b1, {FAMILY_REQUESTS} requests a turn):")
+    family_serving(torch, kernels, [
+        *((m, classes_path, INPUT, requests[:FAMILY_REQUESTS]) for m in UNET_SERVED),
+        ("fast_scnn", city_classes, CITYSCAPES_HW, city_requests)])
+
+    # -- 5m. (b) unet_standard (512x512) and fast_scnn (1024x2048, a Cityscapes-sized
+    # synthetic set) trained b8 through the train CLI; (c) fast_scnn and unet_simple
+    # evaluated b8 through the eval CLI, the confusion kernel at (8,1024,2048,19) ----------
+    nearest_resize_on_card(torch)
+    city_root = os.path.join(OUT_DIR, "smoke_cityscapes_data")
+    t0 = time.perf_counter()
+    write_train_dataset(city_root, [CITYSCAPES_HW] * FAMILY_TRAIN_IMAGES, 19, CITYSCAPES_SEED)
+    print(f"wrote {FAMILY_TRAIN_IMAGES} pairs of {CITYSCAPES_HW} with 19 classes in "
+          f"{time.perf_counter() - t0:.1f} s")
+    family_training_path(torch, kernels, train_main, train_args, classes_path, train_dir,
+                         "unet_standard", INPUT)
+    family_training_path(torch, kernels, train_main, train_args, city_classes, city_root,
+                         "fast_scnn", CITYSCAPES_HW)
+    family_eval = {"fast_scnn": model_evaluation_path(torch, kernels, city_classes, city_root,
+                                                      "fast_scnn", CITYSCAPES_HW,
+                                                      FAMILY_TRAIN_IMAGES),
+                   "unet_simple": model_evaluation_path(torch, kernels, classes_path, train_dir,
+                                                        "unet_simple")}
+
+    # -- 5n. (d) the subpixel head: mobilenetv2's forward with its two kernels -------------
+    subpixel_launches = subpixel_head(torch, kernels, requests[:FAMILY_REQUESTS])
+
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
         return float(np.percentile(v, q))
@@ -774,6 +832,21 @@ def main() -> None:
     model_train_numbers(torch, train_dir, classes_path, "mobilevit_s", MODEL_TRAIN_BATCH,
                         (("F --fused_loss", True, None),),
                         profile="profile_one_train_step_mobilevit_s.txt")
+    unet_step = model_train_numbers(torch, train_dir, classes_path, "unet_standard",
+                                    MODEL_TRAIN_BATCH, (("U unfused", False, None),),
+                                    l2_factor=0.0,
+                                    profile="profile_one_train_step_unet_standard.txt")
+    train_flops = 3 * conv_flops(torch, "unet_standard", 21, INPUT, MODEL_TRAIN_BATCH)
+    step_bound_ms = train_flops / BF16_TENSOR_FLOPS * 1e3
+    med = unet_step["U unfused"][0]
+    print(f"unet_standard b{MODEL_TRAIN_BATCH} step: convolutions {train_flops / 1e12:.3f} TFLOP "
+          f"(3x the forward's), bound {step_bound_ms:.3f} ms at the dense bf16 rate; median step "
+          f"{med:.3f} ms, {step_bound_ms / med:.3f} of the bound  [{card}]")
+    city_batch = train_batch(torch, city_root, city_classes, MODEL_TRAIN_BATCH, CITYSCAPES_HW, 19)
+    model_train_numbers(torch, city_root, city_classes, "fast_scnn", MODEL_TRAIN_BATCH,
+                        (("U unfused", False, None),), input_hw=CITYSCAPES_HW, num_classes=19,
+                        batch=city_batch, profile="profile_one_train_step_fast_scnn.txt")
+    del city_batch
 
     kernels = [aspp_times(torch, kaspp, records, launches["multirate_atrous_depthwise"])]
     # the decoder: both inputs read once, the concat's depthwise output written
@@ -806,8 +879,13 @@ def main() -> None:
                                 for m in served_more if served_more[m]["fused_decoder_frontend"]}})
     kernels += upsample_ce_times(torch, kce, records["upsample_ce"], train_launches)
     kernels.append(confusion_times(torch, kconf, records["confusion"], eval_launches[0]))
-    kernels[-1]["also_on"] = {f"{m} eval b{EVAL_BATCH}": zoo_eval[m]["confusion_matrix_fused"]
-                              for m in ZOO_EVALUATED}
+    evaluated = {**zoo_eval, "unet_simple": family_eval["unet_simple"]}
+    kernels[-1]["also_on"] = {f"{m} eval b{EVAL_BATCH}": launches_of["confusion_matrix_fused"]
+                              for m, launches_of in evaluated.items()}
+    city_row = confusion_times(torch, kconf, records.pop("confusion_cityscapes"),
+                               family_eval["fast_scnn"])
+    city_row["path"] = f"fast_scnn eval b{EVAL_BATCH} {CITYSCAPES_HW[0]}x{CITYSCAPES_HW[1]}"
+    kernels[-1]["at_other_shapes"] = [city_row]
     kernels.append(mbconv_times(torch, kmb, records["mbconv"], eval_launches[1], eval_state))
     # this slice's new shapes, each held and timed on its own path's run
     aspp_rows = [
@@ -826,6 +904,10 @@ def main() -> None:
                                  zoo_serve[model]["multirate_atrous_depthwise"], f"{model} serving")
                   for key, model in ZOO_ASPP_ROWS]
     kernels[0]["at_other_shapes"] = aspp_rows
+    # the subpixel head's forward calls both at the serving shapes, in f32
+    for row in kernels[:2]:
+        row.setdefault("also_on", {})["mobilenetv2 subpixel head, f32"] = \
+            subpixel_launches[row["name"]]
     for key, launches_of, path in (("upsample_ce_x16", v3_launches,
                                     "mobilenetv3large_lite --fused_loss"),
                                    ("upsample_ce_b8", x_train_launches, "xception --fused_loss")):
@@ -893,11 +975,13 @@ def profile_one_request(torch, deeplab, request) -> None:
                 "profile_one_request.txt")
 
 
-def profile_one(torch, fn, what: str, filename: str, top: int = 12) -> None:
+def profile_one(torch, fn, what: str, filename: str, top: int = 12):
     """Profile one fn() (after an unprofiled and a profiled warm-up window,
     since the first window pays the tracer's start-up): device operations,
     device busy time against the wall, idle share, the top rows by device
-    time; the full table goes to build/<filename>."""
+    time; the full table goes to build/<filename>. Returns (the profiler's
+    key averages, busy us, wall us), or None when it recorded no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -914,7 +998,7 @@ def profile_one(torch, fn, what: str, filename: str, top: int = 12) -> None:
                    if e.device_time_total > 0 and e.device_type.name == "CUDA"), reverse=True)
     if not rows:
         print(f"profile of {what}: torch.profiler recorded no device time")
-        return
+        return None
     busy_us = sum(r[0] for r in rows)
     print(f"profile of {what}: {sum(r[1] for r in rows)} device operations "
           f"(kernels and copies), device busy {busy_us:.1f} us of {wall_us:.1f} us wall "
@@ -924,6 +1008,7 @@ def profile_one(torch, fn, what: str, filename: str, top: int = 12) -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, filename), "w") as f:
         f.write(events.table(sort_by="device_time_total", row_limit=80))
+    return events, busy_us, wall_us
 
 
 # -- the loss tail and the training path -------------------------------------
@@ -1389,65 +1474,71 @@ def default_evaluation_path(torch, kernels, classes_path, root) -> None:
           f"model's logits (sum|diff| {int(np.abs(m.confusion - want).sum())})")
 
 
-def library_confusion(torch, model_type, weights, root):
+def library_confusion(torch, model_type, weights, root, input_hw=INPUT, num_classes=21):
     """The (C, C) matrix of `model_type` (bf16, OS16) with the weights of
     the .npz `weights` over the synthetic set at b8, by `torch.argmax` and
     `bincount` of its logits: what the eval CLI's matrix must EQUAL."""
     from deeplabv3p_torch import metrics as metrics_lib
     from deeplabv3p_torch.data.augment import preprocess_eval_batch
     from deeplabv3p_torch.data.pipeline import SegmentationDataset
-    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.factory import build_segmentation_model
     from deeplabv3p_torch.train import accumulate_confusion
     from deeplabv3p_torch.utils.config import get_data_list
     from deeplabv3p_torch.utils.weights import from_jax_variables, load_npz
 
-    model = build_deeplab_model(model_type, 21, fused_aspp=True, dtype=torch.bfloat16,
-                                device="cuda")
+    model = build_segmentation_model(model_type, num_classes, fused_aspp=True,
+                                     dtype=torch.bfloat16, device="cuda")
     model.load_state_dict(from_jax_variables(load_npz(weights), model), strict=True)
 
     @torch.no_grad()
     def library_step(images_u8, labels_u8):
-        images, labels = preprocess_eval_batch(images_u8, labels_u8, num_classes=21)
+        images, labels = preprocess_eval_batch(images_u8, labels_u8, num_classes=num_classes)
         preds = torch.argmax(model(images.permute(0, 3, 1, 2)), dim=1)
-        return metrics_lib.confusion_matrix(labels, preds, 21)
+        return metrics_lib.confusion_matrix(labels, preds, num_classes)
 
     ds = SegmentationDataset(root, get_data_list(os.path.join(root, "list.txt"), shuffle=False),
-                             batch_size=EVAL_BATCH, num_classes=21, input_shape=INPUT,
-                             augment=False, shuffle=False, drop_remainder=False)
-    return accumulate_confusion(library_step, ds, 21, "cuda")
+                             batch_size=EVAL_BATCH, num_classes=num_classes,
+                             input_shape=input_hw, augment=False, shuffle=False,
+                             drop_remainder=False)
+    return accumulate_confusion(library_step, ds, num_classes, "cuda")
 
 
-def model_evaluation_path(torch, kernels, classes_path, root, model_type) -> dict:
-    """`python -m deeplabv3p_torch.eval --model_type <model_type>` b8
-    512x512 on the 32 synthetic pairs and a seeded .npz: the confusion
-    kernel once a batch, the ASPP kernel too for a full head, no other
-    kernel, and the matrix EQUAL to torch.argmax + bincount of the same
-    model's logits. Returns the launch counts."""
+def model_evaluation_path(torch, kernels, classes_path, root, model_type, input_hw=INPUT,
+                          images=TRAIN_IMAGES) -> dict:
+    """`python -m deeplabv3p_torch.eval --model_type <model_type>` b8 at
+    `input_hw` on the `images` synthetic pairs of `root` and a seeded .npz:
+    the confusion kernel once a batch, the ASPP kernel too for a full
+    DeepLab head, no other kernel, and the matrix EQUAL to torch.argmax +
+    bincount of the same model's logits. Returns the launch counts."""
     from deeplabv3p_torch import eval as eval_cli
-    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.factory import build_segmentation_model
     from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.utils.config import get_classes
     from deeplabv3p_torch.utils.weights import save_npz, to_jax_variables
 
+    num_classes = len(get_classes(classes_path))
     weights = os.path.join(OUT_DIR, f"smoke_{model_type}_weights.npz")
-    seeded = build_deeplab_model(model_type, 21, device="cpu")
+    seeded = build_segmentation_model(model_type, num_classes, device="cpu")
     init_parameters(seeded, torch.Generator().manual_seed(EVAL_SEED))
     save_npz(weights, to_jax_variables(seeded))
-    lite = seeded.lite
+    aspp = hasattr(seeded, "aspp") and not seeded.lite  # a full DeepLab head
     del seeded
     argv = eval_argv(weights, root, classes_path, os.path.join(OUT_DIR, f"smoke_{model_type}_eval"))
     argv[argv.index("mobilenetv2")] = model_type
+    argv[argv.index(f"{INPUT[0]}x{INPUT[1]}")] = f"{input_hw[0]}x{input_hw[1]}"
     print("  python -m deeplabv3p_torch.eval " + " ".join(argv))
     m, wall, launches, _ = run_cli(torch, kernels, eval_cli.main, eval_cli.parse_args(argv))
-    batches = TRAIN_IMAGES // EVAL_BATCH
-    print(f"  {model_type} eval: {wall:.2f} s wall (set-up and first-call cuDNN tuning "
+    batches = images // EVAL_BATCH
+    print(f"  {model_type} eval at {input_hw[0]}x{input_hw[1]}, {num_classes} classes: "
+          f"{wall:.2f} s wall for {images} images (set-up and first-call cuDNN tuning "
           f"included), mIoU {m.miou:.5f} (seeded weights); launch counts {launches}  "
           f"[{card_line()}]")
     check(launches == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches,
-                       "multirate_atrous_depthwise": 0 if lite else batches},
+                       "multirate_atrous_depthwise": batches if aspp else 0},
           f"{model_type} eval b{EVAL_BATCH}: the confusion kernel" +
-          (" once a batch, the lite head runs no other kernel" if lite else
-           " and the ASPP kernel once a batch") + f" ({batches})")
-    want = library_confusion(torch, model_type, weights, root)
+          (" and the ASPP kernel once a batch" if aspp else
+           " once a batch, no other kernel on this model's path") + f" ({batches})")
+    want = library_confusion(torch, model_type, weights, root, input_hw, num_classes)
     check(np.array_equal(m.confusion, want) and int(want.sum()) > 0,
           f"{model_type} eval CLI: the matrix EQUALS torch.argmax + bincount on the same "
           f"model's logits (sum|diff| {int(np.abs(m.confusion - want).sum())})")
@@ -1711,7 +1802,9 @@ def xception_train_numbers(torch, root, classes_path, steps: int = 6) -> None:
 
 
 def model_train_numbers(torch, root, classes_path, model_type, batch_size, variants_of,
-                        steps: int = 6, profile: str | None = None) -> dict:
+                        steps: int = 6, profile: str | None = None, input_hw=INPUT,
+                        num_classes: int = 21, l2_factor: float = 2e-5,
+                        batch=None) -> dict:
     """`model_type` b`batch_size` bf16 512x512 train steps (SGD 1e-2, the
     CLI's, freeze level 0, one fixed batch of the synthetic set), one model
     from the same seed a (name, fused loss, optimizer state dtype) of
@@ -1721,19 +1814,20 @@ def model_train_numbers(torch, root, classes_path, model_type, batch_size, varia
     the first variant goes to build/<profile>. Returns {name: (median ms,
     peak bytes)}."""
     from deeplabv3p_torch.losses import get_loss_fn
-    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.factory import build_segmentation_model
     from deeplabv3p_torch.models.layers import init_parameters
     from deeplabv3p_torch.train import StageConfig, Trainer
 
-    images, labels = train_batch(torch, root, classes_path)
+    images, labels = batch or train_batch(torch, root, classes_path)
     images, labels = images[:batch_size], labels[:batch_size]
     variants = {}
     for name, fused, state_dtype in variants_of:
-        model = build_deeplab_model(model_type, 21, dtype=torch.bfloat16, device="cuda")
+        model = build_segmentation_model(model_type, num_classes, dtype=torch.bfloat16,
+                                         device="cuda")
         init_parameters(model, torch.Generator().manual_seed(TRAIN_SEED), bn_identity=True)
-        trainer = Trainer(model, 21, get_loss_fn("crossentropy"), device="cuda",
+        trainer = Trainer(model, num_classes, get_loss_fn("crossentropy"), device="cuda",
                           log_dir=os.path.join(OUT_DIR, f"smoke_{model_type}_step_logs"),
-                          fused_loss=fused)
+                          fused_loss=fused, l2_factor=l2_factor)
         stage = StageConfig(freeze_level=0, optim_type="sgd", learning_rate=1e-2,
                             state_dtype=state_dtype)
         variants[name] = (trainer.build_stage_state(stage), trainer.make_train_step(stage))
@@ -1773,7 +1867,8 @@ def model_train_numbers(torch, root, classes_path, model_type, batch_size, varia
     first_name = next(iter(variants))
     n_params = sum(p.numel() for p in variants[first_name][0].params.values())
     order = " ".join(n.split()[0] for n in [*variants, *reversed(variants)])
-    print(f"train step, {model_type} OS16 512x512 b{batch_size} bf16, SGD, freeze level 0, "
+    print(f"train step, {model_type} OS16 {input_hw[0]}x{input_hw[1]} b{batch_size} bf16, "
+          f"SGD, freeze level 0, L2 {l2_factor:g}, "
           f"{n_params} parameters, in turns {order} of {steps} steps (host clock, "
           f"synchronized)  [{card}]:")
     out = {}
@@ -1820,18 +1915,18 @@ def aspp_shape_row(torch, kaspp, rec, launches, path) -> dict:
             "path": path}
 
 
-def train_batch(torch, root, classes_path):
-    """The first TRAIN_BATCH pairs of the synthetic set, preprocessed on the
-    card: (images f32 NHWC, labels int32)."""
+def train_batch(torch, root, classes_path, n=TRAIN_BATCH, input_hw=INPUT, num_classes=21):
+    """The first `n` pairs of the synthetic set, preprocessed on the card:
+    (images f32 NHWC, labels int32)."""
     from deeplabv3p_torch.data.augment import preprocess_eval_batch
     from deeplabv3p_torch.data.pipeline import SegmentationDataset
 
-    ids = [f"s{i:03d}" for i in range(TRAIN_BATCH)]
-    ds = SegmentationDataset(root, ids, batch_size=TRAIN_BATCH, num_classes=21,
-                             input_shape=INPUT, augment=False, shuffle=False)
+    ids = [f"s{i:03d}" for i in range(n)]
+    ds = SegmentationDataset(root, ids, batch_size=n, num_classes=num_classes,
+                             input_shape=input_hw, augment=False, shuffle=False)
     images, labels, _ = next(iter(ds.epoch_batches()))
     return preprocess_eval_batch(torch.from_numpy(images).cuda(),
-                                 torch.from_numpy(labels).cuda(), num_classes=21)
+                                 torch.from_numpy(labels).cuda(), num_classes=num_classes)
 
 
 def make_train_model(torch, dtype, seed):
@@ -2304,6 +2399,231 @@ def eval_numbers(torch, state) -> None:
     step = steps["--fused_mbconv"]
     profile_one(torch, lambda: step(images, labels), "one eval batch with --fused_mbconv",
                 "profile_one_eval_batch_fused_mbconv.txt", top=8)
+
+
+# -- UNet, Fast-SCNN and the subpixel head ---------------------------------------
+
+
+def conv_flops(torch, model_type, num_classes, input_hw, batch: int = 1) -> float:
+    """Forward operations of the model's convolutions (2 a multiply-add),
+    counted from each conv's shapes on the meta device: output pixels x
+    output channels x the kernel's taps over its input channels a group; a
+    transpose conv's input pixels instead of its output's (each scatters its
+    kernel once)."""
+    from deeplabv3p_torch.models.factory import build_segmentation_model
+    from deeplabv3p_torch.models.layers import Conv, ConvTransposeK
+
+    model = build_segmentation_model(model_type, num_classes, device="meta")
+    total = [0]
+
+    def count(m, args, out):
+        w = m.weight
+        pixels = args[0] if isinstance(m, ConvTransposeK) else out
+        total[0] += (2 * pixels.shape[0] * pixels.shape[2] * pixels.shape[3]
+                     * w.shape[0] * w.shape[1] * w.shape[2] * w.shape[3])
+
+    for m in model.modules():
+        if isinstance(m, Conv):
+            m.register_forward_hook(count)
+    with torch.no_grad():
+        model(torch.zeros(batch, 3, *input_hw, device="meta"))
+    return float(total[0])
+
+
+def family_serving(torch, kernels, runs) -> None:
+    """Each (model type, classes file, input (h, w), requests) of `runs`
+    served through `DeepLab` as built by default (bf16, b1): no kernel on
+    the path (no ASPP, decoder or loss tail), masks of the requests' sizes,
+    against the same weights in f32 (>= 0.98 of pixels), latency over two
+    turns; for unet_standard one request profiled, its convolutions' device
+    time against their bound (`conv_flops` over the dense bf16 rate)."""
+    from deeplabv3p_torch.inference import DeepLab
+
+    card = card_line()
+    for model_type, classes, input_hw, reqs in runs:
+        common = dict(model_type=model_type, classes_path=classes, model_input_shape=input_hw,
+                      device="cuda")
+        served = DeepLab(**common)
+        plain = DeepLab(dtype=torch.float32, **common)
+        for data, hw in reqs[:WARMUP]:
+            served.predict(data, hw)
+        kernels.reset_launch_counts()                # this path starts here
+        masks, times = serve_requests(torch, served, reqs)
+        launches = kernels.launch_counts()           # ... and ends here
+        check(launches == ZERO_LAUNCHES,
+              f"{model_type} serving: no kernel on its path (no ASPP, decoder or loss tail): "
+              f"{launches}")
+        n_cls = served.num_classes
+        ref_masks = [plain.predict(data, hw) for data, hw in reqs]
+        agree = min(float((m == r).mean()) for m, r in zip(masks, ref_masks))
+        shapes_ok = all(m.shape == hw and m.dtype == np.int32 and m.min() >= 0 and m.max() < n_cls
+                        for m, (_, hw) in zip(masks, reqs))
+        check(shapes_ok and agree >= 0.98,
+              f"{model_type} serving at {input_hw[0]}x{input_hw[1]}, {n_cls} classes, bf16 vs "
+              f"f32: masks of the requests' sizes {sorted(set(hw for _, hw in reqs))} agree on "
+              f">= 0.98 of pixels (min {agree:.5f})")
+        times += serve_requests(torch, served, reqs)[1]
+        med = statistics.median(times)
+        print(f"  {model_type} latency, {len(times)} requests in two turns (host clock around "
+              f"predict, synchronized): median {med:.3f} ms, p90 "
+              f"{float(np.percentile(times, 90)):.3f} ms  [{card}]")
+        if model_type == "unet_standard":
+            flops = conv_flops(torch, model_type, n_cls, input_hw)
+            bound_ms = flops / BF16_TENSOR_FLOPS * 1e3
+            prof = profile_one(torch, lambda: served.predict(*reqs[0]),
+                               "one unet_standard request", "profile_one_request_unet_standard.txt",
+                               top=10)
+            conv_us = None if prof is None else sum(
+                e.device_time_total for e in prof[0] if e.key == "aten::convolution")
+            print(f"  unet_standard request: convolutions {flops / 1e9:.1f} GFLOP, bound "
+                  f"{bound_ms:.3f} ms at the dense bf16 rate; their device time (aten::convolution) "
+                  + ("not measured" if not conv_us else
+                     f"{conv_us / 1e3:.3f} ms, {bound_ms * 1e3 / conv_us:.3f} of the bound; "
+                     f"device busy {prof[1] / 1e3:.3f} ms") + f"; median request {med:.3f} ms, "
+                  f"{bound_ms / med:.3f} of the bound  [{card}]")
+        del served, plain
+        torch.cuda.empty_cache()
+
+
+def bn_fed_biases(torch, model_type, num_classes) -> set:
+    """Names of the conv biases whose conv output goes straight into a
+    BatchNorm, found by hooks on a meta-device forward."""
+    from deeplabv3p_torch.models.factory import build_segmentation_model
+    from deeplabv3p_torch.models.layers import BatchNorm, Conv
+
+    model = build_segmentation_model(model_type, num_classes, device="meta")
+    outputs, fed = {}, set()
+    for name, m in model.named_modules():
+        if isinstance(m, Conv) and m.bias is not None:
+            # the output is kept, so that its id is not reused by another tensor
+            m.register_forward_hook(
+                lambda m, a, out, name=name: outputs.update({id(out): (name, out)}))
+        elif isinstance(m, BatchNorm):
+            m.register_forward_pre_hook(
+                lambda m, a: fed.add(outputs[id(a[0])][0]) if id(a[0]) in outputs else None)
+    with torch.no_grad():
+        model(torch.zeros(1, 3, 64, 64, device="meta"))
+    return {f"{name}.bias" for name in fed}
+
+
+def nearest_resize_on_card(torch) -> None:
+    """`resize_nearest_nchw` on the card against the CPU's (held to JAX's
+    cv2 indices by tests/test_torch_unet.py) at Fast-SCNN's Cityscapes
+    shapes: the 4x of the pyramid's 640 channels and the 8x of the logits."""
+    from deeplabv3p_torch.ops.resize import resize_nearest_nchw
+
+    gen = torch.Generator().manual_seed(6)
+    for shape, k in (((8, 640, 32, 64), 4), ((8, 19, 128, 256), 8), ((2, 5, 37, 29), 3)):
+        x = torch.randn(shape, generator=gen).to(torch.bfloat16)
+        size = (shape[2] * k, shape[3] * k)
+        got = resize_nearest_nchw(x.cuda().contiguous(memory_format=torch.channels_last), size)
+        check(torch.equal(got.cpu(), resize_nearest_nchw(x, size)),
+              f"nearest resize x{k} of {shape} on the card equals the CPU's")
+
+
+def family_training_path(torch, kernels, train_main, train_args, classes_path, root,
+                         model_type, input_hw, images: int = FAMILY_TRAIN_IMAGES) -> None:
+    """`python -m deeplabv3p_torch.train --model_type <model_type>` b8 bf16
+    at `input_hw`, --no_augment, the CLI's own freeze level (1) and SGD
+    1e-2, 1 + 1 epochs on the first `images` pairs of `root`: no kernel on
+    the path, finite losses, and stage 1 moved every parameter (no
+    parameter is under `backbone`, as JAX's mask has it), against the
+    seeded init; the peak memory of the run."""
+    import shutil
+
+    from deeplabv3p_torch.models.factory import build_segmentation_model, trainable_parameters
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.utils.config import get_classes
+    from deeplabv3p_torch.utils.weights import from_jax_variables, load_npz
+
+    num_classes = len(get_classes(classes_path))
+    list_path = os.path.join(root, f"list{images}.txt")
+    with open(list_path, "w") as f:
+        f.write("\n".join(f"s{i:03d}" for i in range(images)) + "\n")
+    log_dir = os.path.join(OUT_DIR, f"smoke_{model_type}_train_logs")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    argv = ["--model_type", model_type, "--model_input_shape", f"{input_hw[0]}x{input_hw[1]}",
+            "--batch_size", str(MODEL_TRAIN_BATCH), "--no_augment",
+            "--transfer_epoch", "1", "--total_epoch", "2", "--seed", str(TRAIN_SEED),
+            "--dataset_path", root, "--dataset_file", list_path,
+            "--classes_path", classes_path, "--log_dir", log_dir, "--device", "cuda"]
+    print("  python -m deeplabv3p_torch.train " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    trainer, wall, launches, _ = run_cli(torch, kernels, train_main, train_args(argv))
+    steps = 2 * (images // MODEL_TRAIN_BATCH)
+    losses = [r["loss"] for r in trainer.history]
+    print(f"  {model_type}: {steps} steps in {wall:.1f} s wall (set-up and first-call cuDNN "
+          f"tuning included), peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"epoch losses {[round(x, 5) for x in losses]}, L2 factor {trainer.l2_factor:g}; "
+          f"launch counts {launches}  [{card_line()}]")
+    check(launches == ZERO_LAUNCHES, f"{model_type} training: no kernel on its path")
+    check(len(losses) == 2 and all(np.isfinite(losses)),
+          f"{model_type} training: 2 epochs, finite losses")
+    init = build_segmentation_model(model_type, num_classes, device="cpu")
+    init_parameters(init, torch.Generator().manual_seed(TRAIN_SEED), bn_identity=True)
+    start = {k: p.detach().clone() for k, p in init.named_parameters()}
+    stage1 = load_npz(os.path.join(log_dir, next(p for p in sorted(os.listdir(log_dir))
+                                                  if p.startswith("ep000-"))))
+    init.load_state_dict(from_jax_variables(stage1, init), strict=True)
+    unmoved = [k for k, p in init.named_parameters() if torch.equal(p, start[k])]
+    # a conv's bias straight into a training-mode BN: the batch mean removes
+    # it, so its gradient is zero but for rounding and it may not move; it is
+    # held to the optimizer's group at level 1 instead, as every parameter is
+    exempt = bn_fed_biases(torch, model_type, num_classes)
+    group = {n for n, _ in trainable_parameters(init, 1)}
+    check(group == set(start),
+          f"{model_type} at the CLI's --freeze_level 1: the optimizer's group holds every "
+          f"parameter ({len(group)}/{len(start)}), {len(exempt)} biases straight into a "
+          "training-mode BN among them, as JAX's mask trains all with no backbone")
+    check(set(unmoved) <= exempt,
+          f"{model_type} stage 1 at the CLI's --freeze_level 1 moved every parameter but "
+          f"biases straight into a training-mode BN ({len(start) - len(unmoved)}/"
+          f"{len(start)} moved; unmoved: {unmoved or 'none'})")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def subpixel_head(torch, kernels, requests) -> dict:
+    """mobilenetv2 with the subpixel head (scale 4), 512x512 OS16, seeded
+    weights: the forward in f32 with the ASPP and decoder kernels against f32
+    with none (argmax equal on >= 0.999 of pixels, every full head's rule),
+    each kernel once a forward; then bf16 with both kernels, finite. Returns
+    the kernel-on run's launch counts."""
+    from deeplabv3p_torch.models.factory import build_segmentation_model
+    from deeplabv3p_torch.models.layers import init_parameters
+
+    def make(dtype, fused):
+        m = build_segmentation_model("mobilenetv2", 21, use_subpixel=True, fused_aspp=fused,
+                                     fused_decoder=fused, dtype=dtype, device="cuda")
+        init_parameters(m, torch.Generator().manual_seed(0))
+        return m
+
+    xs = [torch.from_numpy(data).cuda().permute(0, 3, 1, 2) for data, _ in requests]
+    plain, fused, fused16 = make(torch.float32, False), make(torch.float32, True), \
+        make(torch.bfloat16, True)
+    with torch.inference_mode():
+        refs = [plain(x) for x in xs]
+        kernels.reset_launch_counts()                # this path starts here
+        outs = [fused(x) for x in xs]
+        launches = kernels.launch_counts()           # ... and ends here
+        outs16 = [fused16(x) for x in xs]
+    n = len(xs)
+    check(launches == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": n,
+                       "fused_decoder_frontend": n},
+          f"subpixel head: the ASPP and decoder kernels once a forward each ({n}): {launches}")
+    agree = min(float((o.argmax(1) == r.argmax(1)).float().mean()) for o, r in zip(outs, refs))
+    err = max(float((o - r).abs().max()) for o, r in zip(outs, refs))
+    agree16 = min(float((o.argmax(1) == r.argmax(1)).float().mean()) for o, r in zip(outs16, refs))
+    shapes = {tuple(o.shape) for o in outs + outs16}
+    check(shapes == {(1, 21, *INPUT)} and all(torch.isfinite(o).all() for o in outs + outs16)
+          and agree >= 0.999,
+          f"mobilenetv2 subpixel head (scale {fused.subpixel.r}) at {INPUT}: f32 with both "
+          f"kernels vs f32 with none, argmax equal on {agree:.5f} >= 0.999 of pixels (max|d| "
+          f"{err:.3g}); bf16 with both kernels finite, argmax equal to f32's on {agree16:.5f}  "
+          f"[{card_line()}]")
+    del plain, fused, fused16
+    torch.cuda.empty_cache()
+    return launches
 
 
 def card_line() -> str:

@@ -15,8 +15,10 @@ confusion matrix) are the JAX package's (reference eval.py:461-510 /
 
 The CLI takes the flags of the root eval.py plus `--fused_mbconv` and
 `--device {auto,cuda,cpu}`, where auto means the card: without one it is an
-error, not a CPU run. The model is built bf16 with the fused ASPP kernel on,
-as the root CLI builds it on its accelerator. `--model_path` takes an `.npz`
+error, not a CPU run. The model (any of the 22 of
+`models.factory.build_segmentation_model`) is built bf16 with the fused
+ASPP kernel on where it has an ASPP, as the root CLI builds it on its
+accelerator. `--model_path` takes an `.npz`
 of the JAX variables tree, the JAX package's `.ckpt` or a Keras `.h5`
 (`utils/checkpoint.load_weights`); the exported formats and `--do_crf`
 raise, naming their ROADMAP item.
@@ -234,7 +236,7 @@ def resolve_device(name: str) -> torch.device:
 
 
 def main(args) -> metrics_lib.SegmentMetrics:
-    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.factory import build_segmentation_model
     from deeplabv3p_torch.models.layers import init_parameters
     from deeplabv3p_torch.utils.checkpoint import load_weights
     from deeplabv3p_torch.utils.config import get_classes, get_data_list
@@ -242,7 +244,7 @@ def main(args) -> metrics_lib.SegmentMetrics:
     _refuse_unported(args)
     device = resolve_device(args.device)
     class_names = get_classes(args.classes_path)
-    model = build_deeplab_model(
+    model = build_segmentation_model(
         args.model_type, len(class_names), output_stride=args.output_stride,
         fused_aspp=True, fused_mbconv=args.fused_mbconv,
         dtype=torch.bfloat16, device=device)

@@ -4,7 +4,9 @@
 `device` (default `cuda`) and compute `dtype` (default bf16, the JAX class's
 compute type). Like the JAX class it builds with the fused ASPP kernel on
 and the fused decoder kernel off (and the fused inverted-residual kernel
-off); the flags can be overridden. A request
+off); the flags can be overridden. Any of the 22 models of
+`models.factory.build_segmentation_model` serves; a UNet or Fast-SCNN has
+no ASPP or decoder, so the two flags go unused there. A request
 is `preprocess_image` (PIL bicubic resize + [-1, 1] normalise, on the host)
 -> model forward -> argmax -> cv2-nearest `mask_resize`, the last three on
 the device.
@@ -24,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deeplabv3p_torch.models.factory import build_deeplab_model
+from deeplabv3p_torch.models.factory import build_segmentation_model
 from deeplabv3p_torch.models.layers import init_parameters
 from deeplabv3p_torch.postprocess import mask_argmax, mask_resize
 from deeplabv3p_torch.utils.config import get_classes
@@ -91,7 +93,7 @@ class DeepLab:
                 "pass device='cpu' to run the plain PyTorch path"
             )
         self.dtype = dtype
-        self.model = build_deeplab_model(
+        self.model = build_segmentation_model(
             self.model_type,
             self.num_classes,
             output_stride=self.output_stride,

@@ -102,8 +102,9 @@ def reduce_loss(
 
 
 def conv_parameters(model: nn.Module) -> list[torch.Tensor]:
-    """Every conv's weight and bias, depthwise included, and no BN
-    parameter: the set JAX's `l2_penalty` picks by its 4-D kernel rule."""
+    """Every conv's weight and bias, depthwise and transpose convs and the
+    subpixel head's conv included, and no BN parameter: the set JAX's
+    `l2_penalty` picks by its 4-D kernel rule."""
     from deeplabv3p_torch.models.layers import Conv
 
     params = []

@@ -1,15 +1,23 @@
-"""DeepLabV3+ model assembly & registry (deeplabv3p_tpu/models/factory.py:42-246).
+"""Model assembly and the registries (deeplabv3p_tpu/models/factory.py:42-308).
 
-`DeeplabV3Plus` maps an NCHW image batch to float32 logits at input
-resolution, NCHW (channels_last memory): backbone -> ASPP[/Lite] ->
-[Decoder] -> 1x1 `conv_upsample` -> bilinear upsample. The input is cast
-to the compute dtype first and the logits to f32 before the final resize,
-where the JAX model casts (factory.py:86-87, :179-183).
+`build_segmentation_model` builds any of the 22 entries of the JAX
+package's three registries: the 18 DeepLabV3+ models, UNet x3
+(models/unet.py) and Fast-SCNN (models/fast_scnn.py). Each maps an NCHW
+image batch to float32 logits at input resolution, NCHW (channels_last
+memory).
+
+`DeeplabV3Plus`: backbone -> ASPP[/Lite] -> [Decoder] -> 1x1
+`conv_upsample` -> bilinear upsample, or with `use_subpixel` the
+`subpixel` head (a conv to C * r^2 channels and JAX's depth-to-space). The
+input is cast to the compute dtype first and the logits to f32 before the
+final resize, where the JAX model casts (factory.py:86-87, :179-183).
 
 Training: `set_train_mode` puts a model in training mode by freeze level,
 and `trainable_parameters` names what the optimizer trains at that level
 (JAX `freeze_level` in `DeeplabV3Plus.__call__` and `make_trainable_mask`,
-factory.py:63-90, :284-308).
+factory.py:63-90, :284-308). UNet and Fast-SCNN ignore the level in their
+forward, as JAX's do, while the mask still applies: level 1 trains every
+parameter (none is under `backbone`), level 2 none.
 """
 
 from __future__ import annotations
@@ -25,14 +33,17 @@ from deeplabv3p_torch.models.layers import (
     ASPPLite,
     Conv,
     Decoder,
+    Subpixel,
     channels_last,
 )
+from deeplabv3p_torch.models.fast_scnn import FAST_SCNN_MODEL_REGISTRY, build_fast_scnn_model
 from deeplabv3p_torch.models.ghostnet import GhostNetBody
 from deeplabv3p_torch.models.mobilenetv2 import MobileNetV2Body
 from deeplabv3p_torch.models.mobilenetv3 import MobileNetV3LargeBody, MobileNetV3SmallBody
 from deeplabv3p_torch.models.mobilevit import MobileViTBody
 from deeplabv3p_torch.models.peleenet import PeleeNetBody
 from deeplabv3p_torch.models.resnet50 import ResNet50Body
+from deeplabv3p_torch.models.unet import UNET_MODEL_REGISTRY, build_unet_model
 from deeplabv3p_torch.models.xception import XceptionBody
 from deeplabv3p_torch.ops.resize import resize_bilinear
 
@@ -45,8 +56,10 @@ class DeeplabV3Plus(nn.Module):
     residuals through the hand-written kernels (ops/kernels) — inference
     only, same parameters as the standard path: a module in training mode
     takes the standard path, as JAX does. `fused_mbconv` needs a backbone
-    that takes the flag (the MobileNetV2 body); the MobileNetV3 and Xception
-    bodies refuse it.
+    that takes the flag (the MobileNetV2 body); the other bodies refuse it.
+    `use_subpixel` puts the `subpixel` head in place of `conv_upsample` and
+    the final resize: its scale is 4 behind the decoder (every full head's
+    skip is at OS4) and the output stride behind a lite head.
     """
 
     def __init__(
@@ -55,6 +68,7 @@ class DeeplabV3Plus(nn.Module):
         num_classes: int = 21,
         output_stride: int = 16,
         lite: bool = False,
+        use_subpixel: bool = False,
         fused_aspp: bool = False,
         fused_decoder: bool = False,
         fused_mbconv: bool = False,
@@ -63,6 +77,7 @@ class DeeplabV3Plus(nn.Module):
     ):
         super().__init__()
         self.lite = lite
+        self.use_subpixel = use_subpixel
         self.dtype = torch.float32 if dtype is None else dtype
         kw = dict(dtype=dtype, device=device)
         # only a backbone with inverted residuals is handed the flag
@@ -81,17 +96,28 @@ class DeeplabV3Plus(nn.Module):
                 256, self.backbone.skip_channels,
                 fused_inference=fused_decoder, **kw,
             )
-        self.conv_upsample = Conv(256, num_classes, 1, use_bias=True, **kw)
+        if use_subpixel:
+            # JAX factory.py:156-172: the scale from the feature map's stride
+            r = output_stride if lite else 4
+            self.subpixel = Subpixel(256, num_classes, r, **kw)
+        else:
+            self.conv_upsample = Conv(256, num_classes, 1, use_bias=True, **kw)
 
     def forward(self, x: torch.Tensor, skip_final_resize: bool = False) -> torch.Tensor:
         """x (N,3,H,W) -> f32 logits (N,C,H,W); with `skip_final_resize`,
-        the f32 logits at feature resolution (the fused-loss contract)."""
+        the f32 logits at feature resolution (the fused-loss contract; the
+        subpixel head has no final resize to skip and raises)."""
         in_h, in_w = x.shape[2], x.shape[3]
+        if self.use_subpixel and skip_final_resize:
+            raise ValueError("skip_final_resize is incompatible with the subpixel head "
+                             "(its upsample is the pixel shuffle itself)")
         x = channels_last(x.to(self.dtype))
         feat, skip = self.backbone(x)
         feat = self.aspp(feat)
         if not self.lite:
             feat = self.decoder(feat, skip)
+        if self.use_subpixel:
+            return channels_last(self.subpixel(feat).float())
         logits = self.conv_upsample(feat).float()
         if not skip_final_resize:
             # pred_resize (reference model.py:76): bilinear to input size, f32
@@ -123,14 +149,16 @@ DEEPLAB_MODEL_REGISTRY: dict[str, tuple[Callable[..., nn.Module], bool]] = {
 
 
 def ported_models_text() -> str:
-    """The registry's names for a CLI's help."""
-    return "ported: " + ", ".join(DEEPLAB_MODEL_REGISTRY)
+    """The registries' names for a CLI's help."""
+    return "ported: " + ", ".join(
+        [*DEEPLAB_MODEL_REGISTRY, *UNET_MODEL_REGISTRY, *FAST_SCNN_MODEL_REGISTRY])
 
 
 def build_deeplab_model(
     model_type: str,
     num_classes: int,
     output_stride: int = 16,
+    use_subpixel: bool = False,
     fused_aspp: bool = False,
     fused_decoder: bool = False,
     fused_mbconv: bool = False,
@@ -138,21 +166,61 @@ def build_deeplab_model(
     device=None,
 ) -> DeeplabV3Plus:
     """Construct a DeepLabV3+ model in eval mode (`set_train_mode` puts it
-    in training mode). Weights: utils/weights.py or `init_parameters`.
-    The subpixel head is not ported yet (ROADMAP Queue A item 7)."""
+    in training mode). Weights: utils/weights.py or `init_parameters`. The
+    other families go through `build_segmentation_model`."""
     if model_type not in DEEPLAB_MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"model type {model_type!r} is not ported yet (ROADMAP Queue A "
-            f"item 9.5: UNet and Fast-SCNN; the subpixel head is item 7); ported: "
-            f"{sorted(DEEPLAB_MODEL_REGISTRY)}"
+        raise ValueError(
+            f"{model_type!r} is not a DeepLabV3+ model: build it with "
+            f"build_segmentation_model; DeepLabV3+ models: {sorted(DEEPLAB_MODEL_REGISTRY)}"
         )
     backbone_fn, lite = DEEPLAB_MODEL_REGISTRY[model_type]
     model = DeeplabV3Plus(
         backbone_fn, num_classes=num_classes, output_stride=output_stride,
-        lite=lite, fused_aspp=fused_aspp, fused_decoder=fused_decoder,
-        fused_mbconv=fused_mbconv, dtype=dtype, device=device,
+        lite=lite, use_subpixel=use_subpixel, fused_aspp=fused_aspp,
+        fused_decoder=fused_decoder, fused_mbconv=fused_mbconv, dtype=dtype, device=device,
     )
     return model.eval()
+
+
+def build_segmentation_model(
+    model_type: str,
+    num_classes: int,
+    output_stride: int = 16,
+    use_subpixel: bool = False,
+    remat=False,
+    fused_aspp: bool = False,
+    fused_decoder: bool = False,
+    fused_mbconv: bool = False,
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+) -> nn.Module:
+    """Any of the 22 models of the JAX package's three registries, in eval
+    mode (JAX `build_segmentation_model`, factory.py:249-281, plus the
+    port's `fused_mbconv` and `device`). As JAX does, UNet and Fast-SCNN
+    drop `output_stride`, `use_subpixel`, `fused_aspp` and `fused_decoder`
+    (they have no ASPP, decoder or DeepLab head); `fused_mbconv` on them
+    raises, as on every body without MobileNetV2's blocks. `remat` other
+    than off raises: it is not ported (ROADMAP Queue A item 14)."""
+    if remat not in (False, None, "off"):
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported yet (ROADMAP Queue A item 14)")
+    if model_type in DEEPLAB_MODEL_REGISTRY:
+        return build_deeplab_model(
+            model_type, num_classes, output_stride=output_stride, use_subpixel=use_subpixel,
+            fused_aspp=fused_aspp, fused_decoder=fused_decoder, fused_mbconv=fused_mbconv,
+            dtype=dtype, device=device)
+    family = ("UNet" if model_type in UNET_MODEL_REGISTRY else
+              "Fast-SCNN" if model_type in FAST_SCNN_MODEL_REGISTRY else None)
+    if family is None:
+        raise ValueError(
+            f"This model type is not supported now: {model_type!r}. Available: "
+            f"{sorted(DEEPLAB_MODEL_REGISTRY) + sorted(UNET_MODEL_REGISTRY) + sorted(FAST_SCNN_MODEL_REGISTRY)}")
+    if fused_mbconv:
+        raise ValueError(
+            f"fused_mbconv: the inverted-residual kernel runs MobileNetV2's blocks; "
+            f"{family} ({model_type}) has none")
+    build = build_unet_model if family == "UNet" else build_fast_scnn_model
+    return build(model_type, num_classes, dtype=dtype, device=device)
 
 
 def _check_freeze_level(freeze_level: int) -> None:
@@ -160,16 +228,22 @@ def _check_freeze_level(freeze_level: int) -> None:
         raise ValueError(f"invalid freeze_level {freeze_level}")
 
 
-def set_train_mode(model: DeeplabV3Plus, freeze_level: int = 0) -> DeeplabV3Plus:
+def set_train_mode(model: nn.Module, freeze_level: int = 0) -> nn.Module:
     """Training mode by freeze level (JAX factory.py:89-90:
     `backbone_train = train and freeze_level < 1`,
     `head_train = train and freeze_level < 2`).
 
-    A frozen part stays in eval mode: its BatchNorms run on the running
-    statistics and leave them alone (TF2 BN with trainable=False), and at
-    level 2 the head's dropout is off. `conv_upsample` has neither."""
+    A frozen part of a DeepLabV3+ model stays in eval mode: its BatchNorms
+    run on the running statistics and leave them alone (TF2 BN with
+    trainable=False), and at level 2 the head's dropout is off.
+    `conv_upsample` and `subpixel` have neither. UNet and Fast-SCNN are in
+    training mode as a whole at every level: their JAX forward drops the
+    level (`del freeze_level`), so their BN statistics move even where the
+    optimizer trains nothing."""
     _check_freeze_level(freeze_level)
     model.train()
+    if not isinstance(model, DeeplabV3Plus):
+        return model
     if freeze_level >= 1:
         model.backbone.eval()
     if freeze_level >= 2:
@@ -183,8 +257,10 @@ def trainable_parameters(
     model: nn.Module, freeze_level: int
 ) -> list[tuple[str, nn.Parameter]]:
     """(name, parameter) pairs the optimizer trains at `freeze_level`, the
-    counterpart of JAX `make_trainable_mask` (factory.py:284-308): 0 trains
-    everything, 1 all but `backbone.*`, 2 only `conv_upsample.*`."""
+    counterpart of JAX `make_trainable_mask` (factory.py:284-308), by name
+    alone: 0 trains everything, 1 all but `backbone.*`, 2 only
+    `conv_upsample.*` or `subpixel.*`. So a UNet or Fast-SCNN trains every
+    parameter at level 1 and none at level 2."""
     _check_freeze_level(freeze_level)
 
     def trainable(name: str) -> bool:
@@ -192,6 +268,6 @@ def trainable_parameters(
             return True
         if freeze_level == 1:
             return not name.startswith("backbone.")
-        return name.startswith("conv_upsample.")
+        return name.startswith(("conv_upsample.", "subpixel."))
 
     return [(n, p) for n, p in model.named_parameters() if trainable(n)]

@@ -1,8 +1,8 @@
-"""Shared DeepLabV3+ building blocks as `nn.Module`s
-(deeplabv3p_tpu/models/layers.py:40-491).
+"""Shared building blocks as `nn.Module`s (deeplabv3p_tpu/models/layers.py:40-556,
+and `SeparableConv` of unet.py:33-58).
 
 Module and parameter names follow the flax scopes, minus flax's wrapper
-scopes `dw` (DepthwiseConv) and `bn` (BatchNorm), so
+scopes `dw` (DepthwiseConv), `ct` (ConvTransposeK) and `bn` (BatchNorm), so
 `aspp/aspp1/depthwise/dw/kernel` is `aspp.aspp1.depthwise.weight` here
 (utils/weights.py does the mapping). Parameters are float32; each module
 computes in its `dtype` (bf16 for serving), casting weights and input at
@@ -231,14 +231,105 @@ class Conv(nn.Module):
 
 class DepthwiseConv(Conv):
     """Keras DepthwiseConv2D: a grouped conv with groups == channels
-    (flax scope `dw`; kernel (kh,kw,1,C) here (C,1,kh,kw))."""
+    (flax scope `dw`; kernel (kh,kw,1,C) here (C,1,kh,kw)); Fast-SCNN's
+    carries a bias (JAX fast_scnn.py:71-72)."""
 
     def __init__(self, channels: int, kernel_size: int = 3, strides: int = 1,
-                 rate: int = 1, padding=None, dtype=None, device=None):
+                 rate: int = 1, padding=None, use_bias: bool = False, dtype=None,
+                 device=None):
         super().__init__(
             channels, channels, kernel_size, strides=strides, rate=rate,
-            padding=padding, groups=channels, dtype=dtype, device=device,
+            padding=padding, use_bias=use_bias, groups=channels, dtype=dtype,
+            device=device,
         )
+
+
+class SeparableConv(nn.Module):
+    """Keras SeparableConv2D (JAX unet.py:33-58): a depthwise conv without
+    bias (`sep_dw`, so the flax path is `sep_dw/dw/kernel`) then a 1x1 conv
+    with a bias (`sep_pw`). A Keras .h5 holds both in one layer
+    (depthwise_kernel, pointwise_kernel, bias; utils/keras_import.py)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 strides: int = 1, rate: int = 1, dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.sep_dw = DepthwiseConv(in_channels, kernel_size, strides, rate, **kw)
+        self.sep_pw = Conv(in_channels, features, 1, use_bias=True, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.sep_pw(self.sep_dw(x))
+
+
+def transpose_same_pads(kernel_size: int, stride: int) -> tuple[int, int]:
+    """(before, after) pads of `lax.conv_transpose`'s 'SAME' on the
+    stride-dilated input (jax `_conv_transpose_padding`): (1, 1) for both
+    UNet shapes, k2 s2 and k3 s1."""
+    pad_len = kernel_size + stride - 2
+    before = kernel_size - 1 if stride > kernel_size - 1 else -(-pad_len // 2)
+    return before, pad_len - before
+
+
+class ConvTransposeK(Conv):
+    """flax `nn.ConvTranspose` with 'SAME' padding, as the JAX package's
+    Keras Conv2DTranspose (JAX layers.py:124-152; flax scope `ct`, so the
+    path is `<name>/ct/kernel`).
+
+    flax correlates the input, dilated by the stride and padded by
+    `transpose_same_pads`, with its kernel K (kh, kw, in, out) as it is,
+    unflipped. The port stores the kernel of that correlation as every conv
+    weight is stored: `weight = K.permute(3, 2, 0, 1)`, (out, in, kh, kw).
+    A Keras Conv2DTranspose kernel Kk (kh, kw, out, in) is stored flipped:
+    K = Kk[::-1, ::-1].transpose(0, 1, 3, 2), so `weight =
+    Kk.flip(0, 1).permute(2, 3, 0, 1)`. Stride 1 runs that correlation as a
+    conv2d; stride s > 1 runs `conv_transpose2d` with the weight flipped and
+    its channel axes swapped, `weight.flip(2, 3).transpose(0, 1)`, at
+    padding k - 1 - before and output padding after - before (cropped where
+    negative). Output: (H * s, W * s)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 2,
+                 strides: int = 2, dtype=None, device=None):
+        pads = [transpose_same_pads(kernel_size, strides)] * 2
+        super().__init__(in_channels, features, kernel_size, strides=strides, padding=pads,
+                         use_bias=True, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, s = self.dtype, self.strides
+        bias, w = self.bias.to(dt), self.weight.to(dt)
+        if s == 1:
+            return conv2d_same(x.to(dt), w, bias, padding=self.padding)
+        k = w.shape[-1]
+        before, after = self.padding[0]
+        y = F.conv_transpose2d(
+            x.to(dt), w.flip(2, 3).transpose(0, 1), bias, stride=s,
+            padding=k - 1 - before, output_padding=max(after - before, 0),
+        )
+        return y[:, :, : x.shape[2] * s, : x.shape[3] * s]
+
+
+class Subpixel(nn.Module):
+    """Sub-pixel prediction head (JAX layers.py:494-556): a conv (scope `c`,
+    so `subpixel/c/kernel`) to `filters * r * r` channels, then JAX's
+    depth-to-space: input channel c' * r^2 + i * r + j goes to output pixel
+    (h * r + j, w * r + i) of channel c' (reshape (N,H,W,C',r,r), transpose
+    (0,1,5,2,4,3)). That is `F.pixel_shuffle` with i and j swapped, so it is
+    not `pixel_shuffle`. `r` is fixed at construction (JAX derives it from
+    the shapes at call time: 4 behind the decoder, the output stride behind
+    a lite head). `init_parameters` gives the ICNR init: each drawn output
+    channel repeated r^2 times (`icnr_init`)."""
+
+    def __init__(self, in_channels: int, filters: int, r: int, dtype=None, device=None):
+        super().__init__()
+        self.r = r
+        self.c = Conv(in_channels, filters * r * r, 1, use_bias=True,
+                      dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.c(x)
+        n, c, h, w = x.shape
+        r = self.r
+        x = x.view(n, c // (r * r), r, r, h, w)  # (N, C', i, j, H, W)
+        return x.permute(0, 1, 4, 3, 5, 2).reshape(n, c // (r * r), h * r, w * r)
 
 
 class SepConvBN(nn.Module):
@@ -495,8 +586,10 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
     and bias: unlike flax's identity init, every folded-BN path sees
     non-trivial statistics. `bn_identity` gives flax's BN and LayerNorm
     init instead (scale and variance 1, bias and mean 0), as a model
-    trained from scratch starts. Drawn on the CPU from `generator`, so the same seed
-    gives the same weights on every device."""
+    trained from scratch starts. A `Subpixel` conv gets JAX's ICNR init
+    (`icnr_init`, layers.py:494-518): the first output channel of each r^2
+    group, drawn as above, repeated over its group. Drawn on the CPU from
+    `generator`, so the same seed gives the same weights on every device."""
 
     def draw(shape, kind):
         if kind == "normal":
@@ -527,3 +620,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
             m.bias.copy_(0.1 * draw(c, "normal"))
             m.running_mean.copy_(0.1 * draw(c, "normal"))
             m.running_var.copy_(0.5 + draw(c, "uniform"))
+    for m in module.modules():
+        if isinstance(m, Subpixel):  # ICNR: every r x r block starts out equal
+            r2 = m.r * m.r
+            m.c.weight.copy_(m.c.weight[::r2].repeat_interleave(r2, dim=0))

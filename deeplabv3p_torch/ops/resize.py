@@ -11,7 +11,9 @@
 
 Layouts: `resize_bilinear` takes torch's NCHW (any memory format);
 `resize_nearest` keeps the JAX layout, (H, W) or (..., H, W, C), since its
-callers resize masks.
+callers resize masks; `resize_nearest_nchw` applies the cv2 index rule to
+the models' NCHW activations (UNet's `_up2`, Fast-SCNN's 4x and 8x,
+deeplabv3p_tpu/models/unet.py:61-64, fast_scnn.py:148, :166).
 """
 
 from __future__ import annotations
@@ -61,3 +63,14 @@ def resize_nearest(
     hi = _nearest_indices(h, x.shape[-3], convention, x.device)
     wi = _nearest_indices(w, x.shape[-2], convention, x.device)
     return x.index_select(-3, hi).index_select(-2, wi)
+
+
+def resize_nearest_nchw(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """`resize_nearest` in the cv2 convention on an NCHW tensor (any memory
+    format kept): `F.interpolate`'s 'nearest' computes the same source
+    indices, `floor(dst * in / out)` in f32 as the gather's; its backward
+    sums into the sources without atomics, where `index_select`'s backward
+    is an `index_add`."""
+    if x.ndim != 4:
+        raise ValueError(f"expected NCHW input, got shape {tuple(x.shape)}")
+    return F.interpolate(x, size=tuple(size), mode="nearest")

@@ -170,7 +170,9 @@ def build_optimizer(
     schedule. `state_dtype` 'bfloat16' stores SGD's momentum trace and
     Adam's first moment in bf16 (`BF16StateSGD`, `BF16StateAdam`); rmsprop
     refuses it, as the JAX factory does."""
-    params = list(params)
+    # a stage may train nothing (UNet, Fast-SCNN at freeze level 2): one
+    # empty group, since torch refuses an empty parameter list
+    params = list(params) or [{"params": []}]
     optim_type = optim_type.lower()
     if state_dtype not in (None, "float32", "f32", "bfloat16"):
         raise ValueError(f"Unsupported optimizer state dtype {state_dtype!r}")

@@ -8,7 +8,9 @@ b16, bf16 activations with f32 parameters, and the stochastic
 augmentation on the device (`data/augment.py`). `--fused_loss`,
 `--device_cache`, `--no_augment`, `--model_type`, `--bn_recalibrate`,
 `--optim_state_dtype` and `--weights_path` (`.npz`, `.ckpt` or `.h5`) as
-there.
+there; `--model_type` takes any of the 22 models of
+`models.factory.build_segmentation_model` (`--fused_loss` a DeepLabV3+ one
+only; a UNet trains without the L2 penalty, as in the root CLI).
 
 * `make_train_step`: forward (bf16 activations, f32 parameters, BN
   statistics and loss), loss, backward, optimizer and weight averaging.
@@ -145,7 +147,8 @@ def make_train_step(
 
     def step_fn(state: TrainState, images, labels, weights, lr_scale: float = 1.0):
         loss, metric_aux = forward_loss(images, labels, weights)
-        (loss / state.grad_accum if state.grad_accum > 1 else loss).backward()
+        if loss.requires_grad:  # else nothing trains (UNet, Fast-SCNN at level 2)
+            (loss / state.grad_accum if state.grad_accum > 1 else loss).backward()
         state.step += 1
         if state.step % state.grad_accum == 0:
             opt_lib.set_learning_rate(
@@ -320,7 +323,10 @@ class Trainer:
 
     def build_stage_state(self, stage: StageConfig) -> TrainState:
         """Freeze, optimizer, schedule and averages of a stage (the
-        reference's recompile with a new optimizer, train.py:192-231)."""
+        reference's recompile with a new optimizer, train.py:192-231). A
+        stage that trains no parameter (a UNet or Fast-SCNN at freeze level
+        2) still runs its forward, whose BN statistics move, as JAX's
+        `set_to_zero` stage does."""
         trainable = dict(trainable_parameters(self.model, stage.freeze_level))
         params = dict(self.model.named_parameters())
         for name, p in params.items():
@@ -505,7 +511,7 @@ def main(args):
     from deeplabv3p_torch.data.augment import AugmentConfig, augment_batch
     from deeplabv3p_torch.data.pipeline import SegmentationDataset
     from deeplabv3p_torch.data.shards import ShardedDataset, is_packed_dataset
-    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.factory import DEEPLAB_MODEL_REGISTRY, build_segmentation_model
     from deeplabv3p_torch.models.layers import init_parameters
     from deeplabv3p_torch.utils.checkpoint import CheckpointManager
     from deeplabv3p_torch.utils.config import (
@@ -581,7 +587,9 @@ def main(args):
 
     if args.fused_loss and args.loss != "crossentropy":
         raise SystemExit("--fused_loss supports --loss crossentropy only")
-    model = build_deeplab_model(
+    if args.fused_loss and args.model_type not in DEEPLAB_MODEL_REGISTRY:
+        raise SystemExit("--fused_loss requires a DeepLab conv-head model")
+    model = build_segmentation_model(
         args.model_type, num_classes, output_stride=args.output_stride,
         dtype=torch.bfloat16 if args.mixed_precision else None, device=device)
     # seeded as flax's init; an .h5 loads by layer name, what it lacks keeps this
@@ -592,7 +600,9 @@ def main(args):
     trainer = Trainer(
         model, num_classes, loss_fn, device=device,
         use_sample_weights=(args.weighted_type == "adaptive"),
-        l2_factor=2e-5, log_dir=args.log_dir, seed=args.seed,
+        # the UNet family carries no conv regularizers in the reference
+        l2_factor=0.0 if args.model_type.startswith("unet") else 2e-5,
+        log_dir=args.log_dir, seed=args.seed,
         fused_loss=args.fused_loss,
         fused_class_weights=class_weights if args.weighted_type == "balanced" else None,
     )

@@ -13,6 +13,11 @@ Weight-level mapping:
   Conv2D          kernel:0 (H,W,Ci,Co)          <-> kernel (same layout)
                   bias:0                        <-> bias
   DepthwiseConv2D depthwise_kernel:0 (H,W,C,1)  <-> dw kernel (H,W,1,C)
+  SeparableConv2D depthwise_kernel:0 (H,W,C,1)  <-> sep_dw/dw kernel (H,W,1,C)
+                  pointwise_kernel:0 (1,1,Ci,Co) <-> sep_pw kernel
+                  bias:0                        <-> sep_pw bias
+  Conv2DTranspose kernel:0 (H,W,Co,Ci), flipped <-> ct kernel (H,W,Ci,Co):
+                  `k[::-1, ::-1].transpose(0, 1, 3, 2)`, its own inverse
   BatchNorm       gamma/beta <-> scale/bias (params);
                   moving_mean/moving_variance <-> mean/var (batch_stats)
   LayerNorm       gamma/beta <-> scale/bias
@@ -37,10 +42,12 @@ import numpy as np
 _CONTAINER_RE = re.compile(
     r"^(backbone|aspp|decoder|image_pool_branch|block_\d+|stage\d+[a-z]|se_\d+|mvit_\d+)$")
 # 'bn'/'dw' are structural wrapper scopes inside BatchNorm/DepthwiseConv
-# modules, 'c' inside MobileViT's ConvBlock and 'mha' around its attention
-# (whose '<block>_attention/query' Keras names come from the '--' scopes);
+# modules, 'c' inside MobileViT's ConvBlock and the subpixel head, 'mha'
+# around the attention (whose '<block>_attention/query' Keras names come from
+# the '--' scopes), 'ct' inside a transpose conv, and 'sep' / 'sep_dw' /
+# 'sep_pw' around a SeparableConv2D's halves, which Keras keeps in one layer;
 # PeleeNet's 'conv' stays
-_WRAPPER_NAMES = frozenset({"bn", "dw", "c", "mha"})
+_WRAPPER_NAMES = frozenset({"bn", "dw", "c", "mha", "ct", "sep", "sep_dw", "sep_pw"})
 
 _PARAM_TO_KERAS = {
     # leaf name -> candidate Keras weight names, in priority order
@@ -52,12 +59,15 @@ _PARAM_TO_KERAS = {
 }
 _BN_BIAS = ("beta:0",)
 _LEAF_TO_KERAS = {"scale": "gamma:0", "mean": "moving_mean:0", "var": "moving_variance:0"}
+# the pointwise half of a SeparableConv2D
+_SEP_PW_KERNEL = ("pointwise_kernel:0", "kernel:0")
 # Keras `layer.weights` order: the legacy by-name loader is positional
 # within a layer, so the datasets and `weight_names` follow it
 _KERAS_ORDER = {
     "kernel:0": 0,
     "depthwise_kernel:0": 0,
     "gamma:0": 0,
+    "pointwise_kernel:0": 0.5,  # SeparableConv2D: depthwise, pointwise, bias
     "bias:0": 1,
     "beta:0": 1,
     "moving_mean:0": 2,
@@ -72,6 +82,12 @@ def keras_layer_name(path: tuple[str, ...]) -> str:
     'expanded_conv_1/squeeze_excite/Conv'). A plain '__' stays."""
     parts = [p for p in path if not _CONTAINER_RE.match(p) and p not in _WRAPPER_NAMES]
     return "_".join(parts).replace("--", "/")
+
+
+def _flip_transpose_kernel(k: np.ndarray) -> np.ndarray:
+    """A Keras Conv2DTranspose kernel (H,W,Co,Ci), stored flipped, <-> the
+    flax ConvTranspose kernel (H,W,Ci,Co), unflipped: the same map both ways."""
+    return np.ascontiguousarray(k[::-1, ::-1].transpose(0, 1, 3, 2))
 
 
 def _leaves(tree: Mapping, keys: tuple = ()) -> Iterator[tuple[tuple, Any]]:
@@ -145,6 +161,8 @@ def load_keras_h5_weights(h5_path: str, variables: Mapping, strict: bool = False
             continue
         if leaf_name == "bias" and "scale" in _siblings(variables, keys):
             candidates = _BN_BIAS
+        elif leaf_name == "kernel" and "sep_pw" in module_path:
+            candidates = _SEP_PW_KERNEL
         else:
             candidates = _PARAM_TO_KERAS.get(leaf_name, ())
         src = next((c for c in candidates if c in group), None)
@@ -154,6 +172,8 @@ def load_keras_h5_weights(h5_path: str, variables: Mapping, strict: bool = False
         value = group[src]
         leaf_shape = np.shape(leaf)
         last = module_path[-1] if module_path else None
+        if last == "ct" and leaf_name == "kernel":
+            value = _flip_transpose_kernel(value)
         if src == "depthwise_kernel:0" or (
             # Keras 3 names the DepthwiseConv2D kernel plain 'kernel' but keeps
             # its (H,W,C,1) layout: transpose on the shapes' evidence
@@ -193,7 +213,8 @@ def save_keras_h5_weights(h5_path: str, variables: Mapping) -> None:
         lname = keras_layer_name(module_path)
         last = module_path[-1] if module_path else None
         if leaf_name == "kernel":
-            wname = "depthwise_kernel:0" if last == "dw" else "kernel:0"
+            wname = ("depthwise_kernel:0" if last == "dw" else
+                     "pointwise_kernel:0" if "sep_pw" in module_path else "kernel:0")
         elif leaf_name == "bias":
             wname = "beta:0" if "scale" in _siblings(variables, keys) else "bias:0"
         elif leaf_name in _LEAF_TO_KERAS:
@@ -203,6 +224,8 @@ def save_keras_h5_weights(h5_path: str, variables: Mapping) -> None:
         value = np.asarray(leaf)
         if wname == "depthwise_kernel:0":
             value = value.transpose(0, 1, 3, 2)  # (H,W,1,C) -> (H,W,C,1)
+        if last == "ct" and leaf_name == "kernel":
+            value = _flip_transpose_kernel(value)
         layers.setdefault(lname, {}).setdefault(wname, value)
 
     with h5py.File(h5_path, "w") as f:

@@ -4,13 +4,18 @@ The JAX package keeps `{'params': ..., 'batch_stats': ...}` as nested
 dicts keyed by flax scope. `from_jax_variables` turns that tree (numpy
 leaves) into the port's `state_dict`:
 
-* conv kernel HWIO -> OIHW, depthwise (kh,kw,1,C) -> (C,1,kh,kw): both
-  `transpose(3, 2, 0, 1)`;
+* conv kernel HWIO -> OIHW, depthwise (kh,kw,1,C) -> (C,1,kh,kw), and a
+  transpose conv's flax kernel (kh,kw,in,out) -> the (out,in,kh,kw) weight
+  of its correlation (`layers.ConvTransposeK`): all `transpose(3, 2, 0, 1)`;
 * BN scale/bias/mean/var -> weight/bias/running_mean/running_var;
 * LayerNorm scale/bias -> weight/bias;
 * Dense and DenseGeneral kernels ((in, out), (C, H, Dk) or (H, Dk, C)) and
   biases as they are: the port keeps them in flax's layout;
-* flax's wrapper scopes `dw` and `bn` are dropped from the names.
+* flax's wrapper scopes `dw`, `bn` and `ct` are dropped from the names
+  (`up6/ct/kernel` is `up6.weight`); `SeparableConv`'s `sep_dw/dw` and
+  `sep_pw` and `Subpixel`'s `c` are modules of their own, so
+  `down0_conv0/sep_dw/dw/kernel` is `down0_conv0.sep_dw.weight` and
+  `subpixel/c/kernel` is `subpixel.c.weight`.
 
 The mapping is built from the model's own modules and is strict: a leaf
 left over on either side, or a shape that differs, raises.
@@ -29,7 +34,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from deeplabv3p_torch.models.layers import BatchNorm, Conv, Dense, DepthwiseConv, LayerNorm
+from deeplabv3p_torch.models.layers import (
+    BatchNorm,
+    Conv,
+    ConvTransposeK,
+    Dense,
+    DepthwiseConv,
+    LayerNorm,
+)
 
 _BN_LEAVES = (
     ("params", "scale", "weight"),
@@ -72,7 +84,9 @@ def jax_path_table(model: nn.Module) -> dict[str, tuple[str, bool]]:
             for coll, flax_leaf, torch_leaf in _BN_LEAVES:
                 table[f"{coll}/{scope}/bn/{flax_leaf}"] = (f"{name}.{torch_leaf}", False)
         elif isinstance(m, Conv):
-            inner = f"{scope}/dw" if isinstance(m, DepthwiseConv) else scope
+            wrapper = ("dw" if isinstance(m, DepthwiseConv) else
+                       "ct" if isinstance(m, ConvTransposeK) else "")
+            inner = f"{scope}/{wrapper}" if wrapper else scope
             table[f"params/{inner}/kernel"] = (f"{name}.weight", True)
             if m.bias is not None:
                 table[f"params/{inner}/bias"] = (f"{name}.bias", False)

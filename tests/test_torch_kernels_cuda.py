@@ -363,6 +363,7 @@ def test_upsample_ce_wrappers_refuse_what_the_kernels_do_not_take(dev):
 CONFUSION_CASES = [
     ((8, 512, 512, 21), torch.float32, torch.int32, 21),   # the eval slice's call
     ((8, 512, 512, 21), torch.bfloat16, torch.uint8, 21),
+    ((8, 1024, 2048, 19), torch.float32, torch.int32, 19),  # Fast-SCNN's Cityscapes eval
     ((3, 37, 41, 6), torch.float32, torch.int64, 6),       # ragged: 4551 pixels
     ((3149, 21), torch.float32, torch.int32, 29),          # labels up to 29 are invalid
     ((2, 50, 30, 151), torch.float32, torch.uint8, 151),   # ADE20K's class count

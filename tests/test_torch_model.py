@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from deeplabv3p_tpu.models.factory import build_segmentation_model
-from deeplabv3p_torch.models.factory import build_deeplab_model
+from deeplabv3p_torch.models.factory import build_deeplab_model, ported_models_text
+from deeplabv3p_torch.models.factory import build_segmentation_model as build_segmentation_model_port
 from deeplabv3p_torch.models.layers import BatchNorm, init_parameters
 from deeplabv3p_torch.utils.weights import (
     flatten,
@@ -91,10 +92,11 @@ def image(px: int, seed: int = 1, n: int = 1) -> np.ndarray:
     return np.random.default_rng(seed).uniform(-1, 1, (n, px, px, 3)).astype(np.float32)
 
 
-def port_model(model_type, output_stride, variables, fused=False, dtype=None):
-    model = build_deeplab_model(
-        model_type, 21, output_stride=output_stride, fused_aspp=fused,
-        fused_decoder=fused, dtype=dtype, device="cpu")
+def port_model(model_type, output_stride, variables, fused=False, dtype=None,
+               use_subpixel=False):
+    model = build_segmentation_model_port(
+        model_type, 21, output_stride=output_stride, use_subpixel=use_subpixel,
+        fused_aspp=fused, fused_decoder=fused, dtype=dtype, device="cpu")
     model.load_state_dict(from_jax_variables(variables, model), strict=True)
     return model
 
@@ -260,9 +262,15 @@ def test_from_jax_variables_is_strict():
 
 
 def test_registry_and_modes():
-    # UNet is another family, with its own factory (ROADMAP Queue A item 9.5)
-    with pytest.raises(NotImplementedError, match="not ported yet.*item 9.5"):
+    # UNet is another family: the DeepLab factory refuses it and points to
+    # the factory of all three, which builds it (tests/test_torch_unet.py)
+    with pytest.raises(ValueError, match="not a DeepLabV3\\+ model.*build_segmentation_model"):
         build_deeplab_model("unet_standard", 21)
+    unet = build_segmentation_model_port("unet_standard", 21, device="meta")
+    assert type(unet).__name__ == "UNetStandard" and not unet.training
+    names = ported_models_text().removeprefix("ported: ").split(", ")
+    assert len(names) == 22 and {"unet_standard", "unet_lite", "unet_simple",
+                                 "fast_scnn"} <= set(names)
     model = build_deeplab_model("mobilenetv2_lite", 21, device="cpu")
     assert not model.training
     # training mode runs (batch statistics, moving the running buffers);

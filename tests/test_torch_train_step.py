@@ -31,7 +31,7 @@ from deeplabv3p_tpu.models.factory import build_segmentation_model, make_trainab
 from deeplabv3p_tpu.train import TrainState as JaxTrainState
 from deeplabv3p_tpu.train import make_train_step as jax_make_train_step
 from deeplabv3p_torch.losses import get_loss_fn
-from deeplabv3p_torch.models.factory import build_deeplab_model
+from deeplabv3p_torch.models.factory import build_segmentation_model as build_segmentation_model_port
 from deeplabv3p_torch.models.layers import Dropout
 from deeplabv3p_torch.train import StageConfig, Trainer
 from deeplabv3p_torch.utils.weights import flatten, from_jax_variables, to_jax_variables
@@ -54,23 +54,24 @@ def setup():
     return model, variables, images, labels, sw
 
 
-def jax_step(setup, fused, freeze_level, lr=LR):
+def jax_step(setup, fused, freeze_level, lr=LR, l2_factor=2e-5):
     with jax.enable_x64(True):
-        return _jax_step(setup, fused, freeze_level, lr)
+        return _jax_step(setup, fused, freeze_level, lr, l2_factor)
 
 
-def _jax_step(setup, fused, freeze_level, lr):
+def _jax_step(setup, fused, freeze_level, lr, l2_factor):
     model, variables, images, labels, sw = setup
     params = jax.tree.map(jnp.asarray, variables["params"])
     tx = jopt.build_optimizer("sgd", lr, decay_type=None,
                               trainable_mask=make_trainable_mask(params, freeze_level))
+    # a model without BatchNorm (UNet standard and lite) has no batch_stats
     state = JaxTrainState(
         step=jnp.zeros((), jnp.int32), params=params,
-        batch_stats=variables["batch_stats"], opt_state=tx.init(params),
+        batch_stats=variables.get("batch_stats", {}), opt_state=tx.init(params),
         avg=jopt.init_average(None, params), rng=jax.random.PRNGKey(0))
     step = jax.jit(jax_make_train_step(
         model, tx, jax_loss_fn("crossentropy"), freeze_level=freeze_level,
-        use_sample_weights=True, l2_factor=2e-5, fused_loss=fused, fused_interpret=True))
+        use_sample_weights=True, l2_factor=l2_factor, fused_loss=fused, fused_interpret=True))
     with nn.intercept_methods(no_dropout):
         new, out = step(state, images, labels, sw, 1.0)
     return float(out["loss"]), float(out["jaccard"]), flatten(jax.tree.map(
@@ -78,16 +79,17 @@ def _jax_step(setup, fused, freeze_level, lr):
 
 
 def port_step(setup, fused, freeze_level, tmp_path, model_type="mobilenetv2", num_classes=C,
-              lr=LR):
+              lr=LR, l2_factor=2e-5, use_subpixel=False):
     _, variables, images, labels, sw = setup
-    model = build_deeplab_model(model_type, num_classes, output_stride=16, dtype=torch.float64,
-                                device="cpu")
+    model = build_segmentation_model_port(
+        model_type, num_classes, output_stride=16, use_subpixel=use_subpixel,
+        dtype=torch.float64, device="cpu")
     model.load_state_dict(from_jax_variables(variables, model), strict=True)
     for m in model.modules():
         if isinstance(m, Dropout):
             m.rate = 0.0
     trainer = Trainer(model, num_classes, get_loss_fn("crossentropy"), device="cpu",
-                      use_sample_weights=True, l2_factor=2e-5, log_dir=str(tmp_path),
+                      use_sample_weights=True, l2_factor=l2_factor, log_dir=str(tmp_path),
                       fused_loss=fused)
     stage = StageConfig(freeze_level=freeze_level, optim_type="sgd", learning_rate=lr)
     state = trainer.build_stage_state(stage)

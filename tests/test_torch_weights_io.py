@@ -73,7 +73,9 @@ def _assert_trees_bit_equal(got, want):
     assert sorted(fg) == sorted(fw)
     for k in fw:
         assert tuple(fg[k].shape) == tuple(np.shape(fw[k])), k
-        np.testing.assert_array_equal(_bits(fg[k]), _bits(fw[k]), err_msg=k)
+        g, w = _bits(fg[k]), _bits(fw[k])
+        if not np.array_equal(g, w):  # the quick comparison first, the message on a miss
+            np.testing.assert_array_equal(g, w, err_msg=k)
 
 
 def _mixed_tree():

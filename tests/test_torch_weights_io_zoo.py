@@ -1,12 +1,14 @@
 """Weight files of the models the port took over last (ResNet50, PeleeNet,
-GhostNet, MobileViT) between the JAX package and the port, as
-tests/test_torch_weights_io.py holds them for the MobileNets and Xception.
+GhostNet, MobileViT; UNet x3 and Fast-SCNN) between the JAX package and the
+port, as tests/test_torch_weights_io.py holds them for the MobileNets and
+Xception.
 
 - Every leaf of each new registry entry: the port's module tree carries
   exactly the JAX tree's paths, and `keras_layer_name` equals the JAX one
   on every module path (ResNet's `stage2a` and MobileViT's `mvit_0`
   containers, MobileViT's `c` and `mha` wrapper scopes and its '--' /
-  '__' names included).
+  '__' names included; the transpose convs' `ct`, the separable convs'
+  `sep`, `sep_dw` and `sep_pw`).
 - `.h5`: a file of the JAX package's `save_keras_h5_weights` for
   `resnet50`, `peleenet` and `mobilevit_xxs` loads into the port (through
   `DeepLab(weights_path=...)`) bit-equal, and gives the JAX model's f32
@@ -15,8 +17,12 @@ tests/test_torch_weights_io.py holds them for the MobileNets and Xception.
   [gamma, beta] and a Dense's or an attention projection's (Keras
   EinsumDense) [kernel, bias], Keras's `layer.weights` order, which its
   legacy by-name reader walks.
-- `.ckpt` for `mobilevit_xxs`: a JAX-written file loads into the port
-  bit-equal; the port's file is flax's bytes and loads into JAX bit-equal.
+- `.h5` of UNet x3 and Fast-SCNN too: a SeparableConv2D's three weights in
+  one layer (depthwise, pointwise, bias, in that order), a
+  Conv2DTranspose's kernel flipped and as (kh, kw, out, in).
+- `.ckpt` for `mobilevit_xxs` and the four new families: a JAX-written file
+  loads into the port bit-equal; the port's file is flax's bytes and loads
+  into JAX bit-equal. `.npz` of the four both ways, bit-equal.
 - The train CLI from a JAX `.ckpt` of `mobilevit_xxs_lite` with
   `--fused_loss --bn_recalibrate --optim_state_dtype bfloat16`, then the
   eval CLI on its output, at 64 px.
@@ -35,7 +41,7 @@ from deeplabv3p_tpu.models.factory import build_segmentation_model
 from deeplabv3p_tpu.utils import checkpoint as jckpt
 from deeplabv3p_tpu.utils import keras_import as jkeras
 from deeplabv3p_torch import inference as tinf
-from deeplabv3p_torch.models.factory import build_deeplab_model
+from deeplabv3p_torch.models.factory import build_segmentation_model as port_build
 from deeplabv3p_torch.utils import checkpoint as tckpt
 from deeplabv3p_torch.utils import keras_import as tkeras
 from deeplabv3p_torch.utils.weights import flatten, jax_path_table, to_jax_variables
@@ -52,8 +58,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PX = 64
 NEW_TYPES = ["resnet50", "peleenet", "peleenet_lite", "ghostnet", "ghostnet_lite",
              "mobilevit_s", "mobilevit_s_lite", "mobilevit_xs", "mobilevit_xs_lite",
-             "mobilevit_xxs", "mobilevit_xxs_lite"]
-H5_TYPES = ["resnet50", "peleenet", "mobilevit_xxs"]
+             "mobilevit_xxs", "mobilevit_xxs_lite",
+             "unet_standard", "unet_lite", "unet_simple", "fast_scnn"]
+FAMILIES = ["unet_standard", "unet_lite", "unet_simple", "fast_scnn"]
+H5_TYPES = ["resnet50", "peleenet", "mobilevit_xxs", *FAMILIES]
 
 
 @pytest.mark.parametrize("model_type", NEW_TYPES)
@@ -61,7 +69,7 @@ def test_keras_layer_name_equals_jax_on_every_module_path(model_type):
     jm = build_segmentation_model(model_type, 5, output_stride=16)
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, PX, PX, 3)))
     leaves = flatten(jax.tree.map(lambda a: 0, shapes))
-    assert set(jax_path_table(build_deeplab_model(model_type, 5, device="meta"))) == set(leaves)
+    assert set(jax_path_table(port_build(model_type, 5, device="meta"))) == set(leaves)
     paths = {tuple(k.split("/")[1:-1]) for k in leaves}
     names = set()
     for path in paths:
@@ -74,6 +82,11 @@ def test_keras_layer_name_equals_jax_on_every_module_path(model_type):
                 "mvit_block_0_transformer_0_attention/query"} <= names
     if model_type == "resnet50":
         assert {"conv1", "bn_conv1", "res2a_branch2a", "bn5c_branch2c"} <= names
+    if model_type == "unet_lite":
+        assert {"conv1_0", "up6", "conv9_2", "head"} <= names
+    if model_type == "fast_scnn":
+        assert {"lds_conv_conv", "lds_ds1", "lds_ds1_BN", "gfe0_0_depthwise",
+                "ppm_bin6_conv", "ff_dsconv", "classifier_conv_conv"} <= names
 
 
 @pytest.mark.parametrize("model_type", H5_TYPES)
@@ -125,13 +138,56 @@ def test_mobilevit_ckpt_round_trip(tmp_path):
     variables = jax_variables("mobilevit_xxs", 16, PX)
     jax_path, port_path = str(tmp_path / "jax.ckpt"), str(tmp_path / "port.ckpt")
     jckpt.save_variables(jax_path, variables)
-    model = build_deeplab_model("mobilevit_xxs", 21, device="cpu")
+    model = port_build("mobilevit_xxs", 21, device="cpu")
     tckpt.load_weights(jax_path, model)
     _assert_trees_bit_equal(to_jax_variables(model), variables)
     tckpt.save_variables(port_path, to_jax_variables(model))
     with open(jax_path, "rb") as a, open(port_path, "rb") as b:
         assert a.read() == b.read()  # flax's bytes
     _assert_trees_bit_equal(jckpt.load_variables(port_path), variables)
+
+
+def test_h5_layouts_of_separable_and_transpose_convs(tmp_path):
+    """unet_simple's file as Keras lays it out: `down0_conv0` is one
+    SeparableConv2D layer of [depthwise (3,3,C,1), pointwise (1,1,C,F),
+    bias], `up0_conv0` a Conv2DTranspose kernel (3,3,out,in), flipped."""
+    variables = jax_variables("unet_simple", 16, PX)
+    path = str(tmp_path / "port.h5")
+    tkeras.save_keras_h5_weights(path, to_jax_variables(port_model("unet_simple", 16, variables)))
+    with h5py.File(path, "r") as f:
+        mw = f["model_weights"]
+        names = [w.decode() if isinstance(w, bytes) else str(w)
+                 for w in mw["down0_conv0"].attrs["weight_names"]]
+        assert [w.rsplit("/", 1)[1] for w in names] == [
+            "depthwise_kernel:0", "pointwise_kernel:0", "bias:0"]
+        assert mw["down0_conv0/down0_conv0/depthwise_kernel:0"].shape == (3, 3, 32, 1)
+        assert mw["down0_conv0/down0_conv0/pointwise_kernel:0"].shape == (1, 1, 32, 64)
+        kk = np.asarray(mw["up0_conv0/up0_conv0/kernel:0"])
+    k = variables["params"]["up0_conv0"]["ct"]["kernel"]  # (3, 3, in 256, out 256)
+    np.testing.assert_array_equal(kk, k[::-1, ::-1].transpose(0, 1, 3, 2))
+
+
+@pytest.mark.parametrize("model_type", FAMILIES)
+def test_ckpt_and_npz_round_trip(model_type, tmp_path):
+    from deeplabv3p_torch.utils.weights import load_npz, save_npz
+
+    variables = jax_variables(model_type, 16, PX)
+    jax_path, port_path = str(tmp_path / "jax.ckpt"), str(tmp_path / "port.ckpt")
+    jckpt.save_variables(jax_path, variables)
+    model = port_build(model_type, 21, device="cpu")
+    tckpt.load_weights(jax_path, model)
+    _assert_trees_bit_equal(to_jax_variables(model), variables)
+    tckpt.save_variables(port_path, to_jax_variables(model))
+    with open(jax_path, "rb") as a, open(port_path, "rb") as b:
+        assert a.read() == b.read()  # flax's bytes
+    _assert_trees_bit_equal(jckpt.load_variables(port_path), variables)
+    npz = str(tmp_path / "w.npz")
+    save_npz(npz, variables)
+    other = port_build(model_type, 21, device="cpu")
+    tckpt.load_weights(npz, other)
+    _assert_trees_bit_equal(to_jax_variables(other), variables)
+    save_npz(str(tmp_path / "port.npz"), to_jax_variables(other))
+    _assert_trees_bit_equal(load_npz(str(tmp_path / "port.npz")), variables)
 
 
 def test_train_cli_from_a_jax_ckpt_then_the_eval_cli(tmp_path):
