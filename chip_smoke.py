@@ -100,7 +100,20 @@
    batch, each matrix equal to torch.argmax + bincount; (d) mobilenetv2 with
    the subpixel head, its ASPP and decoder kernels in f32 against none
    (>= 0.999 of pixels);
-14. latency of the serving path, train-step time and peak memory fused and
+14. the dense CRF (postprocess.py, torch ops, no kernel of its own):
+   `crf_inference` on the card against the same on the CPU (both example/
+   pairs at 48x64 with space_step 4 and at 512x512 with the defaults, 21- and
+   2-class unaries, argmax >= 0.999) and two card calls bit-equal; the grid
+   against `crf_exact_dense` on the card with tests/test_crf_parity.py's
+   floors at 48x64, printed at 128x170; `DeepLab(mobilenetv2, do_crf=True)`
+   bf16 b1, 4 requests (the ASPP kernel once a request), one mask against
+   the CRF on the CPU, in turns with 4 without the CRF, and fast_scnn at
+   1024x2048 with 19 classes and the CRF; the eval CLI with --do_crf, 2
+   batches of b8 (the ASPP and confusion kernels once a batch), its matrix
+   equal to argmax -> crf_postprocess -> bincount image by image; the CRF's
+   times at 512x512 with 2, 5 and 21 labels, rgb and luma, one call
+   profiled (build/profile_one_crf.txt);
+15. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
    share of it, xception's step unfused, fused and with bf16 optimizer
@@ -182,6 +195,11 @@ UNET_SERVED = ("unet_standard", "unet_lite", "unet_simple")
 CITYSCAPES_HW = (1024, 2048)
 CITYSCAPES_REQUEST_SHAPES = [(1024, 2048), (1080, 1920), (960, 1920), (1024, 2048)]
 FAMILY_REQUESTS, FAMILY_TRAIN_IMAGES, CITYSCAPES_SEED = 4, 16, 7
+# the dense CRF: the example/ pairs against the CPU and the oracle; mobilenetv2
+# served with do_crf (4 requests a turn), timed alone at 2, 5 and 21 labels;
+# eval --do_crf on the first 16 synthetic pairs (2 batches of b8)
+CRF_PAIRS = ("2007_000039", "2007_000346")
+CRF_REQUESTS, CRF_LABEL_COUNTS, CRF_EVAL_IMAGES = 4, (2, 5, 21), 16
 # (logits shape, logits dtype name, labels dtype name): the eval slice's call first
 CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
                    ((8, 512, 512, 21), "bfloat16", "uint8"),
@@ -540,6 +558,7 @@ def main() -> None:
         from deeplabv3p_torch.ops.kernels import decoder as kdec
         from deeplabv3p_torch.ops.kernels import mbconv as kmb
         from deeplabv3p_torch.ops.kernels import upsample_ce as kce
+        from deeplabv3p_torch import postprocess
         from deeplabv3p_torch.postprocess import mask_argmax
         from deeplabv3p_torch.train import main as train_main
         from deeplabv3p_torch.train import parse_args as train_args
@@ -799,6 +818,17 @@ def main() -> None:
     # -- 5n. (d) the subpixel head: mobilenetv2's forward with its two kernels -------------
     subpixel_launches = subpixel_head(torch, kernels, requests[:FAMILY_REQUESTS])
 
+    # -- 5o. the dense CRF: the card against the CPU, the oracle on the card, serving
+    # with do_crf (mobilenetv2, fast_scnn at 1024x2048), eval --do_crf, its times -------
+    t0 = time.perf_counter()
+    crf_card_vs_cpu(torch, postprocess)
+    crf_oracle_on_card(torch, postprocess)
+    crf_serve_launches = crf_serving(torch, kernels, DeepLab, postprocess, common, served,
+                                     requests, (city_classes, city_requests))
+    crf_eval_launches = crf_evaluation_path(torch, kernels, classes_path, train_dir)
+    crf_times(torch, postprocess)
+    print(f"the CRF phase took {time.perf_counter() - t0:.1f} s")
+
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
         return float(np.percentile(v, q))
@@ -908,6 +938,13 @@ def main() -> None:
     for row in kernels[:2]:
         row.setdefault("also_on", {})["mobilenetv2 subpixel head, f32"] = \
             subpixel_launches[row["name"]]
+    # the CRF paths: mobilenetv2 served with do_crf=True, and eval --do_crf
+    kernels[0]["also_on"]["mobilenetv2 serving, do_crf"] = \
+        crf_serve_launches["multirate_atrous_depthwise"]
+    for row in kernels:
+        if row["name"] in ("multirate_atrous_depthwise", "confusion_matrix_fused"):
+            row["also_on"][f"mobilenetv2 eval --do_crf b{EVAL_BATCH}"] = \
+                crf_eval_launches[row["name"]]
     for key, launches_of, path in (("upsample_ce_x16", v3_launches,
                                     "mobilenetv3large_lite --fused_loss"),
                                    ("upsample_ce_b8", x_train_launches, "xception --fused_loss")):
@@ -2622,6 +2659,260 @@ def subpixel_head(torch, kernels, requests) -> dict:
           f"{err:.3g}); bf16 with both kernels finite, argmax equal to f32's on {agree16:.5f}  "
           f"[{card_line()}]")
     del plain, fused, fused16
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- the dense CRF (postprocess.py, torch ops: no kernel of its own) ------------
+
+
+def crf_pair(stem: str, hw) -> tuple:
+    """(image (h, w, 3) f32 0..255, labels compacted to 0..n-1 int32) of an
+    example/ pair, resized as tests/test_crf_parity.py resizes them."""
+    from deeplabv3p_torch.tools.crf_parity_study import compact, load_pair
+
+    image, mask = load_pair(stem, *hw)
+    return image, compact(mask)[0]
+
+
+def crf_mask(k: int, hw, seed: int = 0) -> np.ndarray:
+    """A seeded (h, w) int32 mask of k blob-shaped regions, every label present."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    fields = [np.kron(rng.uniform(0, 1, (h // 64 + 1, w // 64 + 1)), np.ones((64, 64)))[:h, :w]
+              for _ in range(k)]
+    mask = np.argmax(np.stack(fields, -1), -1).astype(np.int32)
+    mask.flat[:k] = np.arange(k)  # all k present whatever the draw
+    return mask
+
+
+def crf_card_vs_cpu(torch, pp) -> None:
+    """`crf_inference` on the card against the same function on the CPU: both
+    example pairs at 48x64 (space_step 4) and 512x512 (the defaults), with 21-
+    and 2-class unaries; then two calls on the card bit-equal."""
+    print("dense CRF (postprocess.crf_inference, torch ops) on the card vs the same on the CPU:")
+    for stem in CRF_PAIRS:
+        for hw, kw in (((48, 64), {"space_step": 4}), (INPUT, {})):
+            image, labels = crf_pair(stem, hw)
+            for n, lab in ((21, labels), (2, (labels > 0).astype(np.int32))):
+                unary, img = pp.unary_from_labels(torch.from_numpy(lab), n), torch.from_numpy(image)
+                q_cpu = pp.crf_inference(unary, img, **kw)
+                q_card = pp.crf_inference(unary.cuda(), img.cuda(), **kw)
+                d = (q_card.cpu() - q_cpu).abs()
+                agree = float((q_card.argmax(-1).cpu() == q_cpu.argmax(-1)).float().mean())
+                check(bool(torch.isfinite(q_card).all()) and agree >= 0.999,
+                      f"{stem} {hw[0]}x{hw[1]} {kw or 'defaults'}, {n}-class unary: max|dQ| "
+                      f"{d.max():.3g}, mean|dQ| {d.mean():.3g}, argmax agreement {agree:.5f} "
+                      f">= 0.999")
+    image, labels = crf_pair(CRF_PAIRS[1], INPUT)
+    img = torch.from_numpy(image).cuda()
+    for n, lab in ((21, labels), (2, (labels > 0).astype(np.int32))):
+        unary = pp.unary_from_labels(torch.from_numpy(lab).cuda(), n)
+        same = torch.equal(pp.crf_inference(unary, img), pp.crf_inference(unary, img))
+        check(same, f"two crf_inference calls on the card, 512x512, {n}-class unary: Q bit-equal")
+
+
+def crf_oracle_on_card(torch, pp) -> None:
+    """The grid against `crf_exact_dense` (f64) on the card, with
+    tests/test_crf_parity.py's inputs and floors at 48x64; then the full tier
+    at 128x170, printed with no floor."""
+    def agree(a, b, sel=None):
+        return float((a[sel] == b[sel]).float().mean()) if sel is not None else \
+            float((a == b).float().mean())
+
+    print("dense CRF: the grid against the exact dense oracle, both on the card:")
+    h, w = 40, 56
+    labels = torch.from_numpy((np.random.RandomState(0).rand(h, w) > 0.5).astype(np.int32)).cuda()
+    image = torch.full((h, w, 3), 127.0, device="cuda")
+    unary = pp.unary_from_labels(labels, 2)
+    params = dict(compat_bilateral=0.0)
+    q_g = pp.crf_inference(unary, image, **params)
+    q_ref = pp.crf_exact_dense(unary, image, **params)
+    mae, a = float((q_g - q_ref).abs().mean()), agree(q_g.argmax(-1), q_ref.argmax(-1))
+    check(mae < 1e-3 and a > 0.995,
+          f"spatial-only 40x56: q_mae {mae:.3g} < 1e-3, argmax agreement {a:.5f} > 0.995")
+    image = torch.zeros((h, w, 3), device="cuda")
+    image[:, w // 2:] = 255.0
+    labels = torch.zeros((h, w), dtype=torch.int32, device="cuda")
+    labels[:, w // 2 + 2:] = 1
+    unary = pp.unary_from_labels(labels, 2)
+    params = dict(compat_gaussian=0.0, sxy_bilateral=10.0)
+    q_g = pp.crf_inference(unary, image, space_step=4, n_bins=8, color_features="luma", **params)
+    q_ref = pp.crf_exact_dense(unary, image, bilateral_features="luma", **params)
+    mae, a = float((q_g - q_ref).abs().mean()), agree(q_g.argmax(-1), q_ref.argmax(-1))
+    check(a > 0.97 and mae < 0.05,
+          f"bilateral-only (luma) 40x56: argmax agreement {a:.5f} > 0.97, q_mae {mae:.3g} < 0.05")
+    for hw, steps in (((48, 64), (4,)), ((128, 170), (4, 16))):
+        for stem in CRF_PAIRS:
+            image, labels = crf_pair(stem, hw)
+            image, labels = torch.from_numpy(image).cuda(), torch.from_numpy(labels).cuda()
+            unary = pp.unary_from_labels(labels, int(labels.max()) + 1)
+            params = dict(sxy_bilateral=80.0 / (500.0 / hw[1]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m_rgb = pp.crf_exact_dense(unary, image, **params).argmax(-1)
+            torch.cuda.synchronize()
+            t_oracle = time.perf_counter() - t0
+            delta = m_rgb != labels
+            for step in steps:
+                m_g = pp.crf_inference(unary, image, space_step=step, **params).argmax(-1)
+                a_all, a_delta = agree(m_g, m_rgb), agree(m_g, m_rgb, delta)
+                text = (f"full CRF {stem} {hw[0]}x{hw[1]} (sxy_bilateral "
+                        f"{params['sxy_bilateral']:.2f}, space_step {step}; oracle {t_oracle:.2f} "
+                        f"s, changed {float(delta.float().mean()):.2%} of pixels): agree_all "
+                        f"{a_all:.4f}, agree_delta {a_delta:.4f}")
+                if hw == (48, 64):
+                    check(bool(delta.any()) and a_all > 0.95 and a_delta > 0.75,
+                          text + " (floors 0.95, 0.75)")
+                else:
+                    print(f"  {text} (no floor)  [{card_line()}]")
+    torch.cuda.empty_cache()
+
+
+def crf_serving(torch, kernels, DeepLab, pp, common, served, requests, city) -> dict:
+    """`DeepLab(mobilenetv2, do_crf=True)`, bf16 b1: CRF_REQUESTS requests with
+    the counts set to 0 just before and read just after (the ASPP kernel once
+    a request, no other kernel), masks of the requests' sizes, one request's
+    mask against the CRF run on the CPU on the same pre-resize mask; then in
+    turns with the same requests without the CRF (P C C P); then fast_scnn
+    at 1024x2048 with 19 classes and the CRF, 2 requests. Returns the counted
+    run's launch counts."""
+    from deeplabv3p_torch.inference import denormalize_image
+
+    crf = DeepLab(do_crf=True, **common)
+    reqs = requests[:CRF_REQUESTS]
+    serve_requests(torch, crf, reqs[:WARMUP])
+    kernels.reset_launch_counts()                    # the CRF serving path starts here
+    masks, times = serve_requests(torch, crf, reqs)
+    launches = kernels.launch_counts()               # ... and ends here
+    check(launches == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": CRF_REQUESTS},
+          f"DeepLab(do_crf=True): launch counts {launches} (ASPP one a request, every other "
+          "kernel none)")
+    plain_masks, _ = serve_requests(torch, served, reqs)
+    moved = [int((m != p).sum()) for m, p in zip(masks, plain_masks)]
+    check(all(m.shape == hw and m.dtype == np.int32 and 0 <= m.min() and m.max() < 21
+              for m, (_, hw) in zip(masks, reqs)) and sum(moved) > 0,
+          f"CRF masks of the requests' sizes, labels in [0, 21); the CRF moved {moved} pixels "
+          "a request against the same model without it")
+    data, hw = reqs[0]
+    with torch.inference_mode():
+        x = torch.from_numpy(data).cuda()
+        mask = pp.mask_argmax(crf.model(x.permute(0, 3, 1, 2)), dim=1)[0]
+        on_cpu = pp.crf_postprocess(denormalize_image(x[0]).cpu(), mask.cpu())
+    want = pp.mask_resize(on_cpu, hw).numpy()
+    agree = float((masks[0] == want).mean())
+    check(agree >= 0.999, f"served CRF mask vs the same pre-resize mask refined on the CPU: "
+                          f"{agree:.5f} >= 0.999 of pixels equal")
+    pooled = {"no CRF": [], "CRF": []}
+    for name in ("no CRF", "CRF", "CRF", "no CRF"):
+        pooled[name] += serve_requests(torch, crf if name == "CRF" else served, reqs)[1]
+    pooled["CRF"] += times
+    print(f"serving mobilenetv2 bf16 b1, {CRF_REQUESTS} requests a turn (P C C P, and the "
+          "counted run):")
+    for name, ts in pooled.items():
+        print(f"  {name}: median {statistics.median(ts):.3f} ms, p90 "
+              f"{float(np.percentile(ts, 90)):.3f} ms over {len(ts)} requests  [{card_line()}]")
+    fast = DeepLab(model_type="fast_scnn", classes_path=city[0], model_input_shape=CITYSCAPES_HW,
+                   device="cuda", do_crf=True)
+    serve_requests(torch, fast, city[1][:1])
+    kernels.reset_launch_counts()
+    fmasks, ftimes = serve_requests(torch, fast, city[1][:2])
+    flaunch = kernels.launch_counts()
+    n_labels = [len(np.unique(m)) for m in fmasks]
+    check(flaunch == ZERO_LAUNCHES and all(m.shape == hw for m, (_, hw) in zip(fmasks, city[1]))
+          and all(0 <= m.min() and m.max() < 19 for m in fmasks),
+          f"fast_scnn with the CRF at {CITYSCAPES_HW[0]}x{CITYSCAPES_HW[1]}, 19 classes: masks "
+          f"of the requests' sizes, no kernel on the path; {n_labels} labels; "
+          f"{', '.join(f'{t:.3f}' for t in ftimes)} ms  [{card_line()}]")
+    del crf, fast
+    torch.cuda.empty_cache()
+    return launches
+
+
+def crf_times(torch, pp) -> None:
+    """`crf_postprocess` alone at 512x512 with 2, 5 and 21 labels (CUDA-event
+    ms an image, device launches a call by the profiler), and `crf_inference`
+    in rgb and luma modes on those unaries; one call profiled."""
+    image, _ = crf_pair(CRF_PAIRS[1], INPUT)
+    img_u8 = torch.from_numpy(image).cuda().to(torch.uint8)
+    img = img_u8.float()
+    print(f"dense CRF times at {INPUT[0]}x{INPUT[1]} (CUDA events, mean of 10 calls after 5; "
+          "launches: device operations a call by the profiler):")
+    for k in CRF_LABEL_COUNTS:
+        mask = torch.from_numpy(crf_mask(k, INPUT)).cuda()
+        unary = pp.unary_from_labels(mask, k)
+        rows = [("crf_postprocess", lambda: pp.crf_postprocess(img_u8, mask))]
+        rows += [(f"crf_inference {mode}",
+                  lambda mode=mode: pp.crf_inference(unary, img, color_features=mode))
+                 for mode in ("rgb", "luma")]
+        for name, fn in rows:
+            ms = event_ms(fn, 10)
+            dev_us, n_ops = device_us(torch, fn, calls=3)
+            print(f"  {k:2d} labels, {name}: {ms:.3f} ms an image, device busy "
+                  f"{us_text(dev_us, 1)} in {n_ops:.0f} operations a call  [{card_line()}]")
+    mask = torch.from_numpy(crf_mask(21, INPUT)).cuda()
+    profile_one(torch, lambda: pp.crf_postprocess(img_u8, mask),
+                "one crf_postprocess (512x512, 21 labels, rgb)", "profile_one_crf.txt")
+
+
+def crf_evaluation_path(torch, kernels, classes_path, root) -> dict:
+    """`python -m deeplabv3p_torch.eval --do_crf` on the first 16 synthetic
+    pairs (2 batches of b8) with evaluation_path's seeded mobilenetv2 .npz:
+    the ASPP and confusion kernels once a batch, no other kernel, and the
+    matrix EQUAL to the one built image by image from the same model's b8
+    logits: argmax -> crf_postprocess -> bincount. Returns the launch
+    counts."""
+    from deeplabv3p_torch import eval as eval_cli
+    from deeplabv3p_torch import metrics as metrics_lib
+    from deeplabv3p_torch import postprocess as pp
+    from deeplabv3p_torch.data.augment import preprocess_eval_batch
+    from deeplabv3p_torch.data.pipeline import SegmentationDataset
+    from deeplabv3p_torch.models.factory import build_segmentation_model
+    from deeplabv3p_torch.utils.weights import from_jax_variables, load_npz
+
+    weights = os.path.join(OUT_DIR, "smoke_eval_weights.npz")  # evaluation_path's
+    with open(os.path.join(root, "list.txt")) as f:
+        ids = f.read().split()[:CRF_EVAL_IMAGES]
+    list_path = os.path.join(OUT_DIR, "smoke_crf_eval_list.txt")
+    with open(list_path, "w") as f:
+        f.write("\n".join(ids) + "\n")
+    argv = eval_argv(weights, root, classes_path, os.path.join(OUT_DIR, "smoke_crf_eval"),
+                     "--do_crf")
+    argv[argv.index(os.path.join(root, "list.txt"))] = list_path
+    print("  python -m deeplabv3p_torch.eval " + " ".join(argv))
+    m, wall, launches, _ = run_cli(torch, kernels, eval_cli.main, eval_cli.parse_args(argv))
+    batches = CRF_EVAL_IMAGES // EVAL_BATCH
+    print(f"  eval --do_crf: {wall:.2f} s wall for {CRF_EVAL_IMAGES} images (set-up included), "
+          f"mIoU {m.miou:.5f} (seeded weights); launch counts {launches}  [{card_line()}]")
+    check(launches == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches,
+                       "multirate_atrous_depthwise": batches},
+          f"eval --do_crf b{EVAL_BATCH}: the ASPP and confusion kernels once a batch ({batches})")
+    model = build_segmentation_model("mobilenetv2", 21, fused_aspp=True, dtype=torch.bfloat16,
+                                     device="cuda")
+    model.load_state_dict(from_jax_variables(load_npz(weights), model), strict=True)
+    model.eval()
+    ds = SegmentationDataset(root, ids, batch_size=EVAL_BATCH, num_classes=21,
+                             input_shape=INPUT, augment=False, shuffle=False,
+                             drop_remainder=False)
+    want = torch.zeros((21, 21), dtype=torch.int64, device="cuda")
+    plain = torch.zeros_like(want)
+    with torch.no_grad():
+        for images_u8, labels_u8, _ in ds.epoch_batches():
+            images_u8 = torch.from_numpy(images_u8).cuda()
+            images, labels = preprocess_eval_batch(
+                images_u8, torch.from_numpy(labels_u8).cuda(), num_classes=21)
+            preds = torch.argmax(model(images.permute(0, 3, 1, 2)), dim=1).to(torch.int32)
+            for b in range(preds.shape[0]):
+                refined = pp.crf_postprocess(images_u8[b], preds[b])
+                want += metrics_lib.confusion_matrix(labels[b], refined, 21)
+                plain += metrics_lib.confusion_matrix(labels[b], preds[b], 21)
+    want, plain = want.cpu().numpy(), plain.cpu().numpy()
+    moved = int(np.abs(want - plain).sum()) // 2
+    check(np.array_equal(m.confusion, want) and moved > 0,
+          f"eval --do_crf: the matrix EQUALS argmax -> crf_postprocess -> bincount image by "
+          f"image (sum|diff| {int(np.abs(m.confusion - want).sum())}); the CRF moved {moved} "
+          "counted pixels")
+    del model
     torch.cuda.empty_cache()
     return launches
 

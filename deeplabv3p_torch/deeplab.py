@@ -9,7 +9,8 @@ Examples:
 
 Image filenames are read from stdin, one per line, until it closes;
 `--input` takes a video file (or "0" for the webcam) and `--output` the
-overlay video. The CRF (`--do_crf`) is not ported yet and raises.
+overlay video. `--do_crf` refines each mask with the dense CRF
+(`postprocess.crf_postprocess`) on the same device as the model.
 """
 
 from __future__ import annotations
@@ -92,7 +93,8 @@ def parse_args(argv=None):
     p.add_argument("--model_input_shape", default="512x512",
                    help="HxW (e.g. 512x512 or 1024x512) or a single int")
     p.add_argument("--output_stride", type=int, default=16, choices=[8, 16, 32])
-    p.add_argument("--do_crf", action="store_true")
+    p.add_argument("--do_crf", action="store_true",
+                   help="refine each mask with the dense CRF, on the model's device")
     p.add_argument("--image", action="store_true", help="interactive image mode")
     p.add_argument("--input", default=None, help="video path or '0' for webcam")
     p.add_argument("--output", default=None)

@@ -10,8 +10,12 @@ kernel), the (C, C) matrix is summed on the device and reaches the host once,
 at the end. The derived metrics (PixelAcc / mClassAcc / IoU / mIoU / FWIoU /
 Dice), the summary lines and the plots (per-class IoU bar chart, normalised
 confusion matrix) are the JAX package's (reference eval.py:461-510 /
-:200-346). `--save_result` takes the per-image path: masks by
-`torch.argmax`, a label PNG and an overlay JPG for every image.
+:200-346). `--save_result` and `--do_crf` take the per-image path: a
+batch's logits as NHWC f32 scores, each real image's scores replaced by the
+dense CRF's posterior over its labels with `--do_crf` (the first-index
+argmax of those scores is `postprocess.crf_postprocess`'s mask), the batch's
+matrix by the `confusion_matrix_fused` kernel on the scores, and with
+`--save_result` a label PNG and an overlay JPG of every image's mask.
 
 The CLI takes the flags of the root eval.py plus `--fused_mbconv` and
 `--device {auto,cuda,cpu}`, where auto means the card: without one it is an
@@ -20,8 +24,8 @@ error, not a CPU run. The model (any of the 22 of
 ASPP kernel on where it has an ASPP, as the root CLI builds it on its
 accelerator. `--model_path` takes an `.npz`
 of the JAX variables tree, the JAX package's `.ckpt` or a Keras `.h5`
-(`utils/checkpoint.load_weights`); the exported formats and `--do_crf`
-raise, naming their ROADMAP item.
+(`utils/checkpoint.load_weights`); the exported formats raise, naming
+their ROADMAP item.
 matplotlib is imported inside the plot functions only, and the metrics are
 printed before any plot is tried.
 """
@@ -38,7 +42,8 @@ import torch
 from deeplabv3p_torch import metrics as metrics_lib
 from deeplabv3p_torch.data.augment import preprocess_eval_batch
 from deeplabv3p_torch.models.factory import ported_models_text
-from deeplabv3p_torch.postprocess import mask_argmax
+from deeplabv3p_torch.ops.kernels.confusion import confusion_matrix_fused
+from deeplabv3p_torch.postprocess import crf_label_posterior, mask_argmax
 from deeplabv3p_torch.train import accumulate_confusion, make_eval_step, parse_input_shape
 from deeplabv3p_torch.utils.checkpoint import check_weights_path
 
@@ -134,14 +139,14 @@ def eval_miou(
     prints the reference's summary and returns the metric suite (JAX
     eval_miou, reference eval_mIOU, eval.py:376-512).
 
-    The fast path streams the batches through the fused eval step; with
-    `save_result` each image's mask also goes to the host and to
-    `out_dir`. The final partial batch is padded with ignored labels."""
+    The fast path streams the batches through the fused eval step. With
+    `do_crf` each real image's mask is refined by the dense CRF on the
+    device (JAX eval.py:172-195) and the matrix counts the refined masks;
+    with `save_result` each image's mask also goes to the host and to
+    `out_dir`. The final partial batch is padded with ignored labels, and
+    its padding is neither refined nor saved."""
     from deeplabv3p_torch.data.pipeline import SegmentationDataset
 
-    if do_crf:
-        raise NotImplementedError(
-            "do_crf: the dense CRF is not ported yet (ROADMAP Queue A item 10)")
     num_classes = len(class_names)
     device = next(model.parameters()).device
     ds = SegmentationDataset(
@@ -152,7 +157,7 @@ def eval_miou(
     was_training = model.training
     model.eval()
     try:
-        if not save_result:
+        if not (save_result or do_crf):
             # fast path: one eval step a batch, one D2H at the end
             cm = accumulate_confusion(
                 make_eval_step(model, num_classes), ds, num_classes, device)
@@ -162,20 +167,31 @@ def eval_miou(
         sample_idx = 0
         for images_u8, labels_u8, _ in ds.epoch_batches():
             with torch.no_grad():
+                images_dev = torch.from_numpy(images_u8).to(device)
                 images, labels = preprocess_eval_batch(
-                    torch.from_numpy(images_u8).to(device),
-                    torch.from_numpy(labels_u8).to(device), num_classes=num_classes)
-                preds = mask_argmax(model(images.permute(0, 3, 1, 2)), dim=1)
-                cm += metrics_lib.confusion_matrix(labels, preds, num_classes)
-            preds_np, labels_np = preds.cpu().numpy(), labels.cpu().numpy()
-            for b in range(preds_np.shape[0]):
-                if sample_idx + b >= ds.num_samples:
-                    break  # final-batch padding
-                image_id = os.path.splitext(
-                    os.path.basename(ds.image_paths[sample_idx + b]))[0]
-                save_seg_result(images_u8[b], preds_np[b], labels_np[b], image_id,
-                                class_names, out_dir)
-            sample_idx += preds_np.shape[0]
+                    images_dev, torch.from_numpy(labels_u8).to(device), num_classes=num_classes)
+                # NHWC f32 scores; channels_last NCHW logits permute to it for free
+                scores = model(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                scores = scores.float().contiguous()
+            preds = mask_argmax(scores)
+            for b in range(min(len(images_u8), ds.num_samples - sample_idx)):  # no padding
+                if do_crf:
+                    post = crf_label_posterior(images_dev[b], preds[b])
+                    if post is not None:
+                        # Q's argmax mapped to the labels it covers: absent
+                        # classes score 0 < max Q, and the labels keep their
+                        # order, so the first-index argmax is the CRF's mask
+                        colors, q = post
+                        scores[b] = 0.0
+                        scores[b].index_copy_(-1, colors.long(), q)
+                        preds[b] = mask_argmax(scores[b])
+                if save_result:
+                    image_id = os.path.splitext(
+                        os.path.basename(ds.image_paths[sample_idx + b]))[0]
+                    save_seg_result(images_u8[b], preds[b].cpu().numpy(),
+                                    labels[b].cpu().numpy(), image_id, class_names, out_dir)
+            cm += confusion_matrix_fused(labels.contiguous(), scores, num_classes)
+            sample_idx += len(images_u8)
         return _finish_eval(cm.cpu().numpy(), class_names, plots, out_dir)
     finally:
         model.train(was_training)
@@ -215,15 +231,6 @@ def _finish_eval(cm_host, class_names, plots, out_dir):
 # CLI (root eval.py)
 # ---------------------------------------------------------------------------
 
-def _refuse_unported(args) -> None:
-    """Inputs of the root eval.py the port does not take yet: each raises,
-    naming its ROADMAP item; none is ignored."""
-    check_weights_path(args.model_path)
-    if args.do_crf:
-        raise NotImplementedError(
-            "--do_crf: the dense CRF is not ported yet (ROADMAP Queue A item 10)")
-
-
 def resolve_device(name: str) -> torch.device:
     """auto and cuda mean the card, and raise without one; cpu is by request."""
     if name == "cpu":
@@ -241,7 +248,7 @@ def main(args) -> metrics_lib.SegmentMetrics:
     from deeplabv3p_torch.utils.checkpoint import load_weights
     from deeplabv3p_torch.utils.config import get_classes, get_data_list
 
-    _refuse_unported(args)
+    check_weights_path(args.model_path)  # the exported formats raise, naming their item
     device = resolve_device(args.device)
     class_names = get_classes(args.classes_path)
     model = build_segmentation_model(
@@ -255,8 +262,8 @@ def main(args) -> metrics_lib.SegmentMetrics:
     return eval_miou(
         model, args.dataset_path, get_data_list(args.dataset_file, shuffle=False),
         class_names, model_input_shape=parse_input_shape(args.model_input_shape),
-        batch_size=args.batch_size, save_result=args.save_result, plots=True,
-        out_dir=args.out_dir)
+        batch_size=args.batch_size, do_crf=args.do_crf, save_result=args.save_result,
+        plots=True, out_dir=args.out_dir)
 
 
 def parse_args(argv=None):
@@ -277,7 +284,8 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--pb_input_node", default=None, help="for .pb graphs: not ported")
     p.add_argument("--pb_output_node", default=None, help="for .pb graphs: not ported")
-    p.add_argument("--do_crf", action="store_true", help="not ported")
+    p.add_argument("--do_crf", action="store_true",
+                   help="refine each mask with the dense CRF before it is counted")
     p.add_argument("--save_result", action="store_true")
     p.add_argument("--out_dir", default="result",
                    help="where the plots and --save_result's files go")

@@ -8,8 +8,9 @@ off); the flags can be overridden. Any of the 22 models of
 `models.factory.build_segmentation_model` serves; a UNet or Fast-SCNN has
 no ASPP or decoder, so the two flags go unused there. A request
 is `preprocess_image` (PIL bicubic resize + [-1, 1] normalise, on the host)
--> model forward -> argmax -> cv2-nearest `mask_resize`, the last three on
-the device.
+-> model forward -> argmax -> (with `do_crf`, the dense CRF of
+`postprocess.crf_postprocess` on the denormalised input) -> cv2-nearest
+`mask_resize`, all but the first on the device.
 
 Weights come from an `.npz` of the JAX variables tree (`utils/weights.py`),
 the JAX package's `.ckpt` or a Keras `.h5` (`utils/checkpoint.load_weights`),
@@ -28,7 +29,7 @@ import torch
 
 from deeplabv3p_torch.models.factory import build_segmentation_model
 from deeplabv3p_torch.models.layers import init_parameters
-from deeplabv3p_torch.postprocess import mask_argmax, mask_resize
+from deeplabv3p_torch.postprocess import crf_postprocess, mask_argmax, mask_resize
 from deeplabv3p_torch.utils.config import get_classes
 from deeplabv3p_torch.utils.checkpoint import load_weights
 
@@ -55,6 +56,14 @@ def preprocess_image(image, model_input_shape) -> np.ndarray:
     return np.expand_dims(data, 0)
 
 
+def denormalize_image(image: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] image -> uint8, bit for bit the JAX package's numpy
+    `(image * 127.5 + 127.5).astype(np.uint8)`: an f32 product, then an f32
+    sum (two ops, so no fused multiply-add rounds once where numpy rounds
+    twice), truncated toward zero by the cast."""
+    return (image.to(torch.float32) * 127.5 + 127.5).to(torch.uint8)
+
+
 class DeepLab:
     """Inference wrapper with overridable defaults (`DeepLab(**overrides)`,
     reference deeplab.py:53-58)."""
@@ -70,10 +79,6 @@ class DeepLab:
     ):
         self.__dict__.update(DEFAULT_CONFIG)
         self.__dict__.update(kwargs)
-        if self.do_crf:
-            raise NotImplementedError(
-                "do_crf: the dense CRF is not ported yet (ROADMAP Queue A item 10)"
-            )
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-GPU inference is not ported yet (ROADMAP Queue A item 11)"
@@ -111,11 +116,14 @@ class DeepLab:
     @torch.inference_mode()
     def predict(self, image_data: np.ndarray, image_shape) -> np.ndarray:
         """image_data: (1, H, W, 3) normalized; image_shape: origin (h, w).
-        Returns the (h, w) int32 mask (reference deeplab.py:96-109)."""
-        x = torch.from_numpy(np.ascontiguousarray(image_data, np.float32))
-        x = x.to(self.device).permute(0, 3, 1, 2)  # NHWC -> channels_last NCHW
-        logits = self.model(x)
+        Returns the (h, w) int32 mask (reference deeplab.py:96-109); with
+        `do_crf` the mask is refined by the dense CRF on this device before
+        the resize (JAX inference.py:133-136)."""
+        x = torch.from_numpy(np.ascontiguousarray(image_data, np.float32)).to(self.device)
+        logits = self.model(x.permute(0, 3, 1, 2))  # NHWC -> channels_last NCHW
         mask = mask_argmax(logits, dim=1)[0]
+        if self.do_crf:
+            mask = crf_postprocess(denormalize_image(x[0]), mask)
         return mask_resize(mask, tuple(image_shape)).cpu().numpy()
 
     def segment_image(self, image):

@@ -237,12 +237,15 @@ def test_unported_model_formats_raise(suffix, item):
         teval.main(args)
 
 
-def test_do_crf_and_unknown_suffix_raise(toy):
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        teval.main(teval.parse_args(_cli(toy, "--device", "cpu", "--do_crf")))
-    _, _, _, model = toy
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        teval.eval_miou(model, "x", [], ["a", "b"], do_crf=True)
+def test_do_crf_and_unknown_suffix_raise(toy, tmp_path):
+    """--do_crf is ported (tests/test_torch_crf.py holds its matrix): the CLI
+    runs with it on the CPU and counts every valid label pixel. An unknown
+    weights suffix still raises."""
+    root, list_path, _, _ = toy
+    m = teval.main(teval.parse_args(
+        _cli(toy, "--device", "cpu", "--do_crf", "--out_dir", str(tmp_path / "result"))))
+    assert m.confusion.sum() == _label_pixels(
+        root, get_data_list(list_path, shuffle=False), (64, 64), 4)
     with pytest.raises(ValueError, match="expected one of .npz, .ckpt, .h5"):
         teval.main(teval.parse_args(["--model_path", "weights.bin", "--device", "cpu"]))
 

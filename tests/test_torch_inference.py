@@ -173,8 +173,7 @@ def test_cuda_device_raises_without_cuda():
 
 def test_unported_options_raise(weights):
     kw = dict(device="cpu", classes_path=VOC, model_input_shape=(PX, PX))
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tinf.DeepLab(do_crf=True, **kw)
+    assert tinf.DeepLab(do_crf=True, **kw).do_crf  # ported: tests/test_torch_crf.py
     with pytest.raises(NotImplementedError, match="Queue A item 11"):
         tinf.DeepLab(mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
