@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout; one GPU
     python3 chip_smoke.py --aspp   # steps 1-2 and the ASPP kernel alone
+    python3 chip_smoke.py --export # steps 1-2 and the export phase (15) alone
 
 1. prints the card (`nvidia-smi` name and power limit) and the versions;
 2. builds the CUDA kernels from deeplabv3p_torch/ops/kernels/csrc with nvcc;
@@ -113,7 +114,25 @@
    equal to argmax -> crf_postprocess -> bincount image by image; the CRF's
    times at 512x512 with 2, 5 and 21 labels, rgb and luma, one call
    profiled (build/profile_one_crf.txt);
-15. latency of the serving path, train-step time and peak memory fused and
+15. export (PR 12): mobilenetv2 (bf16, 512x512, OS16, seeded) with the ASPP
+   and decoder kernels exported as a .pt2 program (`export.pt2`), saved to
+   build/, loaded and called 4 times: each kernel one graph node, each call
+   moving its launch count by 1, the probabilities against the eager model
+   (mask agreement >= 0.9999); the same with --fused_mbconv (13 nodes and
+   launches a call); `Runner` on the first artifact (probabilities sum to 1
+   and equal the program's); eager against the artifact in turns; each
+   operator's host us a call against its CUDA implementation called bare
+   (and the ASPP one through a `torch.library.custom_op`); on the toy set at
+   512x512, `deeplab --dump_model x.pt2` then `eval --model_path x.pt2`
+   against eval on the same weights as an .npz (the same matrix), and
+   `tools/export_model.py --format pt2|int8|ckpt`, its .pt2 through
+   `Runner`; int8
+   (`export.quantize`) on mobilenetv2_lite as the JAX bench's int8 cell sets
+   it: every eligible conv calibrated, swapped and run through
+   `torch._int_mm` once a call, masks against bf16, a request in turns with
+   bf16; the learning proof's trained mobilenetv2 in int8 on the toy set
+   (mask agreement > 0.98, |dmIoU| < 0.01);
+16. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
    share of it, xception's step unfused, fused and with bf16 optimizer
@@ -200,6 +219,9 @@ FAMILY_REQUESTS, FAMILY_TRAIN_IMAGES, CITYSCAPES_SEED = 4, 16, 7
 # eval --do_crf on the first 16 synthetic pairs (2 batches of b8)
 CRF_PAIRS = ("2007_000039", "2007_000346")
 CRF_REQUESTS, CRF_LABEL_COUNTS, CRF_EVAL_IMAGES = 4, (2, 5, 21), 16
+# export and int8: 4 calls of each loaded .pt2, 30-call turns of the A/Bs, the
+# int8 calibration batches' seed
+EXPORT_REQUESTS, EXPORT_ITERS, INT8_SEED = 4, 30, 11
 # (logits shape, logits dtype name, labels dtype name): the eval slice's call first
 CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
                    ((8, 512, 512, 21), "bfloat16", "uint8"),
@@ -604,6 +626,16 @@ def main() -> None:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return
+    if "--export" in sys.argv[1:]:  # the export phase alone
+        requests = make_requests(preprocess_image)
+        launches = export_phase(torch, kernels, classes_path, requests, kaspp, kdec, kmb)
+        int8_phase(torch, requests)
+        print(json.dumps({"export_launches": launches}))
+        if failures:
+            die(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
     records = {}
 
     # -- 3. ASPP kernel vs plain ---------------------------------------------
@@ -829,6 +861,14 @@ def main() -> None:
     crf_times(torch, postprocess)
     print(f"the CRF phase took {time.perf_counter() - t0:.1f} s")
 
+    # -- 5p. export: .pt2 programs keeping the kernels as graph nodes, the embedded
+    # runner, the operators' host cost; int8 on mobilenetv2_lite and on the learning
+    # proof's trained weights ------------------------------------------------------------
+    t0 = time.perf_counter()
+    export_launches = export_phase(torch, kernels, classes_path, requests, kaspp, kdec, kmb)
+    int8_phase(torch, requests, learn)
+    print(f"the export phase took {time.perf_counter() - t0:.1f} s")
+
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
         return float(np.percentile(v, q))
@@ -945,6 +985,10 @@ def main() -> None:
         if row["name"] in ("multirate_atrous_depthwise", "confusion_matrix_fused"):
             row["also_on"][f"mobilenetv2 eval --do_crf b{EVAL_BATCH}"] = \
                 crf_eval_launches[row["name"]]
+    for path, counts in export_launches.items():  # the loaded .pt2 programs' calls
+        for row in kernels:
+            if counts[row["name"]]:
+                row.setdefault("also_on", {})[path] = counts[row["name"]]
     for key, launches_of, path in (("upsample_ce_x16", v3_launches,
                                     "mobilenetv3large_lite --fused_loss"),
                                    ("upsample_ce_b8", x_train_launches, "xception --fused_loss")):
@@ -2915,6 +2959,344 @@ def crf_evaluation_path(torch, kernels, classes_path, root) -> dict:
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+# -- export, the embedded runner and int8 (export/, runtime.py) -----------------
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Host time in us a call of fn(): the wall of `calls` back-to-back calls
+    before the closing synchronize (the calls only enqueue their kernels,
+    which take less than that on the card)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def synced_ms(torch, fn, calls: int) -> float:
+    """Median ms of `calls` calls of fn(), each on the host clock between two
+    synchronizes."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def op_host_cost(torch, kaspp, kdec, kmb) -> None:
+    """Host us a call of each operator's wrapper (the model's path: the
+    `deeplabv3p::` operator through the dispatcher) against its CUDA
+    implementation called bare (the wrapper before the operators), and for
+    the ASPP kernel also through a `torch.library.custom_op` of the same
+    implementation, in turns; the serving shapes, bf16."""
+    aspp = aspp_case(torch, ASPP_CASES[0][0], ASPP_CASES[0][1], torch.bfloat16, seed=3)
+    x, k, r, s, b = aspp
+
+    @torch.library.custom_op("chip_smoke::aspp", mutates_args=(), device_types="cuda",
+                             schema="(Tensor x, Tensor kernels, int[] rates, Tensor? scale, "
+                                    "Tensor? bias) -> Tensor")
+    def as_custom_op(x, kernels, rates, scale, bias):
+        return kaspp._launch(x, kernels, rates, scale, bias)
+
+    dec = decoder_case(torch, *DECODER_CASES[0], torch.bfloat16, seed=3)
+    shape = body_block_shapes(1, INPUT)[0]
+    blk = mbconv_case(torch, shape, torch.bfloat16)
+    prep = kmb.prepare_inverted_residual(*blk[1:], rate=shape[6], elem_size=2)
+    cfg = prep.config
+    cases = {
+        "multirate_atrous_depthwise": {
+            "bare": lambda: kaspp._launch(x, k, list(r), s, b),
+            "op": lambda: kaspp.multirate_atrous_depthwise(x, k, r, s, b),
+            "custom_op": lambda: as_custom_op(x, k, list(r), s, b)},
+        "fused_decoder_frontend": {
+            "bare": lambda: kdec._launch(*dec), "op": lambda: kdec.fused_decoder_frontend(*dec)},
+        f"fused_inverted_residual {shape[:6]}": {
+            "bare": lambda: kmb._launch(*blk, prep.blob, shape[6], shape[7], cfg.chunk,
+                                        cfg.stages, cfg.smem_bytes),
+            "op": lambda: kmb.fused_inverted_residual(*blk, rate=shape[6], residual=shape[7],
+                                                      prepared=prep)},
+    }
+    card = card_line()
+    for name, fns in cases.items():
+        order = [*fns, *reversed(fns)]  # bare, op[, custom_op], ..., op, bare
+        us = {v: [] for v in fns}
+        for v in order:
+            us[v].append(host_us(torch, fns[v]))
+        print(f"  {name}: host us a call, in turns {' '.join(order)}: " + ", ".join(
+            f"{v} {min(t):.2f}-{max(t):.2f}" for v, t in us.items()) + f"  [{card}]")
+
+
+def export_phase(torch, kernels, classes_path, requests, kaspp, kdec, kmb) -> dict:
+    """`export.pt2` on the card: mobilenetv2 (bf16, 512x512, OS16, 21 classes,
+    seeded weights, as `DeepLab` builds it) with the ASPP and decoder
+    kernels, and again with the inverted-residual kernel too, exported,
+    saved under build/, loaded back and called on EXPORT_REQUESTS requests:
+    each kernel one graph node (13 for the inverted residual's blocks), each
+    call moving its launch count by as many, the probabilities against the
+    eager model's (mask agreement >= 0.9999); `Runner` on the first artifact;
+    eager against the artifact in turns; the operators' host cost. Returns
+    {path: launch counts} for the kernels line."""
+    from collections import Counter
+
+    from deeplabv3p_torch.export.pt2 import Inference, export_model, load_exported, save_exported
+    from deeplabv3p_torch.inference import DeepLab
+    from deeplabv3p_torch.runtime import Runner
+
+    card = card_line()
+    ops = ("multirate_atrous_depthwise", "fused_decoder_frontend", "fused_inverted_residual")
+    xs = [torch.from_numpy(data).cuda() for data, _ in requests[:EXPORT_REQUESTS]]
+    common = dict(model_type="mobilenetv2", classes_path=classes_path, model_input_shape=INPUT,
+                  output_stride=16, device="cuda")
+    launches, programs = {}, {}
+    print(f"export: mobilenetv2 bf16 {INPUT} OS16 as .pt2 programs, {len(xs)} calls each:")
+    for name, flags, per_call in (
+            ("mobilenetv2 .pt2", dict(fused_decoder=True), (1, 1, 0)),
+            ("mobilenetv2 .pt2 --fused_mbconv", dict(fused_decoder=True, fused_mbconv=True),
+             (1, 1, 13))):
+        deeplab = DeepLab(**common, **flags)
+        t0 = time.perf_counter()
+        ep = export_model(deeplab.model, INPUT)
+        export_s = time.perf_counter() - t0
+        nodes = Counter(str(n.target).split(".")[1] for n in ep.graph.nodes
+                        if n.op == "call_function" and str(n.target).startswith("deeplabv3p."))
+        path = os.path.join(OUT_DIR, f"smoke_{len(programs)}.pt2")
+        save_exported(ep, path)
+        t0 = time.perf_counter()
+        program = load_exported(path)
+        load_s = time.perf_counter() - t0
+        check(tuple(nodes[op] for op in ops) == per_call and sum(nodes.values()) == sum(per_call),
+              f"{name}: the graph's kernel nodes {dict(nodes)} ({len(ep.graph.nodes)} nodes, "
+              f"{sum(str(n.target) == 'aten.clone.default' for n in ep.graph.nodes)} copies); "
+              f"exported in {export_s:.2f} s, {os.path.getsize(path) / 2**20:.1f} MiB, loaded "
+              f"in {load_s:.2f} s")
+        eager = Inference(deeplab.model.eval(), with_softmax=True, with_argmax=False)
+        moves, outs = [], []
+        kernels.reset_launch_counts()                   # the artifact's path starts here
+        with torch.no_grad():
+            for x in xs:
+                before = kernels.launch_counts()
+                outs.append(program(x))
+                after = kernels.launch_counts()
+                moves.append(tuple(after[op] - before[op] for op in ops))
+        torch.cuda.synchronize()
+        launches[name] = kernels.launch_counts()        # ... and ends here
+        check(all(m == per_call for m in moves),
+              f"{name}: each call moves the (ASPP, decoder, inverted residual) launch counts by "
+              f"{per_call}: {moves}; counts {launches[name]}")
+        with torch.no_grad():
+            refs = [eager(x) for x in xs]
+        err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+        agree = min((o.argmax(-1) == r.argmax(-1)).float().mean().item()
+                    for o, r in zip(outs, refs))
+        ok = all(o.shape == (1, *INPUT, 21) and torch.isfinite(o).all() for o in outs)
+        check(ok and agree >= 0.9999,
+              f"{name} against the eager model: max|dprobs| {err:.3g}, mask agreement min "
+              f"{agree:.6f} >= 0.9999")
+        with torch.no_grad():
+            first = (event_ms(lambda: program(xs[0]), EXPORT_ITERS),
+                     synced_ms(torch, lambda: program(xs[0]), EXPORT_ITERS))
+        print(f"  {name}: {first[0]:.3f} ms a call right after loading (CUDA events; median of "
+              f"calls synchronized one by one {first[1]:.3f} ms)")
+        programs[name] = (path, program, eager)
+
+    path, program, eager = programs["mobilenetv2 .pt2"]
+    runner = Runner(path, "mobilenetv2", 21, *INPUT)
+    raw, h, w, c = runner.run_bytes(requests[0][0].tobytes(), 1, *INPUT)
+    probs = np.frombuffer(raw, np.float32).reshape(1, h, w, c)
+    with torch.no_grad():
+        direct = program(xs[0]).cpu().numpy()
+    check((h, w, c) == (*INPUT, 21) and np.abs(probs.sum(-1) - 1).max() <= 1e-5
+          and np.array_equal(probs, direct),
+          f"Runner(.pt2).run_bytes: ({h}, {w}, {c}), max|sum - 1| "
+          f"{np.abs(probs.sum(-1) - 1).max():.3g}, equal to the loaded program's output "
+          f"(max|d| {np.abs(probs - direct).max():.3g})")
+
+    print(f"latency, eager forward against the loaded .pt2 (b1, CUDA events, mean of "
+          f"{EXPORT_ITERS} calls a turn, in turns P A A P, softmax included):")
+    for name, (_, program, eager) in programs.items():
+        x = xs[0]
+        fns = {"eager": lambda: eager(x), "artifact": lambda: program(x)}
+        ms = {k: [] for k in fns}
+        med = {k: [] for k in fns}
+        with torch.no_grad():
+            for k in ("eager", "artifact", "artifact", "eager"):
+                ms[k].append(event_ms(fns[k], EXPORT_ITERS))
+                med[k].append(synced_ms(torch, fns[k], EXPORT_ITERS))
+        print(f"  {name}: eager {ms['eager'][0]:.3f}/{ms['eager'][1]:.3f} ms, artifact "
+              f"{ms['artifact'][0]:.3f}/{ms['artifact'][1]:.3f} ms a call; medians of calls "
+              f"synchronized one by one: eager {med['eager'][0]:.3f}/{med['eager'][1]:.3f}, "
+              f"artifact {med['artifact'][0]:.3f}/{med['artifact'][1]:.3f}  [{card}]")
+        tag = name.split()[-1].lstrip("-")
+        with torch.no_grad():
+            for what, fn in (("eager", fns["eager"]), (".pt2", fns["artifact"])):
+                profile_one(torch, fn, f"one call, {name}, {what}",
+                            f"profile_one_export_{tag}_{what.lstrip('.')}.txt", top=6)
+    print("the operators' host cost:")
+    op_host_cost(torch, kaspp, kdec, kmb)
+    print("the .pt2 and int8 entry points:")
+    export_clis(torch, kernels)
+    return launches
+
+
+def export_clis(torch, kernels) -> None:
+    """The `.pt2` and int8 entry points on the card, on the toy set of
+    data/toy.py at 512x512 (8 images, 4 classes) and seeded mobilenetv2
+    weights: `deeplab --dump_model x.pt2`, then `eval --model_path x.pt2`
+    (batch 1, the program's) against `eval` on the same weights as an
+    `.npz` (the same matrix); `tools/export_model.py --format pt2|int8|ckpt`
+    (int8 calibrated on the toy set), the pt2 one through `Runner`."""
+    import shutil
+
+    from deeplabv3p_torch import deeplab as deeplab_cli
+    from deeplabv3p_torch import eval as eval_cli
+    from deeplabv3p_torch.data.toy import build_overfit_dataset
+    from deeplabv3p_torch.runtime import Runner
+    from deeplabv3p_torch.tools import export_model as tool
+    from deeplabv3p_torch.utils.checkpoint import load_variables
+
+    root = os.path.join(OUT_DIR, "smoke_export_data")
+    shutil.rmtree(root, ignore_errors=True)
+    list_path = build_overfit_dataset(root, source_dir=os.path.join(REPO, "example"))
+    classes = os.path.join(root, "classes.txt")
+    common = ["--model_type", "mobilenetv2", "--model_input_shape", str(INPUT[0]),
+              "--classes_path", classes, "--device", "cuda"]
+    metrics = {}
+    for suffix in (".pt2", ".npz"):
+        path = os.path.join(root, "dump" + suffix)
+        _, dump_s, _, _ = run_cli(torch, kernels, deeplab_cli.main, deeplab_cli.parse_args(
+            [*common, "--dump_model", "--output_model_file", path]))
+        args = eval_cli.parse_args([*common, "--model_path", path, "--batch_size", "1",
+                                    "--dataset_path", root, "--dataset_file", list_path,
+                                    "--out_dir", os.path.join(root, "result")])
+        m, eval_s, launches, _ = run_cli(torch, kernels, eval_cli.main, args)
+        metrics[suffix] = m
+        print(f"  deeplab --dump_model {os.path.basename(path)} in {dump_s:.2f} s; eval CLI on it, "
+              f"8 images b1: {eval_s:.2f} s, mIoU {m.miou:.5f}, launches {launches}")
+    check(np.array_equal(metrics[".pt2"].confusion, metrics[".npz"].confusion),
+          f"eval --model_path dump.pt2 gives the matrix of eval on the same weights as an .npz "
+          f"(sum|diff| {int(np.abs(metrics['.pt2'].confusion - metrics['.npz'].confusion).sum())})")
+    weights = os.path.join(root, "dump.npz")
+    base = ["--model_path", weights, "--model_type", "mobilenetv2", "--num_classes", "4",
+            "--model_input_shape", str(INPUT[0]), "--device", "cuda"]
+    for fmt in ("pt2", "int8", "ckpt"):
+        out = os.path.join(root, f"tool.{fmt}")
+        extra = ["--dataset_path", root, "--dataset_file", list_path] if fmt == "int8" else []
+        _, s, _, _ = run_cli(torch, kernels, tool.main, tool.parse_args(
+            [*base, "--format", fmt, "--output", out, *extra]))
+        print(f"  tools/export_model.py --format {fmt}: {os.path.getsize(out) / 2**20:.1f} MiB "
+              f"in {s:.2f} s")
+    payload = load_variables(os.path.join(root, "tool.int8"))
+    check(set(payload) == {"quantized_params", "batch_stats", "activation_ranges"},
+          f"the int8 payload holds {sorted(payload)}, {len(payload['activation_ranges'])} "
+          f"activation ranges")
+    data = np.random.default_rng(1).uniform(-1, 1, (1, *INPUT, 3)).astype(np.float32)
+    raw, h, w, c = Runner(os.path.join(root, "tool.pt2"), "mobilenetv2", 4, *INPUT).run_bytes(
+        data.tobytes(), 1, *INPUT)
+    probs = np.frombuffer(raw, np.float32).reshape(h, w, c)
+    check((h, w, c) == (*INPUT, 4) and np.abs(probs.sum(-1) - 1).max() <= 1e-5,
+          f"Runner on the tool's f32 .pt2: ({h}, {w}, {c}), max|sum - 1| "
+          f"{np.abs(probs.sum(-1) - 1).max():.3g}")
+
+
+def int8_phase(torch, requests, learn=None) -> None:
+    """`export.quantize` on the card, as the JAX bench's int8:mobilenetv2_lite_b1
+    cell sets it (bench.py:650-680): mobilenetv2_lite bf16 512x512 OS16, 21
+    classes, seeded weights, calibrated on 2 seeded uniform batches; every
+    eligible conv calibrated, swapped and run through `torch._int_mm` once a
+    call; masks against bf16 (printed), a request's time against bf16 in
+    turns. With the learning proof's trained mobilenetv2 (`learn`), its int8
+    masks on the toy set against bf16's: agreement > 0.98, |dmIoU| < 0.01
+    (tests/test_quantize.py's bars)."""
+    from deeplabv3p_torch import metrics as metrics_lib
+    from deeplabv3p_torch.export import quantize as q
+    from deeplabv3p_torch.models.factory import build_segmentation_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.utils.weights import flax_module_paths
+
+    card = card_line()
+    model = build_segmentation_model("mobilenetv2_lite", 21, output_stride=16, fused_aspp=True,
+                                     dtype=torch.bfloat16, device="cuda")
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model.eval()
+    gen = torch.Generator().manual_seed(INT8_SEED)
+    calib = [(torch.rand((1, 3, *INPUT), generator=gen) * 2 - 1).cuda() for _ in range(2)]
+    t0 = time.perf_counter()
+    ranges = q.calibrate_conv_inputs(model, calib)
+    int8 = q.make_int8_apply(model, ranges)
+    prep_s = time.perf_counter() - t0
+    eligible = sorted(p for p, n in flax_module_paths(model).items()
+                      if q._is_pointwise_conv(model.get_submodule(n)))
+    convs = q.int8_convs(int8)
+    check(sorted(ranges) == eligible and len(convs) == len(eligible),
+          f"int8 mobilenetv2_lite: {len(eligible)} eligible convs, {len(ranges)} calibrated, "
+          f"{len(convs)} int8 (calibrated and swapped in {prep_s:.2f} s)")
+    xs = [torch.from_numpy(data).cuda().permute(0, 3, 1, 2) for data, _ in requests]
+    for conv in convs:
+        conv.calls = 0
+    with torch.no_grad():
+        out_i8 = [int8(x) for x in xs]
+        out_bf = [model(x) for x in xs]
+    torch.cuda.synchronize()
+    check(all(c.calls == len(xs) for c in convs),
+          f"int8: every eligible conv ran torch._int_mm once a call ({len(xs)} calls): calls "
+          f"{sorted({c.calls for c in convs})}")
+    agree = [(a.argmax(1) == b.argmax(1)).float().mean().item() for a, b in zip(out_i8, out_bf)]
+    rel = max(((a - b).abs().max() / (b.max() - b.min())).item() for a, b in zip(out_i8, out_bf))
+    finite = all(torch.isfinite(o).all() for o in out_i8)
+    check(finite, f"int8 logits finite, max|int8 - bf16| {rel:.4f} x the bf16 logits' spread; "
+                  f"masks agree with bf16's on {min(agree):.5f}-{max(agree):.5f} of pixels "
+                  f"(seeded weights, near-tied logits: printed)")
+    x = xs[0]
+    fns = {"bf16": lambda: model(x), "int8": lambda: int8(x)}
+    ms = {k: [] for k in fns}
+    with torch.no_grad():
+        for k in ("bf16", "int8", "int8", "bf16"):
+            ms[k].append(event_ms(fns[k], EXPORT_ITERS))
+    print(f"  int8 mobilenetv2_lite b1 forward: bf16 {ms['bf16'][0]:.3f}/{ms['bf16'][1]:.3f} ms, "
+          f"int8 {ms['int8'][0]:.3f}/{ms['int8'][1]:.3f} ms a call (CUDA events, in turns "
+          f"P A A P)  [{card}]")
+    if learn is None:
+        return
+    from deeplabv3p_torch.data.augment import preprocess_eval_batch
+    from deeplabv3p_torch.data.pipeline import SegmentationDataset
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.utils.config import get_data_list
+    from deeplabv3p_torch.utils.weights import from_jax_variables, load_npz
+
+    trained = build_deeplab_model("mobilenetv2", 4, fused_aspp=True, dtype=torch.bfloat16,
+                                  device="cuda")
+    trained.load_state_dict(from_jax_variables(load_npz(learn["weights"]), trained), strict=True)
+    trained.eval()
+    ds = SegmentationDataset(learn["root"], get_data_list(learn["list"], shuffle=False),
+                             batch_size=LEARN_BATCH, num_classes=4,
+                             input_shape=(LEARN_HW, LEARN_HW), augment=False, shuffle=False,
+                             drop_remainder=False)
+    images, labels = [], []
+    for images_u8, labels_u8, _ in ds.epoch_batches():
+        im, lb = preprocess_eval_batch(torch.from_numpy(images_u8).cuda(),
+                                       torch.from_numpy(labels_u8).cuda(), 4)
+        images.append(im.permute(0, 3, 1, 2))
+        labels.append(lb)
+    images, labels = torch.cat(images), torch.cat(labels)
+    int8 = q.make_int8_apply(trained, q.calibrate_conv_inputs(trained, images.split(4)))
+    with torch.no_grad():
+        masks = {k: m(images).argmax(1) for k, m in (("bf16", trained), ("int8", int8))}
+    agree = (masks["int8"] == masks["bf16"]).float().mean().item()
+    miou = {k: metrics_lib.segment_metrics_from_confusion(
+        metrics_lib.confusion_matrix(labels, v, 4).cpu().numpy()).miou for k, v in masks.items()}
+    check(agree > 0.98 and abs(miou["int8"] - miou["bf16"]) < 0.01,
+          f"int8 on the learning proof's trained mobilenetv2 (toy set, {LEARN_HW} px, "
+          f"calibrated on its {len(images)} images): masks agree with bf16's on {agree:.5f} > "
+          f"0.98; mIoU {miou['int8']:.5f} against {miou['bf16']:.5f}, |d| < 0.01  [{card}]")
 
 
 def card_line() -> str:

@@ -9,7 +9,10 @@ Examples:
 
 Image filenames are read from stdin, one per line, until it closes;
 `--input` takes a video file (or "0" for the webcam) and `--output` the
-overlay video. `--do_crf` refines each mask with the dense CRF
+overlay video. `--dump_model` writes the model to `--output_model_file`: a
+`.pt2` `torch.export` program (softmax probabilities of normalized NHWC
+images, batch 1, weights inside; `export/pt2.py`) or `.npz` / `.ckpt`
+weights. `--do_crf` refines each mask with the dense CRF
 (`postprocess.crf_postprocess`) on the same device as the model.
 """
 
@@ -61,18 +64,22 @@ def main(args):
         do_crf=args.do_crf,
     )
     if args.dump_model:
-        from deeplabv3p_torch.utils.checkpoint import save_variables
+        from deeplabv3p_torch.export.pt2 import export_model, save_exported
+        from deeplabv3p_torch.utils.checkpoint import UNPORTED_SUFFIXES, save_variables
         from deeplabv3p_torch.utils.weights import save_npz, to_jax_variables
 
-        save = {".npz": save_npz, ".ckpt": save_variables}.get(
-            os.path.splitext(args.output_model_file)[1])
-        if save is None:
+        path = args.output_model_file
+        suffix = os.path.splitext(path)[1]
+        if suffix == ".pt2":
+            save_exported(export_model(deeplab.model, deeplab.model_input_shape), path)
+        elif suffix in (".npz", ".ckpt"):
+            save = save_npz if suffix == ".npz" else save_variables
+            save(path, to_jax_variables(deeplab.model))
+        else:
             raise SystemExit(
-                "the port dumps .npz or .ckpt weights; StableHLO export is not "
-                "ported yet (ROADMAP Queue A item 12)"
-            )
-        save(args.output_model_file, to_jax_variables(deeplab.model))
-        print(f"dumped inference model to {args.output_model_file}")
+                f"the port dumps a .pt2 program or .npz / .ckpt weights; {suffix or path} "
+                f"is not ported ({UNPORTED_SUFFIXES.get(suffix, 'no such format')})")
+        print(f"dumped inference model to {path}")
         return
     if args.image:
         segment_img_loop(deeplab, args.output)

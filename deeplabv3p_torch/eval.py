@@ -24,8 +24,11 @@ error, not a CPU run. The model (any of the 22 of
 ASPP kernel on where it has an ASPP, as the root CLI builds it on its
 accelerator. `--model_path` takes an `.npz`
 of the JAX variables tree, the JAX package's `.ckpt` or a Keras `.h5`
-(`utils/checkpoint.load_weights`); the exported formats raise, naming
-their ROADMAP item.
+(`utils/checkpoint.load_weights`), or a `.pt2` program of `export/pt2.py`
+(`ExportedModel`: its softmax probabilities take the logits' place in the
+same eval step, whose argmax and matrix are unchanged; `--batch_size` is
+the program's static batch, and it runs on the device it was exported
+on); the JAX package's exported formats raise, naming their ROADMAP item.
 matplotlib is imported inside the plot functions only, and the metrics are
 printed before any plot is tried.
 """
@@ -231,6 +234,26 @@ def _finish_eval(cm_host, class_names, plots, out_dir):
 # CLI (root eval.py)
 # ---------------------------------------------------------------------------
 
+class ExportedModel(torch.nn.Module):
+    """A loaded `.pt2` program (NHWC images in, NHWC probabilities out) in
+    the interface `eval_miou` calls a model by: (N, 3, H, W) normalized
+    images in, (N, C, H, W) scores out, always in inference mode (JAX
+    eval.py:56-66 wraps its StableHLO artifact so)."""
+
+    def __init__(self, program: torch.nn.Module):
+        super().__init__()
+        self.program = program
+        self.training = False
+
+    def train(self, mode: bool = True):
+        if mode:
+            raise ValueError("an exported program runs in inference mode only")
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.program(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
 def resolve_device(name: str) -> torch.device:
     """auto and cuda mean the card, and raise without one; cpu is by request."""
     if name == "cpu":
@@ -248,17 +271,27 @@ def main(args) -> metrics_lib.SegmentMetrics:
     from deeplabv3p_torch.utils.checkpoint import load_weights
     from deeplabv3p_torch.utils.config import get_classes, get_data_list
 
-    check_weights_path(args.model_path)  # the exported formats raise, naming their item
+    exported = args.model_path.endswith(".pt2")
+    if not exported:
+        check_weights_path(args.model_path)  # the JAX formats raise, naming their item
     device = resolve_device(args.device)
     class_names = get_classes(args.classes_path)
-    model = build_segmentation_model(
-        args.model_type, len(class_names), output_stride=args.output_stride,
-        fused_aspp=True, fused_mbconv=args.fused_mbconv,
-        dtype=torch.bfloat16, device=device)
-    # an .h5 loads by layer name: what it lacks keeps this seeded init, as the
-    # JAX package's keeps model.init's
-    init_parameters(model, torch.Generator().manual_seed(0), bn_identity=True)
-    load_weights(args.model_path, model)
+    if exported:
+        from deeplabv3p_torch.export.pt2 import load_exported
+
+        model = ExportedModel(load_exported(args.model_path))
+        on = next(model.parameters()).device
+        if on.type != device.type:
+            raise ValueError(f"{args.model_path} was exported on {on}, not on {device}")
+    else:
+        model = build_segmentation_model(
+            args.model_type, len(class_names), output_stride=args.output_stride,
+            fused_aspp=True, fused_mbconv=args.fused_mbconv,
+            dtype=torch.bfloat16, device=device)
+        # an .h5 loads by layer name: what it lacks keeps this seeded init, as
+        # the JAX package's keeps model.init's
+        init_parameters(model, torch.Generator().manual_seed(0), bn_identity=True)
+        load_weights(args.model_path, model)
     return eval_miou(
         model, args.dataset_path, get_data_list(args.dataset_file, shuffle=False),
         class_names, model_input_shape=parse_input_shape(args.model_input_shape),
@@ -271,8 +304,9 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model_path", required=True,
                    help="weights: an .npz of the JAX variables tree, the JAX package's "
-                        ".ckpt or a Keras .h5 (needs h5py); the exported formats are "
-                        "not ported")
+                        ".ckpt or a Keras .h5 (needs h5py); or a .pt2 program "
+                        "(export/pt2.py); the JAX package's exported formats are not "
+                        "ported")
     p.add_argument("--model_type", default="mobilenetv3large_lite",
                    help=ported_models_text())
     p.add_argument("--model_input_shape", default="512x512",

@@ -1,0 +1,12 @@
+"""Model export and int8 post-training quantization
+(deeplabv3p_tpu/export/): `torch.export` artifacts (`.pt2`, the port's
+counterpart of the StableHLO artifact) and per-channel int8 weights with
+calibrated int8 x int8 -> int32 pointwise convolutions.
+"""
+
+from deeplabv3p_torch.export.pt2 import (  # noqa: F401
+    export_model,
+    load_exported,
+    save_exported,
+)
+from deeplabv3p_torch.export.quantize import post_train_quantize  # noqa: F401

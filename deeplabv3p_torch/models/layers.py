@@ -18,7 +18,7 @@ the running statistics without dropout.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -42,11 +42,28 @@ class KeepsPrepared(nn.Module):
     kernel in `_prepared`, and drops them wherever the weights may change
     as a whole: `train()`, `load_state_dict`, `.to()` and any other
     `_apply`. An in-place write is for the module to see (the tensors'
-    `_version`)."""
+    `_version`).
+
+    While `torch.export` traces the module, its weights are stand-ins with
+    no data: `_kept` then keeps nothing, and hands the tracer what the last
+    eager forward prepared, so that the exported graph holds those tensors
+    as constants (`export.pt2.export_model` runs one eager forward first);
+    with nothing kept, the graph prepares them from the weights itself."""
 
     def __init__(self):
         super().__init__()
         self._prepared: dict = {}
+
+    def _kept(self, key, version: Callable[[], tuple], make: Callable[[], Any]):
+        """What `make()` prepared for `key`, made again when `version()`
+        differs from the kept one's."""
+        hit = self._prepared.get(key)
+        if torch.compiler.is_compiling():
+            return make() if hit is None else hit[1]
+        now = version()
+        if hit is None or hit[0] != now:
+            hit = self._prepared[key] = (now, make())
+        return hit[1]
 
     def train(self, mode: bool = True):
         self._prepared = {}
@@ -462,9 +479,7 @@ class ASPP(KeepsPrepared):
         `train()`, `load_state_dict`, `.to()` and any other `_apply` drop
         them, and so does an in-place write to a depthwise weight or BN
         tensor (its `_version` moves)."""
-        version = tuple(t._version for t in self._depthwise_tensors())
-        hit = self._prepared.get(device)
-        if hit is None or hit[0] != version:
+        def make():
             branches = self._branches()
             # plain tensors even under inference_mode: the cache outlives it
             with torch.inference_mode(False), torch.no_grad():
@@ -472,15 +487,21 @@ class ASPP(KeepsPrepared):
                 args = (torch.stack([_dw_kernel(br) for br in branches]),
                         torch.stack([s for s, _ in folds]),
                         torch.stack([b for _, b in folds]))
-                args = tuple(t.to(device, torch.float32).contiguous() for t in args)
-            hit = self._prepared[device] = (version, args)
-        return hit[1]
+                return tuple(t.to(device, torch.float32).contiguous() for t in args)
+
+        return self._kept(device, lambda: tuple(t._version for t in self._depthwise_tensors()),
+                          make)
 
     def _fused_branches(self, x: torch.Tensor) -> list[torch.Tensor]:
         from deeplabv3p_torch.ops.kernels.aspp import multirate_atrous_depthwise
 
         nhwc = x.permute(0, 2, 3, 1)
-        if not nhwc.is_contiguous():
+        if torch.compiler.is_compiling():
+            # a traced tensor's strides need not be the card's (a fake CUDA
+            # conv may report NCHW where cuDNN writes channels_last): the
+            # graph copies to NHWC where the tracer saw another layout
+            nhwc = nhwc.contiguous()
+        elif not nhwc.is_contiguous():
             raise ValueError("ASPP's fused branches take a channels_last input")
         kernels, scale, bias = self.prepared_for(x.device)
         dw_outs = multirate_atrous_depthwise(nhwc, kernels, self.rates, scale, bias)

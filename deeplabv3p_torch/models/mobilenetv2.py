@@ -119,13 +119,10 @@ class InvertedResBlock(KeepsPrepared):
         does an in-place write to a parameter or buffer."""
         from deeplabv3p_torch.ops.kernels.mbconv import prepare_inverted_residual
 
-        key, version = (x.device, x.element_size()), self._weights_version()
-        hit = self._prepared.get(key)
-        if hit is None or hit[0] != version:
-            hit = (version, prepare_inverted_residual(
-                *self.kernel_args(), rate=self.rate, elem_size=x.element_size()))
-            self._prepared[key] = hit
-        return hit[1]
+        return self._kept((x.device, x.element_size()), self._weights_version,
+                          lambda: prepare_inverted_residual(
+                              *self.kernel_args(), rate=self.rate,
+                              elem_size=x.element_size()))
 
     def _fused_forward(self, inputs: torch.Tensor) -> torch.Tensor:
         from deeplabv3p_torch.ops.kernels import mbconv

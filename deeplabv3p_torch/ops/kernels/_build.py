@@ -12,6 +12,16 @@ Every kernel wrapper is registered with `launch_counter`: it carries a
 plain integer `launches` that the wrapper increments where it launches its
 kernel (CUDA tensors only), so a run can show the main path went through
 the kernel.
+
+`LIB` is the `deeplabv3p` operator namespace. The three kernels that run
+inside a model's forward (`multirate_atrous_depthwise`,
+`fused_decoder_frontend`, `fused_inverted_residual`) are defined in it, each
+with a CPU implementation (the plain version), a CUDA one (the launch) and a
+fake one (shapes and types only), so that `torch.export` keeps each as one
+graph node. They are defined with `Library.define` / `impl` rather than the
+`torch.library.custom_op` decorator, whose Python wrapper adds host time to
+every call (PERF.md). The loss tail and the confusion kernel run outside any
+model's forward and stay plain functions.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ import time
 from pathlib import Path
 from typing import Callable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libdeeplabv3p_kernels.so"
@@ -33,6 +45,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+LIB = torch.library.Library("deeplabv3p", "DEF")
 
 _lib = None
 build_info: dict = {}

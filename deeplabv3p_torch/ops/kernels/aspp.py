@@ -11,10 +11,15 @@ is its plain PyTorch version.
 Layout at this interface is the JAX one, NHWC, so the tests compare like
 with like; the model's channels_last NCHW tensors permute to it for free.
 
-The wrapper checks a call signature (shapes, types, rates, devices, x's
-alignment) once and keeps its launch plan (`launch_plan`: channels a
-thread, grid, shared memory) as a C struct; a later call with the same
-signature checks only contiguity, allocates the output and launches.
+The wrapper calls the operator `deeplabv3p::multirate_atrous_depthwise`
+(`_build.LIB`), so that `torch.export` keeps the kernel as one graph node:
+its CPU implementation is the plain version, its CUDA implementation
+launches the kernel, and its fake implementation gives the (R, N, H, W, C)
+output's shape and type for tracing. The CUDA implementation checks a call
+signature (shapes, types, rates, devices, x's alignment) once and keeps its
+launch plan (`launch_plan`: channels a thread, grid, shared memory) as a C
+struct; a later call with the same signature checks only contiguity,
+allocates the output and launches.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from deeplabv3p_torch.ops.kernels._build import check, launch_counter, load_library
+from deeplabv3p_torch.ops.kernels._build import LIB, check, launch_counter, load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RATES = 4
@@ -171,6 +176,55 @@ def _plan_for(x, kernels, rates, scale, bias) -> tuple[AsppPlan, int]:
 
 _plans: dict = {}
 
+LIB.define("multirate_atrous_depthwise(Tensor x, Tensor kernels, int[] rates, Tensor? scale, "
+           "Tensor? bias) -> Tensor")
+
+
+@torch.library.register_fake("deeplabv3p::multirate_atrous_depthwise")
+def _fake(x, kernels, rates, scale, bias):
+    _check_args(x, kernels, rates, scale, bias)
+    return x.new_empty((len(rates), *x.shape))
+
+
+def _plain(x, kernels, rates, scale, bias):
+    _check_args(x, kernels, rates, scale, bias)
+    return torch.stack(multirate_atrous_depthwise_reference(x, kernels, rates, scale, bias))
+
+
+def _launch(x, kernels, rates, scale, bias):
+    """The operator's CUDA implementation: (R, *x.shape) from one launch."""
+    key = _signature(x, kernels, rates, scale, bias)
+    hit = _plans.get(key)
+    if hit is None:
+        hit = _plans[key] = _plan_for(x, kernels, rates, scale, bias)
+    if not (x.is_contiguous() and kernels.is_contiguous()
+            and (scale is None or (scale.is_contiguous() and bias.is_contiguous()))):
+        raise ValueError("multirate_atrous_depthwise needs contiguous inputs")
+    out = torch.empty((len(rates), *x.shape), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    args = (x.data_ptr(), kernels.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), hit[1])
+    lib = load_library()
+    dev = x.device.index
+    # the handle of x's device's current stream (torch.cuda.current_stream()
+    # builds a Stream object around it first: 8 us of host time a call)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if dev == torch.cuda.current_device():
+        status = lib.multirate_atrous_depthwise(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            status = lib.multirate_atrous_depthwise(*args, stream)
+    check(status, "multirate_atrous_depthwise")
+    multirate_atrous_depthwise.launches += 1
+    return out
+
+
+LIB.impl("multirate_atrous_depthwise", _plain, "CPU")
+LIB.impl("multirate_atrous_depthwise", _launch, "CUDA")
+_op = torch.ops.deeplabv3p.multirate_atrous_depthwise.default
+
 
 @launch_counter
 def multirate_atrous_depthwise(
@@ -188,34 +242,6 @@ def multirate_atrous_depthwise(
     scale/bias are None. CPU tensors run the plain version; CUDA tensors
     launch csrc/aspp.cu (contiguous inputs, all on x's device).
     """
-    if x.device.type != "cuda":
-        _check_args(x, kernels, rates, scale, bias)
-        if x.device.type != "cpu":
-            raise RuntimeError(f"no kernel for device {x.device}")
-        return multirate_atrous_depthwise_reference(x, kernels, rates, scale, bias)
-    key = _signature(x, kernels, rates, scale, bias)
-    hit = _plans.get(key)
-    if hit is None:
-        hit = _plans[key] = _plan_for(x, kernels, rates, scale, bias)
-    if not (x.is_contiguous() and kernels.is_contiguous()
-            and (scale is None or (scale.is_contiguous() and bias.is_contiguous()))):
-        raise ValueError("multirate_atrous_depthwise needs contiguous inputs")
-    out = torch.empty((len(rates), *x.shape), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return tuple(out.unbind(0))
-    args = (x.data_ptr(), kernels.data_ptr(),
-            None if scale is None else scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), hit[1])
-    lib = load_library()
-    dev = x.device.index
-    # the handle of x's device's current stream (torch.cuda.current_stream()
-    # builds a Stream object around it first: 8 us of host time a call)
-    stream = torch._C._cuda_getCurrentRawStream(dev)
-    if dev == torch.cuda.current_device():
-        status = lib.multirate_atrous_depthwise(*args, stream)
-    else:
-        with torch.cuda.device(dev):
-            status = lib.multirate_atrous_depthwise(*args, stream)
-    check(status, "multirate_atrous_depthwise")
-    multirate_atrous_depthwise.launches += 1
-    return tuple(out.unbind(0))
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no kernel for device {x.device}")
+    return tuple(_op(x, kernels, [int(r) for r in rates], scale, bias).unbind(0))

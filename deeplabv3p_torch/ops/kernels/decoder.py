@@ -14,6 +14,11 @@ features and the projected skip (CUDA kernel `csrc/decoder.cu`);
 Layout at this interface is the JAX one, NHWC. Unlike the TPU kernel there
 is no `Ce % 128` rule: the CUDA kernel takes any channel count (4 channels a
 thread where Ce and Cs are multiples of 4, else one) and any scale.
+
+The wrapper calls the operator `deeplabv3p::fused_decoder_frontend`
+(`_build.LIB`): the plain version on the CPU, the launch on CUDA, a fake
+implementation for tracing, so that `torch.export` keeps the kernel as one
+graph node.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from deeplabv3p_torch.ops.kernels._build import check, launch_counter, load_library
+from deeplabv3p_torch.ops.kernels._build import LIB, check, launch_counter, load_library
 from deeplabv3p_torch.ops.resize import resize_bilinear
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,27 +90,25 @@ def _check_args(x_enc, skip48, dw_kernel, scale, bias) -> None:
             raise ValueError(f"{name} must be {(c,)}, got {tuple(t.shape)}")
 
 
-@launch_counter
-def fused_decoder_frontend(
-    x_enc: torch.Tensor,
-    skip48: torch.Tensor,
-    dw_kernel: torch.Tensor,
-    scale: torch.Tensor,
-    bias: torch.Tensor,
-) -> torch.Tensor:
-    """relu(BN(depthwise3x3(concat([upsample(x_enc), skip48])))) without
-    materialising the upsample or the concat.
+LIB.define("fused_decoder_frontend(Tensor x_enc, Tensor skip48, Tensor dw_kernel, "
+           "Tensor scale, Tensor bias) -> Tensor")
 
-    x_enc (N,he,we,Ce) and skip48 (N,hs,ws,Cs) in float32 or bfloat16 (the
-    same); dw_kernel (3,3,Ce+Cs), scale/bias (Ce+Cs,) float32. Returns
-    (N,hs,ws,Ce+Cs) in x_enc's dtype, accumulated in f32. CPU tensors run
-    the plain version; CUDA tensors launch csrc/decoder.cu.
-    """
+
+@torch.library.register_fake("deeplabv3p::fused_decoder_frontend")
+def _fake(x_enc, skip48, dw_kernel, scale, bias):
     _check_args(x_enc, skip48, dw_kernel, scale, bias)
-    if x_enc.device.type == "cpu":
-        return fused_decoder_reference(x_enc, skip48, dw_kernel, scale, bias)
-    if x_enc.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {x_enc.device}")
+    n, hs, ws, cs = skip48.shape
+    return x_enc.new_empty((n, hs, ws, x_enc.shape[-1] + cs))
+
+
+def _plain(x_enc, skip48, dw_kernel, scale, bias):
+    _check_args(x_enc, skip48, dw_kernel, scale, bias)
+    return fused_decoder_reference(x_enc, skip48, dw_kernel, scale, bias)
+
+
+def _launch(x_enc, skip48, dw_kernel, scale, bias):
+    """The operator's CUDA implementation."""
+    _check_args(x_enc, skip48, dw_kernel, scale, bias)
     if skip48.device != x_enc.device:
         raise ValueError("skip48 must be on x_enc's device")
     for t in (dw_kernel, scale, bias):
@@ -135,3 +138,29 @@ def fused_decoder_frontend(
     check(status, "fused_decoder_frontend")
     fused_decoder_frontend.launches += 1
     return out
+
+
+LIB.impl("fused_decoder_frontend", _plain, "CPU")
+LIB.impl("fused_decoder_frontend", _launch, "CUDA")
+_op = torch.ops.deeplabv3p.fused_decoder_frontend.default
+
+
+@launch_counter
+def fused_decoder_frontend(
+    x_enc: torch.Tensor,
+    skip48: torch.Tensor,
+    dw_kernel: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+) -> torch.Tensor:
+    """relu(BN(depthwise3x3(concat([upsample(x_enc), skip48])))) without
+    materialising the upsample or the concat.
+
+    x_enc (N,he,we,Ce) and skip48 (N,hs,ws,Cs) in float32 or bfloat16 (the
+    same); dw_kernel (3,3,Ce+Cs), scale/bias (Ce+Cs,) float32. Returns
+    (N,hs,ws,Ce+Cs) in x_enc's dtype, accumulated in f32. CPU tensors run
+    the plain version; CUDA tensors launch csrc/decoder.cu.
+    """
+    if x_enc.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no kernel for device {x_enc.device}")
+    return _op(x_enc, skip48, dw_kernel, scale, bias)

@@ -24,17 +24,27 @@ once and passes the result as `prepared=`.
 
 Layout at this interface is the JAX one, NHWC; the model's channels_last
 NCHW tensors permute to it for free.
+
+The wrapper calls the operator `deeplabv3p::fused_inverted_residual`
+(`_build.LIB`), so that `torch.export` keeps the kernel as one graph node. A
+`PreparedBlock` is a Python object, which an operator's schema cannot
+carry: the operator takes its blob and the ints of its configuration
+(chunk, stages, shared-memory bytes) beside the nine tensors. Its CPU
+implementation is the plain version on the nine tensors; its CUDA one
+launches on the blob (or prepares one, when none is given); its fake one
+gives the output's shape and type.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from deeplabv3p_torch.ops.kernels._build import check, launch_counter, load_library
+from deeplabv3p_torch.ops.kernels._build import LIB, check, launch_counter, load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_COUT = 320            # 10 tiles of 8 output channels a warp (csrc/mbconv.cu)
@@ -114,7 +124,13 @@ class KernelConfig:
     def chunk_bytes(self) -> int:
         return self.expand_bytes + self.project_bytes
 
+    def blob_bytes(self, cexp: int) -> int:
+        """Bytes of a prepared blob for `cexp` expanded channels: the chunks,
+        then sp and bp padded to `cout_pad` f32 each."""
+        return -(-cexp // self.chunk) * self.chunk_bytes + 2 * self.cout_pad * 4
 
+
+@functools.lru_cache(maxsize=None)
 def kernel_config(cin: int, cout: int, rate: int, elem_size: int) -> KernelConfig:
     """The first of (32, 2), (32, 1), (16, 2), (16, 1) (chunk, stages) whose
     shared memory fits a block; raises ValueError if none does. An f32 x is
@@ -220,6 +236,85 @@ def _check_args(x, we, se, be, wd, sd, bd, wp, sp, bp, rate, residual) -> None:
         raise ValueError("residual requires Cin == Cout")
 
 
+LIB.define("fused_inverted_residual(Tensor x, Tensor we, Tensor se, Tensor be, Tensor wd, "
+           "Tensor sd, Tensor bd, Tensor wp, Tensor sp, Tensor bp, Tensor? blob, int rate, "
+           "bool residual, int chunk, int stages, int smem_bytes) -> Tensor")
+
+
+@torch.library.register_fake("deeplabv3p::fused_inverted_residual")
+def _fake(x, we, se, be, wd, sd, bd, wp, sp, bp, blob, rate, residual, chunk, stages,
+          smem_bytes):
+    _check_args(x, we, se, be, wd, sd, bd, wp, sp, bp, rate, residual)
+    return x.new_empty((*x.shape[:3], wp.shape[1]))
+
+
+def _plain(x, we, se, be, wd, sd, bd, wp, sp, bp, blob, rate, residual, chunk, stages,
+           smem_bytes):
+    _check_args(x, we, se, be, wd, sd, bd, wp, sp, bp, rate, residual)
+    return fused_inverted_residual_reference(x, we, se, be, wd, sd, bd, wp, sp, bp,
+                                             rate=rate, residual=residual)
+
+
+def _launch(x, we, se, be, wd, sd, bd, wp, sp, bp, blob, rate, residual, chunk, stages,
+            smem_bytes):
+    """The operator's CUDA implementation. Without a blob, the nine tensors
+    are checked and prepared here; with one, its configuration must be the
+    one `kernel_config` gives for this call and its size must match it."""
+    if x.ndim != 4 or x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16 (N,H,W,Cin), got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("fused_inverted_residual needs contiguous inputs")
+    n, h, w, cin = x.shape
+    if cin % 4 or x.data_ptr() % 16:
+        raise ValueError("fused_inverted_residual: Cin must be a multiple of 4 and x "
+                         "16-byte aligned (the input tile is staged 4 channels a load)")
+    if n > 65535 or (h + TILE - 1) // TILE > 65535:
+        raise ValueError("fused_inverted_residual: more than 65535 images or tile rows")
+    params = (we, se, be, wd, sd, bd, wp, sp, bp)
+    if blob is None:
+        _check_args(x, *params, rate, residual)
+        for t in params:
+            if t.device != x.device or t.dtype != torch.float32:
+                raise ValueError("the kernels and BN folds must be float32 on x's device")
+            if not t.is_contiguous():
+                raise ValueError("fused_inverted_residual needs contiguous inputs")
+        if wp.shape[1] > MAX_COUT:
+            raise ValueError(f"fused_inverted_residual: Cout {wp.shape[1]} > {MAX_COUT}")
+        prepared = prepare_inverted_residual(*params, rate=rate, elem_size=x.element_size())
+        blob, cfg = prepared.blob, prepared.config
+    else:
+        cfg = kernel_config(cin, wp.shape[1], int(rate), x.element_size())
+        if ((chunk, stages, smem_bytes) != (cfg.chunk, cfg.stages, cfg.smem_bytes)
+                or we.shape[0] != cin or blob.dtype != torch.uint8
+                or blob.device != x.device or not blob.is_contiguous()
+                or blob.numel() != cfg.blob_bytes(we.shape[1])):
+            raise ValueError("fused_inverted_residual: the prepared blob was built for "
+                             "another block, rate, input type or device")
+    cexp, cout = we.shape[1], wp.shape[1]
+    out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    args = (x.data_ptr(), blob.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[x.dtype], n, h, w, cin, cexp, cout, int(rate), int(bool(residual)),
+            cfg.chunk, cfg.stages, cfg.smem_bytes,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if x.device.index == torch.cuda.current_device():
+        status = lib.fused_inverted_residual(*args)
+    else:
+        with torch.cuda.device(x.device):
+            status = lib.fused_inverted_residual(*args)
+    check(status, "fused_inverted_residual")
+    fused_inverted_residual.launches += 1
+    return out
+
+
+LIB.impl("fused_inverted_residual", _plain, "CPU")
+LIB.impl("fused_inverted_residual", _launch, "CUDA")
+_op = torch.ops.deeplabv3p.fused_inverted_residual.default
+
+
 @launch_counter
 def fused_inverted_residual(
     x: torch.Tensor,                     # (N, H, W, Cin)
@@ -241,55 +336,17 @@ def fused_inverted_residual(
     Cout <= 320, the staged tiles within the block's shared memory).
     `prepared` is `prepare_inverted_residual` of the same nine tensors,
     rate and x's element size (then the nine tensors are not checked
-    again); without it they are prepared on the fly."""
-    params = (we, se, be, wd, sd, bd, wp, sp, bp)
-    if prepared is None or x.device.type != "cuda":
-        _check_args(x, *params, rate, residual)
-    if x.device.type == "cpu":
-        return fused_inverted_residual_reference(x, *params, rate=rate, residual=residual)
-    if x.device.type != "cuda":
+    again on the card); without it they are prepared on the fly."""
+    if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no kernel for device {x.device}")
+    params = (we, se, be, wd, sd, bd, wp, sp, bp)
     if prepared is None:
-        for t in params:
-            if t.device != x.device or t.dtype != torch.float32:
-                raise ValueError("the kernels and BN folds must be float32 on x's device")
-            if not t.is_contiguous():
-                raise ValueError("fused_inverted_residual needs contiguous inputs")
-    elif x.ndim != 4 or x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"x must be float32 or bfloat16 (N,H,W,Cin), got {x.dtype} "
-                        f"{tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("fused_inverted_residual needs contiguous inputs")
-    n, h, w, cin = x.shape
-    if cin % 4 or x.data_ptr() % 16:
-        raise ValueError("fused_inverted_residual: Cin must be a multiple of 4 and x "
-                         "16-byte aligned (the input tile is staged 4 channels a load)")
-    if n > 65535 or (h + TILE - 1) // TILE > 65535:
-        raise ValueError("fused_inverted_residual: more than 65535 images or tile rows")
-    if prepared is None:
-        if wp.shape[1] > MAX_COUT:
-            raise ValueError(f"fused_inverted_residual: Cout {wp.shape[1]} > {MAX_COUT}")
-        prepared = prepare_inverted_residual(*params, rate=rate, elem_size=x.element_size())
-    elif ((prepared.cin, prepared.rate, prepared.elem_size)
-          != (cin, int(rate), x.element_size()) or prepared.blob.device != x.device
-          or (residual and prepared.cout != cin)):
+        return _op(x, *params, None, int(rate), bool(residual), 0, 0, 0)
+    if ((prepared.cin, prepared.rate, prepared.elem_size)
+            != (x.shape[-1], int(rate), x.element_size()) or prepared.blob.device != x.device
+            or (residual and prepared.cout != x.shape[-1])):
         raise ValueError("fused_inverted_residual: `prepared` was built for another block, "
                          "rate, input type or device")
-    cexp, cout = prepared.cexp, prepared.cout
     cfg = prepared.config
-    out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    lib = load_library()
-    args = (x.data_ptr(), prepared.blob.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[x.dtype], n, h, w, cin, cexp, cout, int(rate), int(bool(residual)),
-            cfg.chunk, cfg.stages, cfg.smem_bytes,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if x.device.index == torch.cuda.current_device():
-        status = lib.fused_inverted_residual(*args)
-    else:
-        with torch.cuda.device(x.device):
-            status = lib.fused_inverted_residual(*args)
-    check(status, "fused_inverted_residual")
-    fused_inverted_residual.launches += 1
-    return out
+    return _op(x, *params, prepared.blob, int(rate), bool(residual), cfg.chunk, cfg.stages,
+               cfg.smem_bytes)

@@ -36,9 +36,10 @@ from deeplabv3p_torch.utils.weights import (
 )
 
 WEIGHT_SUFFIXES = (".npz", ".ckpt", ".h5")
-# weight files of the JAX package that the port does not read yet
+# model files of the JAX package that the port does not read (its own
+# exported program is a `.pt2`, `export/pt2.py`)
 UNPORTED_SUFFIXES = {
-    ".shlo": "Queue A item 12",
+    ".shlo": "Queue A item 12: a StableHLO artifact needs JAX to run; the port's is .pt2",
     ".onnx": "Queue A item 12",
     ".tflite": "Queue A item 12",
     ".pb": "Queue A item 12",
@@ -47,9 +48,13 @@ UNPORTED_SUFFIXES = {
 
 def _sorted_keys(tree: Any) -> Any:
     """The tree with every dict's keys in sorted order, as JAX's
-    `tree_map` leaves them."""
+    `tree_map` leaves them, and every named tuple (`export.quantize.
+    QuantizedTensor`) a dict of its fields in their order, as flax's
+    `to_state_dict` writes one."""
     if isinstance(tree, dict):
         return {k: _sorted_keys(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {k: _sorted_keys(getattr(tree, k)) for k in tree._fields}
     return tree
 
 

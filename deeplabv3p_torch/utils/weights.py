@@ -97,6 +97,15 @@ def jax_path_table(model: nn.Module) -> dict[str, tuple[str, bool]]:
     return table
 
 
+def flax_module_paths(model: nn.Module) -> dict[str, str]:
+    """flax path of each module that holds parameters (`nn.Conv`, the
+    `bn` inside a BatchNorm scope, `dw` inside a depthwise one, `Dense`,
+    `LayerNorm`) -> the name of the port's module that holds them, from
+    `jax_path_table`."""
+    return {path.split("/", 1)[1].rsplit("/", 1)[0]: key.rsplit(".", 1)[0]
+            for path, (key, _) in jax_path_table(model).items()}
+
+
 def _strict(what: str, left: set, right: set, lname: str, rname: str) -> None:
     only_l, only_r = sorted(left - right), sorted(right - left)
     if only_l or only_r:

@@ -36,6 +36,11 @@ apart can round to the other bf16 neighbour (2^-8 relative on one of Cexp
 terms). Both x
 types are therefore held to the bf16 bound, 2e-2 * max(1, max|plain|), the
 tolerance of the JAX package's own test of this kernel.
+
+The three `deeplabv3p::` operators (ops/kernels/_build.LIB): each one's CUDA
+implementation called bare gives its wrapper's bits, `torch.library.opcheck`
+passes on the card, and a fused mobilenetv2 exported there keeps each kernel
+one graph node and launches it once a call.
 """
 
 import pytest
@@ -595,3 +600,97 @@ def test_mbconv_wrapper_refuses_what_the_kernel_does_not_take(dev):
     big = mbconv_case(1, 8, 8, 640, 64, 8, torch.float32, dev)
     with pytest.raises(ValueError, match="shared memory"):
         fused_inverted_residual(*big, rate=8)
+
+
+# -- the deeplabv3p:: operators (ops/kernels/_build.LIB) --------------------------
+
+def _operator_cases(dev):
+    """(operator, its CUDA implementation, the public wrapper's call, the
+    operator's arguments) of the three kernels on a model's forward, at the
+    serving shapes in bf16."""
+    from deeplabv3p_torch.ops.kernels import aspp, decoder, mbconv
+
+    gen = torch.Generator().manual_seed(4)
+    x = _rand(gen, (1, 32, 32, 320)).to(dev, torch.bfloat16)
+    k = (_rand(gen, (3, 3, 3, 320)) / 3.0).to(dev)
+    scale = _rand(gen, (3, 320), 1.0, 0.5, uniform=True).to(dev)
+    bias = (_rand(gen, (3, 320)) * 0.1).to(dev)
+    enc = _rand(gen, (1, 32, 32, 256)).to(dev, torch.bfloat16)
+    skip = _rand(gen, (1, 128, 128, 48)).relu().to(dev, torch.bfloat16)
+    dk = (_rand(gen, (3, 3, 304)) / 3.0).to(dev)
+    ds = _rand(gen, (304,), 1.0, 0.5, uniform=True).to(dev)
+    db = (_rand(gen, (304,)) * 0.1).to(dev)
+    blk = mbconv_case(1, 32, 32, 64, 384, 64, torch.bfloat16, dev)
+    prep = mbconv.prepare_inverted_residual(*blk[1:], rate=2, elem_size=2)
+    cfg = prep.config
+    return [
+        (aspp._op, aspp._launch,
+         lambda: torch.stack(multirate_atrous_depthwise(x, k, (6, 12, 18), scale, bias)),
+         (x, k, [6, 12, 18], scale, bias)),
+        (decoder._op, decoder._launch,
+         lambda: fused_decoder_frontend(enc, skip, dk, ds, db), (enc, skip, dk, ds, db)),
+        (mbconv._op, mbconv._launch,
+         lambda: fused_inverted_residual(*blk, rate=2, residual=True, prepared=prep),
+         (*blk, prep.blob, 2, True, cfg.chunk, cfg.stages, cfg.smem_bytes)),
+        (mbconv._op, mbconv._launch,
+         lambda: fused_inverted_residual(*blk, rate=2, residual=True),
+         (*blk, None, 2, True, 0, 0, 0)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4), ids=["aspp", "decoder", "mbconv_prepared",
+                                                "mbconv_on_the_fly"])
+def test_operator_cuda_implementation_equals_the_wrapper(dev, case):
+    """Each operator's CUDA implementation, called bare, gives the wrapper's
+    bits (the wrapper goes through the dispatcher to it), and both launch."""
+    from deeplabv3p_torch.ops.kernels import launch_counts
+
+    op, launch, wrapper, args = _operator_cases(dev)[case]
+    name = op.name().split("::")[1]
+    before = launch_counts()[name]
+    got = wrapper()
+    bare = launch(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == before + 2
+    assert torch.equal(got, bare)
+
+
+@pytest.mark.parametrize("case", range(4), ids=["aspp", "decoder", "mbconv_prepared",
+                                                "mbconv_on_the_fly"])
+def test_opcheck_on_the_card(dev, case):
+    op, _, _, args = _operator_cases(dev)[case]
+    torch.library.opcheck(op, args)
+
+
+def test_fused_model_exports_with_its_kernels_on_the_card(dev, tmp_path):
+    """A fused mobilenetv2 exported on the card keeps each kernel one graph
+    node, and the loaded program launches them once a call (13 inverted
+    residuals) with the eager model's probabilities."""
+    from deeplabv3p_torch.export.pt2 import Inference, export_model, load_exported, save_exported
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.ops.kernels import launch_counts
+
+    model = build_deeplab_model("mobilenetv2", 21, fused_aspp=True, fused_decoder=True,
+                                fused_mbconv=True, dtype=torch.bfloat16, device="cpu")
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    ep = export_model(model, (64, 64))
+    kinds = [str(n.target) for n in ep.graph.nodes if str(n.target).startswith("deeplabv3p.")]
+    assert sorted(set(kinds)) == ["deeplabv3p.fused_decoder_frontend.default",
+                                  "deeplabv3p.fused_inverted_residual.default",
+                                  "deeplabv3p.multirate_atrous_depthwise.default"]
+    assert len(kinds) == 15
+    save_exported(ep, str(tmp_path / "m.pt2"))
+    program = load_exported(str(tmp_path / "m.pt2"))
+    x = torch.randn(1, 64, 64, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    before = launch_counts()
+    with torch.no_grad():
+        got = program(x)
+        want = Inference(model, True, False)(x)
+    after = launch_counts()
+    assert [after[k] - before[k] for k in ("multirate_atrous_depthwise",
+                                           "fused_decoder_frontend",
+                                           "fused_inverted_residual")] == [2, 2, 26]
+    assert (got - want).abs().max().item() <= 1e-3
+    assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.999
