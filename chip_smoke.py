@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout; one GPU
     python3 chip_smoke.py --aspp   # steps 1-2 and the ASPP kernel alone
     python3 chip_smoke.py --export # steps 1-2 and the export phase (15) alone
+    python3 chip_smoke.py --onnx   # steps 1-2, the learning proof and the ONNX phase (15b)
 
 1. prints the card (`nvidia-smi` name and power limit) and the versions;
 2. builds the CUDA kernels from deeplabv3p_torch/ops/kernels/csrc with nvcc;
@@ -132,6 +133,18 @@
    `torch._int_mm` once a call, masks against bf16, a request in turns with
    bf16; the learning proof's trained mobilenetv2 in int8 on the toy set
    (mask agreement > 0.98, |dmIoU| < 0.01);
+15b. ONNX: `tools/export_onnx.py --device cuda` on mobilenetv2 (f32,
+   512x512, OS16, 21 classes, seeded weights as an .npz): nodes,
+   initializers, bytes, seconds; its op types inside the native engine's
+   table, no `deeplabv3p` node; the ASPP and decoder kernels launched once
+   each by the export's warm-up forward; `export.onnx.interp` on the card
+   against the eager f32 model on 4 requests (TF32 off; mask agreement >=
+   0.999), in turns P A A P and profiled once each; the eval CLI on the
+   learning proof's trained weights as an .onnx against the .npz (the toy
+   set at 256x256, b4: mIoU within 1e-3, the confusion kernel once a
+   batch); `tools/validate_deeplab.py` on the .npz, .onnx and .pt2 of the
+   seeded weights (mask agreement >= 0.999); unet_standard at 512x512
+   exported and run against its eager model (>= 0.999);
 16. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
@@ -626,6 +639,18 @@ def main() -> None:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return
+    if "--onnx" in sys.argv[1:]:  # the ONNX phase alone, on the learning proof's weights
+        requests = make_requests(preprocess_image)
+        learn = learning_proof(torch, kernels, train_main, train_args)
+        launches = onnx_phase(torch, kernels, classes_path, requests, learn)
+        leaked = [m for m in ("jax", "flax", "deeplabv3p_tpu") if m in sys.modules]
+        check(not leaked, f"no JAX module imported ({leaked or 'none'})")
+        print(json.dumps({"onnx_launches": launches}))
+        if failures:
+            die(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
     if "--export" in sys.argv[1:]:  # the export phase alone
         requests = make_requests(preprocess_image)
         launches = export_phase(torch, kernels, classes_path, requests, kaspp, kdec, kmb)
@@ -869,6 +894,12 @@ def main() -> None:
     int8_phase(torch, requests, learn)
     print(f"the export phase took {time.perf_counter() - t0:.1f} s")
 
+    # -- 5q. ONNX: the export tool on the card, the executor against the eager
+    # model, the eval CLI and validate_deeplab on .onnx, unet_standard ----------------
+    t0 = time.perf_counter()
+    onnx_launches = onnx_phase(torch, kernels, classes_path, requests, learn)
+    print(f"the ONNX phase took {time.perf_counter() - t0:.1f} s")
+
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
         return float(np.percentile(v, q))
@@ -985,7 +1016,7 @@ def main() -> None:
         if row["name"] in ("multirate_atrous_depthwise", "confusion_matrix_fused"):
             row["also_on"][f"mobilenetv2 eval --do_crf b{EVAL_BATCH}"] = \
                 crf_eval_launches[row["name"]]
-    for path, counts in export_launches.items():  # the loaded .pt2 programs' calls
+    for path, counts in {**export_launches, **onnx_launches}.items():  # .pt2 calls, ONNX paths
         for row in kernels:
             if counts[row["name"]]:
                 row.setdefault("also_on", {})[path] = counts[row["name"]]
@@ -3297,6 +3328,161 @@ def int8_phase(torch, requests, learn=None) -> None:
           f"int8 on the learning proof's trained mobilenetv2 (toy set, {LEARN_HW} px, "
           f"calibrated on its {len(images)} images): masks agree with bf16's on {agree:.5f} > "
           f"0.98; mIoU {miou['int8']:.5f} against {miou['bf16']:.5f}, |d| < 0.01  [{card}]")
+
+
+def onnx_phase(torch, kernels, classes_path, requests, learn) -> dict:
+    """ONNX on the card: `tools/export_onnx.py --device cuda` on
+    mobilenetv2 (f32, 512x512, OS16, 21 classes, seeded weights written as an
+    .npz), in process: its node and initializer counts, bytes and seconds, its
+    op types inside the native engine's table and no `deeplabv3p` node, the
+    ASPP and decoder kernels launched once each by the warm-up forward;
+    `export.onnx.interp` on the card against the eager f32 model on the same
+    requests (TF32 off for both; mask agreement >= 0.999), timed in turns P A
+    A P and profiled once; the eval CLI on the learning proof's trained
+    weights (`learn`, the toy set at its 256x256, 4 classes) as an .onnx
+    against the .npz (mIoU within 1e-3, the confusion kernel once a batch);
+    `tools/validate_deeplab.py` on the .npz, the .onnx and a .pt2 of the same
+    weights; unet_standard at 512x512 (ConvTranspose and the nearest Gather)
+    exported and run against its eager model. Returns {path: launch counts}
+    for the kernels line."""
+    from deeplabv3p_torch import eval as eval_cli
+    from deeplabv3p_torch.export.onnx import OnnxProgram, load_onnx
+    from deeplabv3p_torch.export.onnx.convert import ENGINE_OPS
+    from deeplabv3p_torch.export.pt2 import Inference
+    from deeplabv3p_torch.models.factory import build_segmentation_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.tools import export_model as pt2_tool
+    from deeplabv3p_torch.tools import export_onnx as tool
+    from deeplabv3p_torch.tools import validate_deeplab
+    from deeplabv3p_torch.utils.weights import save_npz, to_jax_variables
+
+    card = card_line()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    xs = [torch.from_numpy(data).cuda() for data, _ in requests[:EXPORT_REQUESTS]]
+    launches = {}
+    print(f"ONNX: tools/export_onnx.py --device cuda, f32 {INPUT} OS16, seeded weights; "
+          f"export.onnx.interp on the card, {len(xs)} requests:")
+
+    def export(model_type, num_classes, classes, hw, seed):
+        model = build_segmentation_model(model_type, num_classes, output_stride=16,
+                                         fused_aspp=True, fused_decoder=True, device="cuda")
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        weights = os.path.join(OUT_DIR, f"smoke_onnx_{model_type}.npz")
+        save_npz(weights, to_jax_variables(model))
+        path = os.path.join(OUT_DIR, f"smoke_{model_type}.onnx")
+        _, export_s, counts, _ = run_cli(torch, kernels, tool.main, tool.parse_args(
+            ["--model_type", model_type, "--classes_path", classes, "--weights_path", weights,
+             "--model_input_shape", f"{hw[0]}x{hw[1]}", "--output_path", path]))
+        onnx_model = load_onnx(path)
+        ops = {n.op_type for n in onnx_model.graph.node}
+        custom = [n.name for n in onnx_model.graph.node
+                  if "deeplabv3p" in n.op_type or n.domain]
+        check(ops <= ENGINE_OPS and not custom,
+              f"{model_type} .onnx: {len(onnx_model.graph.node)} nodes, "
+              f"{len(onnx_model.graph.initializer)} initializers, {os.path.getsize(path)} bytes, "
+              f"exported in {export_s:.2f} s; op types {sorted(ops)} inside the native "
+              f"engine's table (outside: {sorted(ops - ENGINE_OPS)}), custom nodes {custom}  "
+              f"[{card}]")
+        return model.eval(), weights, path, onnx_model, counts
+
+    def agreement(name, program, eager, inputs):
+        (in_name,), (out_name,) = program.inputs, program.outputs
+        with torch.no_grad():
+            outs = [program({in_name: x})[out_name] for x in inputs]
+            refs = [eager(x) for x in inputs]
+        err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+        agree = min((o.argmax(-1) == r.argmax(-1)).float().mean().item()
+                    for o, r in zip(outs, refs))
+        ok = all(o.shape == r.shape and torch.isfinite(o).all() for o, r in zip(outs, refs))
+        check(ok and agree >= 0.999,
+              f"{name}: the executor on the card against the eager f32 model (TF32 off): "
+              f"max|dprob| {err:.3g}, mask agreement min {agree:.6f} >= 0.999")
+
+    model, weights, path, onnx_model, counts = export("mobilenetv2", 21, classes_path, INPUT, 0)
+    launches["tools/export_onnx.py mobilenetv2 (warm-up)"] = counts
+    check(counts == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": 1,
+                     "fused_decoder_frontend": 1},
+          f"export_onnx: the warm-up forward launched the ASPP and decoder kernels once each "
+          f"and no other: {counts}")
+    t0 = time.perf_counter()
+    program = OnnxProgram(onnx_model, "cuda")
+    print(f"  OnnxProgram on the card in {time.perf_counter() - t0:.2f} s")
+    eager = Inference(model, with_softmax=True, with_argmax=False)
+    agreement("mobilenetv2", program, eager, xs)
+    in_name = program.inputs[0]
+    fns = {"eager": lambda: eager(xs[0]), "onnx": lambda: program({in_name: xs[0]})}
+    ms = {k: [] for k in fns}
+    med = {k: [] for k in fns}
+    with torch.no_grad():
+        for k in ("eager", "onnx", "onnx", "eager"):
+            ms[k].append(event_ms(fns[k], EXPORT_ITERS))
+            med[k].append(synced_ms(torch, fns[k], EXPORT_ITERS))
+        print(f"  latency b1, the eager f32 model (ASPP and decoder kernels) against the .onnx "
+              f"through export.onnx.interp (CUDA events, mean of {EXPORT_ITERS} calls a turn, "
+              f"in turns P A A P): eager {ms['eager'][0]:.3f}/{ms['eager'][1]:.3f} ms, onnx "
+              f"{ms['onnx'][0]:.3f}/{ms['onnx'][1]:.3f} ms a call; medians of calls "
+              f"synchronized one by one: eager {med['eager'][0]:.3f}/{med['eager'][1]:.3f}, "
+              f"onnx {med['onnx'][0]:.3f}/{med['onnx'][1]:.3f}  [{card}]")
+        for what, fn in fns.items():
+            profile_one(torch, fn, f"one call, mobilenetv2 f32, {what}",
+                        f"profile_one_onnx_{what}.txt", top=6)
+
+    # the eval CLI on the trained weights, as an .onnx and as the .npz
+    root, list_path = learn["root"], learn["list"]
+    toy_classes = os.path.join(root, "classes.txt")
+    trained = os.path.join(OUT_DIR, "smoke_learn.onnx")
+    batch = LEARN_BATCH // 2
+    _, s, _, _ = run_cli(torch, kernels, tool.main, tool.parse_args(
+        ["--model_type", "mobilenetv2", "--classes_path", toy_classes, "--weights_path",
+         learn["weights"], "--model_input_shape", f"{LEARN_HW}x{LEARN_HW}", "--output_path",
+         trained, "--batch_size", str(batch)]))
+    metrics = {}
+    for name in (trained, learn["weights"]):
+        args = eval_cli.parse_args(
+            ["--model_type", "mobilenetv2", "--model_path", name, "--model_input_shape",
+             str(LEARN_HW), "--batch_size", str(batch), "--dataset_path", root,
+             "--dataset_file", list_path, "--classes_path", toy_classes,
+             "--out_dir", os.path.join(OUT_DIR, "smoke_onnx_eval")])
+        m, eval_s, counts, _ = run_cli(torch, kernels, eval_cli.main, args)
+        metrics[name] = m
+        launches[f"eval --model_path {os.path.basename(name)} b{batch}"] = counts
+        print(f"  eval CLI on {os.path.basename(name)} (the toy set, {LEARN_HW}x{LEARN_HW}, "
+              f"b{batch}): mIoU {m.miou:.6f} in {eval_s:.2f} s, launches {counts}")
+    m_onnx, m_npz = metrics[trained], metrics[learn["weights"]]
+    batches = -(-8 // batch)
+    onnx_counts = launches[f"eval --model_path {os.path.basename(trained)} b{batch}"]
+    check(abs(m_onnx.miou - m_npz.miou) <= 1e-3
+          and onnx_counts == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches},
+          f"eval --model_path x.onnx (f32, exported in {s:.2f} s): mIoU {m_onnx.miou:.6f} "
+          f"against the .npz's {m_npz.miou:.6f} (bf16), |d| {abs(m_onnx.miou - m_npz.miou):.2e} "
+          f"<= 1e-3; the confusion kernel once a batch ({batches}): {onnx_counts}")
+
+    # validate_deeplab on the seeded mobilenetv2 as .npz, .onnx and .pt2
+    pt2 = os.path.join(OUT_DIR, "smoke_onnx_mobilenetv2.pt2")
+    run_cli(torch, kernels, pt2_tool.main, pt2_tool.parse_args(
+        ["--model_path", weights, "--model_type", "mobilenetv2", "--num_classes", "21",
+         "--model_input_shape", str(INPUT[0]), "--format", "pt2", "--output", pt2]))
+    results, _, _, text = run_cli(torch, kernels, validate_deeplab.main,
+                                  validate_deeplab.parse_args(
+        ["--model_path", f"{weights},{path},{pt2}", "--model_type", "mobilenetv2",
+         "--image_file", os.path.join(REPO, "example", "dog.jpg"), "--classes_path",
+         classes_path, "--model_input_shape", str(INPUT[0]), "--output_path", OUT_DIR]))
+    print("  validate_deeplab --model_path x.npz,x.onnx,x.pt2 on the card:")
+    for line in text.strip().splitlines():
+        print("    " + line)
+    ref = results[weights]
+    agree = [float((mask == ref[1]).mean()) for _, mask in results.values()]
+    err = max(float(np.abs(probs - ref[0]).max()) for probs, _ in results.values())
+    check(len(results) == 3 and min(agree) >= 0.999,
+          f"validate_deeplab: .onnx and .pt2 against the .npz, max|dprob| {err:.3g}, mask "
+          f"agreement min {min(agree):.6f} >= 0.999")
+
+    # unet_standard: ConvTranspose and the nearest Gather on the card
+    model, _, _, onnx_model, counts = export("unet_standard", 21, classes_path, INPUT, 1)
+    launches["tools/export_onnx.py unet_standard"] = counts
+    agreement("unet_standard", OnnxProgram(onnx_model, "cuda"),
+              Inference(model, with_softmax=True, with_argmax=False), xs)
+    return launches
 
 
 def card_line() -> str:

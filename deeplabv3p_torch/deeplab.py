@@ -75,6 +75,10 @@ def main(args):
         elif suffix in (".npz", ".ckpt"):
             save = save_npz if suffix == ".npz" else save_variables
             save(path, to_jax_variables(deeplab.model))
+        elif suffix == ".onnx":
+            raise SystemExit(
+                "the JAX package's deeplab --dump_model writes no .onnx either (it writes .shlo "
+                "or .ckpt); write one with deeplabv3p_torch.tools.export_onnx")
         else:
             raise SystemExit(
                 f"the port dumps a .pt2 program or .npz / .ckpt weights; {suffix or path} "

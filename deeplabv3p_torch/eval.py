@@ -28,7 +28,11 @@ of the JAX variables tree, the JAX package's `.ckpt` or a Keras `.h5`
 (`ExportedModel`: its softmax probabilities take the logits' place in the
 same eval step, whose argmax and matrix are unchanged; `--batch_size` is
 the program's static batch, and it runs on the device it was exported
-on); the JAX package's exported formats raise, naming their ROADMAP item.
+on), or an `.onnx` file (`OnnxModel`, the root eval.py:66-90: the file runs
+in `export.onnx.interp` on `--device`, its probabilities, NHWC or NCHW,
+take the logits' place as a `.pt2`'s do, and `--batch_size` is the file's
+static batch); the JAX package's other exported formats raise, naming their
+ROADMAP item.
 matplotlib is imported inside the plot functions only, and the metrics are
 printed before any plot is tried.
 """
@@ -36,6 +40,7 @@ printed before any plot is tried.
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 from collections import OrderedDict
 
@@ -151,7 +156,7 @@ def eval_miou(
     from deeplabv3p_torch.data.pipeline import SegmentationDataset
 
     num_classes = len(class_names)
-    device = next(model.parameters()).device
+    device = next(itertools.chain(model.parameters(), model.buffers())).device
     ds = SegmentationDataset(
         dataset_path, data_list, batch_size=batch_size,
         num_classes=num_classes, input_shape=model_input_shape,
@@ -254,6 +259,48 @@ class ExportedModel(torch.nn.Module):
         return self.program(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
+class OnnxModel(torch.nn.Module):
+    """A decoded `.onnx` file run by `export.onnx.interp.OnnxProgram` (NHWC
+    images in, NHWC probabilities out, or NCHW ones after
+    `tools/onnx_edit.add_nchw_output`) in the interface `eval_miou` calls a
+    model by, as `ExportedModel`; the file's initializers, on the program's
+    device, are its buffers."""
+
+    def __init__(self, program, in_dims, out_dims):
+        super().__init__()
+        self.program = program
+        for i, t in enumerate(program.consts.values()):
+            self.register_buffer(f"initializer_{i}", t, persistent=False)
+        # NHWC unless the output's H and W sit where an NCHW tensor has them
+        self.nchw = tuple(out_dims[1:3]) != tuple(in_dims[1:3]) \
+            and tuple(out_dims[2:4]) == tuple(in_dims[1:3])
+        self.training = False
+
+    def train(self, mode: bool = True):
+        if mode:
+            raise ValueError("an ONNX program runs in inference mode only")
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (name,), (out,) = self.program.inputs, self.program.outputs
+        probs = self.program({name: x.permute(0, 2, 3, 1)})[out]
+        return probs if self.nchw else probs.permute(0, 3, 1, 2)
+
+
+def load_onnx_model(path: str, device: torch.device, batch_size: int) -> OnnxModel:
+    """`OnnxModel` of the file at `path` on `device`; raises unless
+    `batch_size` is the file's static batch."""
+    from deeplabv3p_torch.export.onnx import OnnxProgram, load_onnx
+
+    onnx_model = load_onnx(path)
+    graph = onnx_model.graph
+    dims = [[d.dim_value for d in vi.type.tensor_type.shape.dim]
+            for vi in (graph.input[0], graph.output[0])]
+    if dims[0][0] != batch_size:
+        raise ValueError(f"{path} takes a batch of {dims[0][0]}; pass --batch_size {dims[0][0]}")
+    return OnnxModel(OnnxProgram(onnx_model, device), *dims)
+
+
 def resolve_device(name: str) -> torch.device:
     """auto and cuda mean the card, and raise without one; cpu is by request."""
     if name == "cpu":
@@ -272,11 +319,14 @@ def main(args) -> metrics_lib.SegmentMetrics:
     from deeplabv3p_torch.utils.config import get_classes, get_data_list
 
     exported = args.model_path.endswith(".pt2")
-    if not exported:
+    onnx = args.model_path.endswith(".onnx")
+    if not (exported or onnx):
         check_weights_path(args.model_path)  # the JAX formats raise, naming their item
     device = resolve_device(args.device)
     class_names = get_classes(args.classes_path)
-    if exported:
+    if onnx:
+        model = load_onnx_model(args.model_path, device, args.batch_size)
+    elif exported:
         from deeplabv3p_torch.export.pt2 import load_exported
 
         model = ExportedModel(load_exported(args.model_path))
@@ -305,8 +355,8 @@ def parse_args(argv=None):
     p.add_argument("--model_path", required=True,
                    help="weights: an .npz of the JAX variables tree, the JAX package's "
                         ".ckpt or a Keras .h5 (needs h5py); or a .pt2 program "
-                        "(export/pt2.py); the JAX package's exported formats are not "
-                        "ported")
+                        "(export/pt2.py) or an .onnx file (either exporter's); the JAX "
+                        "package's other exported formats are not ported")
     p.add_argument("--model_type", default="mobilenetv3large_lite",
                    help=ported_models_text())
     p.add_argument("--model_input_shape", default="512x512",

@@ -11,9 +11,10 @@ Accepted model files:
   ASPP kernel where it has an ASPP, as `DeepLab` builds it, and its logits
   go through a softmax.
 
-`inference/deeplabSegment.cpp` embeds the JAX package's runner; a native
-caller of this one waits for the ONNX / native-engine slice (ROADMAP Queue
-A).
+`inference/deeplabSegment.cpp` embeds the JAX package's runner in its
+Python engine; the port's models reach that binary through its C++ ONNX
+engine instead (`--engine onnx` on a file of `tools/export_onnx.py`), which
+needs no Python. An `.onnx` is not taken here, as the JAX runner takes none.
 """
 
 from __future__ import annotations

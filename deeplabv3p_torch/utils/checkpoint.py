@@ -40,10 +40,15 @@ WEIGHT_SUFFIXES = (".npz", ".ckpt", ".h5")
 # exported program is a `.pt2`, `export/pt2.py`)
 UNPORTED_SUFFIXES = {
     ".shlo": "Queue A item 12: a StableHLO artifact needs JAX to run; the port's is .pt2",
-    ".onnx": "Queue A item 12",
     ".tflite": "Queue A item 12",
     ".pb": "Queue A item 12",
 }
+# an `.onnx` is a program with its weights inside: where the JAX package takes
+# none (DeepLab, the deeplab CLI, Runner, train's --weights_path), neither
+# does the port
+ONNX_REFUSAL = ("an ONNX file is an exported program, not weights, and the JAX package's "
+                "DeepLab, deeplab CLI, Runner and train take none either; run it with "
+                "deeplabv3p_torch.eval or deeplabv3p_torch.tools.validate_deeplab")
 
 
 def _sorted_keys(tree: Any) -> Any:
@@ -79,8 +84,11 @@ def load_variables(path: str) -> dict:
 
 def check_weights_path(path: str) -> None:
     """Raise unless `path` is a weights file the port reads: `.npz`, `.ckpt`
-    or `.h5`. The JAX package's exported formats name their ROADMAP item."""
+    or `.h5`. The JAX package's exported formats name their ROADMAP item; an
+    `.onnx` says where it runs."""
     suffix = os.path.splitext(path)[1]
+    if suffix == ".onnx":
+        raise NotImplementedError(f"{path}: {ONNX_REFUSAL}")
     if suffix in UNPORTED_SUFFIXES:
         raise NotImplementedError(
             f"{path}: {suffix} is not ported yet (ROADMAP {UNPORTED_SUFFIXES[suffix]}); "

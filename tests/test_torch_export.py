@@ -218,11 +218,14 @@ def test_dump_model_pt2_then_eval_gives_the_npz_metrics(toy, tmp_path):
 
 @pytest.mark.parametrize("suffix", [".shlo", ".onnx", ".tflite", ".pb"])
 def test_jax_formats_still_refused(suffix, tmp_path):
-    with pytest.raises(SystemExit, match="item 12"):
+    # the JAX package's deeplab and Runner take no .onnx either: the reason
+    # says so (the port's .onnx runs in tests/test_torch_onnx.py)
+    match = "the JAX package's" if suffix == ".onnx" else "item 12"
+    with pytest.raises(SystemExit, match=match):
         deeplab_cli.main(deeplab_cli.parse_args([
             "--device", "cpu", "--model_input_shape", "32", "--dump_model",
             "--output_model_file", str(tmp_path / f"m{suffix}")]))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match=match):
         Runner(f"model{suffix}", device="cpu")
 
 

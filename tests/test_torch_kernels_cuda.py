@@ -694,3 +694,23 @@ def test_fused_model_exports_with_its_kernels_on_the_card(dev, tmp_path):
                                            "fused_inverted_residual")] == [2, 2, 26]
     assert (got - want).abs().max().item() <= 1e-3
     assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.999
+
+
+def test_onnx_executor_on_the_card_equals_the_cpu(dev):
+    """`export.onnx.interp` on the card against itself on the CPU, one file
+    (mobilenetv2_lite, seeded, 64x64, exported on the card, no `deeplabv3p`
+    node in it): within 1e-4."""
+    from deeplabv3p_torch.export.onnx import OnnxProgram, export_onnx
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+
+    model = build_deeplab_model("mobilenetv2_lite", 21, fused_aspp=True, fused_decoder=True,
+                                device="cpu")
+    init_parameters(model, torch.Generator().manual_seed(0))
+    onnx_model = export_onnx(model.to(dev).eval(), (64, 64))
+    assert not [n for n in onnx_model.graph.node if "deeplabv3p" in n.op_type or n.domain]
+    x = torch.rand(1, 64, 64, 3, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    on_cpu = OnnxProgram(onnx_model, "cpu")({"input_0": x})["output_0"]
+    on_card = OnnxProgram(onnx_model, dev)({"input_0": x})["output_0"]
+    assert on_card.device.type == "cuda" and on_card.shape == (1, 64, 64, 21)
+    assert (on_card.cpu() - on_cpu).abs().max().item() <= 1e-4
