@@ -5,6 +5,7 @@
     python3 chip_smoke.py --aspp   # steps 1-2 and the ASPP kernel alone
     python3 chip_smoke.py --export # steps 1-2 and the export phase (15) alone
     python3 chip_smoke.py --onnx   # steps 1-2, the learning proof and the ONNX phase (15b)
+    python3 chip_smoke.py --parallel  # steps 1-2 and the data-parallel phase (15c) alone
 
 1. prints the card (`nvidia-smi` name and power limit) and the versions;
 2. builds the CUDA kernels from deeplabv3p_torch/ops/kernels/csrc with nvcc;
@@ -145,6 +146,16 @@
    batch); `tools/validate_deeplab.py` on the .npz, .onnx and .pt2 of the
    seeded weights (mask agreement >= 0.999); unet_standard at 512x512
    exported and run against its eager model (>= 0.999);
+15c. data parallelism (`parallel/mesh.py`, `Trainer(mesh=...)`): mobilenetv2
+   (bf16, 512x512, OS16, 21 classes, seeded weights, dropout off, SGD 1e-2,
+   the fused loss) trained 2 steps on two seeded global batches of 16 by (a)
+   one process at b16, (b) two gloo ranks sharing the card at b8 each and (c)
+   a one-rank NCCL group; (b) and (c) against (a): the loss and jaccard of
+   each step, every parameter and BN buffer after step 1 (max |d| printed),
+   the ranks' parameters bit-equal after step 2, each loss kernel once a
+   step on each rank; before the steps, one eval pass over 32 seeded images
+   (the confusion kernel once a batch of 8 on each rank) whose summed matrix
+   equals (a)'s; each configuration's step times;
 16. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
@@ -235,6 +246,23 @@ CRF_REQUESTS, CRF_LABEL_COUNTS, CRF_EVAL_IMAGES = 4, (2, 5, 21), 16
 # export and int8: 4 calls of each loaded .pt2, 30-call turns of the A/Bs, the
 # int8 calibration batches' seed
 EXPORT_REQUESTS, EXPORT_ITERS, INT8_SEED = 4, 30, 11
+# data parallelism: 2 steps on global batches of TRAIN_BATCH, an eval pass over
+# 32 images in batches of 8 a rank, the data's and the weights' seeds, in bf16 (the
+# train CLI's) and f32. (b) and (c) against (a) in f32: the loss within 1e-4
+# relative at step 1 and 1e-2 at step 2, jaccard within 1e-2, every parameter
+# within 5e-3 and BN buffer within 1e-3 after step 1, step 1's update within 5e-2
+# of its size. In bf16: each of those gaps within 2x the gap between (a) in bf16
+# and (a) in f32, plus a floor (parallel_phase says why)
+PARALLEL_STEPS, PARALLEL_VAL, PARALLEL_VAL_BATCH, PARALLEL_SEEDS = 2, 32, 8, (13, 9)
+PARALLEL_DTYPES = ("bfloat16", "float32")
+# then PARALLEL_TIMED more steps a configuration, timed only, and one bf16 step
+# profiled (rank 0 of (b), (a) and (c)); profile_one calls its step 4 times
+PARALLEL_TIMED, PROFILE_CALLS = 4, 4
+PARALLEL_F32_BOUNDS = {"loss": (1e-4, 1e-2), "jaccard": 1e-2, "parameters": 5e-3,
+                       "BN buffers": 1e-3, "update": 5e-2}  # loss: relative, at each step
+PARALLEL_BF16_FACTOR = 2.0
+PARALLEL_BF16_FLOOR = {"loss": 1e-3, "jaccard": 1e-2, "parameters": 1e-3, "BN buffers": 1e-4,
+                       "update": 1e-2}  # loss: relative
 # (logits shape, logits dtype name, labels dtype name): the eval slice's call first
 CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
                    ((8, 512, 512, 21), "bfloat16", "uint8"),
@@ -651,6 +679,14 @@ def main() -> None:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return
+    if "--parallel" in sys.argv[1:]:  # the data-parallel phase alone
+        launches = parallel_phase(torch)
+        print(json.dumps({"parallel_launches": launches}))
+        if failures:
+            die(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
     if "--export" in sys.argv[1:]:  # the export phase alone
         requests = make_requests(preprocess_image)
         launches = export_phase(torch, kernels, classes_path, requests, kaspp, kdec, kmb)
@@ -900,6 +936,10 @@ def main() -> None:
     onnx_launches = onnx_phase(torch, kernels, classes_path, requests, learn)
     print(f"the ONNX phase took {time.perf_counter() - t0:.1f} s")
 
+    # -- 5r. data parallelism: one process, two gloo ranks on the card, a
+    # one-rank NCCL group, the same weights and global batches ---------------------
+    parallel_launches = parallel_phase(torch)
+
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
         return float(np.percentile(v, q))
@@ -1016,7 +1056,8 @@ def main() -> None:
         if row["name"] in ("multirate_atrous_depthwise", "confusion_matrix_fused"):
             row["also_on"][f"mobilenetv2 eval --do_crf b{EVAL_BATCH}"] = \
                 crf_eval_launches[row["name"]]
-    for path, counts in {**export_launches, **onnx_launches}.items():  # .pt2 calls, ONNX paths
+    for path, counts in {**export_launches, **onnx_launches,
+                         **parallel_launches}.items():  # .pt2, ONNX, data-parallel paths
         for row in kernels:
             if counts[row["name"]]:
                 row.setdefault("also_on", {})[path] = counts[row["name"]]
@@ -1089,7 +1130,8 @@ def profile_one_request(torch, deeplab, request) -> None:
 
 def profile_one(torch, fn, what: str, filename: str, top: int = 12):
     """Profile one fn() (after an unprofiled and a profiled warm-up window,
-    since the first window pays the tracer's start-up): device operations,
+    since the first window pays the tracer's start-up; PROFILE_CALLS calls
+    of fn in all): device operations,
     device busy time against the wall, idle share, the top rows by device
     time; the full table goes to build/<filename>. Returns (the profiler's
     key averages, busy us, wall us), or None when it recorded no device
@@ -3482,6 +3524,271 @@ def onnx_phase(torch, kernels, classes_path, requests, learn) -> dict:
     launches["tools/export_onnx.py unet_standard"] = counts
     agreement("unet_standard", OnnxProgram(onnx_model, "cuda"),
               Inference(model, with_softmax=True, with_argmax=False), xs)
+    return launches
+
+
+def parallel_data():
+    """(train images u8 (steps, B, H, W, 3), train labels u8 (steps, B, H,
+    W), val images, val labels), made from the seed in every process:
+    labels constant on 32x32 tiles, an ignore band on each image's top."""
+    rng = np.random.RandomState(PARALLEL_SEEDS[0])
+    n = PARALLEL_STEPS * TRAIN_BATCH + PARALLEL_VAL
+    images = rng.randint(0, 256, (n, *INPUT, 3)).astype(np.uint8)
+    tiles = rng.randint(0, 21, (n, INPUT[0] // 32, INPUT[1] // 32)).astype(np.uint8)
+    labels = tiles.repeat(32, axis=1).repeat(32, axis=2)
+    labels[:, :16] = 255
+    k = PARALLEL_STEPS * TRAIN_BATCH
+    shape = (PARALLEL_STEPS, TRAIN_BATCH)
+    return (images[:k].reshape(*shape, *INPUT, 3), labels[:k].reshape(*shape, *INPUT),
+            images[k:], labels[k:])
+
+
+class ParallelVal:
+    """The eval set in global batches of PARALLEL_VAL_BATCH a rank: this
+    rank's rows of each, so that every configuration runs the model on the
+    same 8-image batches."""
+
+    def __init__(self, images, labels, mesh):
+        self.images, self.labels, self.mesh = images, labels, mesh
+
+    def epoch_batches(self):
+        from deeplabv3p_torch.parallel import shard_batch
+
+        b = PARALLEL_VAL_BATCH * self.mesh.size
+        for i in range(0, len(self.images), b):
+            images, labels = shard_batch(self.mesh, (self.images[i:i + b], self.labels[i:i + b]))
+            yield images, labels, np.tile(np.asarray(INPUT, np.float32), (len(images), 1))
+
+
+def host_copy(t) -> np.ndarray:
+    """An f32 numpy copy of a tensor, which later in-place updates leave alone."""
+    import torch
+
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
+def parallel_run(mesh, dtype_name: str, profile_as: str = "") -> dict:
+    """One configuration of the data-parallel phase in one activation dtype,
+    as rank `mesh.rank`: the eval pass on the seeded weights, then
+    PARALLEL_STEPS train steps on this rank's rows of the global batches;
+    launch counts of each, the global loss and jaccard a step, the
+    parameters before the steps and the variables after step 1; then
+    PARALLEL_TIMED more steps, timed; with `profile_as`, one step profiled
+    (on rank 0; the other ranks take the same steps unprofiled); the
+    parameters after the last step."""
+    import torch
+
+    from deeplabv3p_torch.data.augment import preprocess_eval_batch
+    from deeplabv3p_torch.losses import get_loss_fn
+    from deeplabv3p_torch.models.layers import Dropout
+    from deeplabv3p_torch.ops import kernels
+    from deeplabv3p_torch.parallel import shard_batch
+    from deeplabv3p_torch.train import StageConfig, Trainer
+
+    torch.backends.cudnn.allow_tf32 = False  # f32 is f32 in every process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train_images, train_labels, val_images, val_labels = parallel_data()
+    model = make_train_model(torch, getattr(torch, dtype_name), seed=PARALLEL_SEEDS[1])
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    trainer = Trainer(model, 21, get_loss_fn("crossentropy"), device=mesh.device,
+                      log_dir=os.path.join(OUT_DIR, f"smoke_parallel_{mesh.size}_{mesh.rank}"),
+                      fused_loss=True, mesh=mesh)
+    stage = StageConfig(freeze_level=0, optim_type="sgd", learning_rate=1e-2)
+    state = trainer.build_stage_state(stage)
+    step = trainer.make_train_step(stage)
+    kernels.reset_launch_counts()                    # the eval path starts here
+    cm = trainer.evaluate(state, ParallelVal(val_images, val_labels, mesh)).confusion
+    eval_launches = kernels.launch_counts()          # ... and ends here
+    out = {"rank": mesh.rank, "size": mesh.size, "confusion": cm,
+           "eval_launches": eval_launches, "loss": [], "jaccard": [], "ms": [],
+           "jax_imported": [m for m in ("jax", "flax", "deeplabv3p_tpu") if m in sys.modules]}
+    batches = []
+    for i in range(PARALLEL_STEPS):
+        x, y = shard_batch(mesh, (train_images[i], train_labels[i]))
+        batches.append(preprocess_eval_batch(torch.from_numpy(x).to(mesh.device),
+                                             torch.from_numpy(y).to(mesh.device),
+                                             num_classes=21))
+    out["before"] = {k: host_copy(p) for k, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()                    # the train path starts here
+    for i, (images, labels) in enumerate(batches):
+        t = time.perf_counter()
+        metrics = step(state, images, labels, None)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["loss"].append(metrics["loss"].item())
+        out["jaccard"].append(metrics["jaccard"].item())
+        if i == 0:
+            out["after_step1"] = {k: host_copy(v) for k, v in model.state_dict().items()}
+    out["train_launches"] = kernels.launch_counts()  # ... and ends here
+
+    def one_step():
+        step(state, *batches[state.step % PARALLEL_STEPS], None)
+
+    for _ in range(PARALLEL_TIMED):
+        t = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+    if profile_as and mesh.rank == 0:
+        profile_one(torch, one_step, f"one {dtype_name} train step, {profile_as}",
+                    f"profile_parallel_{profile_as.split()[0]}.txt", top=8)
+    elif profile_as:
+        for _ in range(PROFILE_CALLS):
+            one_step()
+    out["params"] = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu().numpy()
+    return out
+
+
+def parallel_both(mesh, profile_as: str) -> dict:
+    """`parallel_run` in bf16 (the train CLI's, profiled as `profile_as`) and
+    in f32, as rank `mesh.rank`."""
+    return {dt: parallel_run(mesh, dt, profile_as if dt == "bfloat16" else "")
+            for dt in PARALLEL_DTYPES}
+
+
+def parallel_gaps(r: dict, a: dict) -> dict:
+    """How far run `r` lands from run `a`: |d| of the loss and jaccard at each
+    step, max |d| of the parameters and of the BN buffers after step 1 (and
+    where), and step 1's parameter update against `a`'s, |d| / |update|."""
+    worst = {"parameters": (0.0, ""), "BN buffers": (0.0, "")}
+    for k, want in a["after_step1"].items():
+        kind = "BN buffers" if "running_" in k else "parameters"
+        d = float(np.abs(r["after_step1"][k] - want).max())
+        if d >= worst[kind][0]:
+            worst[kind] = (d, k)
+    num = sum(float(np.sum((r["after_step1"][k] - a["after_step1"][k]) ** 2)) for k in a["before"])
+    den = sum(float(np.sum((a["after_step1"][k] - a["before"][k]) ** 2)) for k in a["before"])
+    return {"loss": [abs(x - y) for x, y in zip(r["loss"], a["loss"])],
+            "jaccard": [abs(x - y) for x, y in zip(r["jaccard"], a["jaccard"])],
+            **worst, "update": (num / den) ** 0.5}
+
+
+def parallel_phase(torch) -> dict:
+    """(a) one process at b16, (b) two gloo ranks sharing the card at b8 each,
+    (c) a one-rank NCCL group (15c), each in bf16 and in f32; returns each
+    rank's bf16 launch counts by path for the kernels' record.
+
+    f32 (TF32 off) holds the code: (b) and (c) within PARALLEL_F32_BOUNDS of
+    (a). bf16 holds it within its own rounding: random-init bf16 training's
+    step is mostly rounding at the first layers (on the CPU at 64 px, one
+    process's bf16 update is 1.2x its own size away from its f64 update, the
+    f32 one 0.013x), so each bf16 gap of (b) and (c) from (a) is held to
+    PARALLEL_BF16_FACTOR times the same gap between (a) in bf16 and (a) in
+    f32, plus PARALLEL_BF16_FLOOR."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deeplabv3p_torch.parallel import Mesh, make_mesh, spawn
+
+    t0 = time.perf_counter()
+    print(f"data parallelism: mobilenetv2 512x512 OS16, 21 classes, --fused_loss, SGD 1e-2, "
+          f"dropout off, {PARALLEL_STEPS} steps on global batches of {TRAIN_BATCH}, bf16 and "
+          f"f32 (TF32 off); eval pass over {PARALLEL_VAL} images, {PARALLEL_VAL_BATCH} a "
+          f"forward")
+    timeout = datetime.timedelta(minutes=5)
+    a = parallel_both(Mesh(device=torch.device("cuda", 0)), "a one process b16")
+    ta = time.perf_counter()
+    b = spawn(parallel_both, 2, "b gloo rank 0 of 2, b8", device="cuda", backend="gloo",
+              timeout=timeout, join_timeout=600)
+    tb = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_nccl_") as tmp:
+        mesh = make_mesh(1, "cuda", init_method="file://" + os.path.join(tmp, "store"),
+                         backend="nccl", timeout=timeout)
+        try:
+            c = parallel_both(mesh, "c one-rank NCCL group b16")
+        finally:
+            dist.destroy_process_group()
+    tc = time.perf_counter()
+    print(f"  wall: (a) {ta - t0:.1f} s in this process, (b) {tb - ta:.1f} s with the two "
+          f"ranks' start, (c) {tc - tb:.1f} s")
+
+    train_want = {**ZERO_LAUNCHES, "upsample_ce_forward": PARALLEL_STEPS,
+                  "upsample_ce_backward": PARALLEL_STEPS}
+    batches_a = PARALLEL_VAL // PARALLEL_VAL_BATCH
+    configs = (("(a) one process b16", [a]), ("(b) gloo rank", b),
+               ("(c) one-rank NCCL group", [c]))
+    for name, runs in configs:
+        for both in runs:
+            for dt, r in both.items():
+                who = f"{name}{' ' + str(r['rank']) if name.startswith('(b)') else ''}, {dt}"
+                want_eval = batches_a // r["size"]
+                check(r["train_launches"] == train_want,
+                      f"{who}: train launches {r['train_launches']} (each loss kernel once a "
+                      "step)")
+                check(r["eval_launches"] == {**ZERO_LAUNCHES,
+                                             "confusion_matrix_fused": want_eval},
+                      f"{who}: eval launches {r['eval_launches']} (confusion once a batch "
+                      f"of {PARALLEL_VAL_BATCH})")
+                check(not r["jax_imported"],
+                      f"{who}: no JAX module imported ({r['jax_imported'] or 'none'})")
+                check(np.array_equal(r["confusion"], a[dt]["confusion"]),
+                      f"{who}: the summed eval matrix equals (a)'s "
+                      f"({int(r['confusion'].sum())} pixels counted)")
+    for dt in PARALLEL_DTYPES:
+        b0, b1 = b[0][dt], b[1][dt]
+        check(b0["loss"] == b1["loss"] and b0["jaccard"] == b1["jaccard"],
+              f"(b) {dt}: both ranks log the same global loss and jaccard at every step")
+        check(np.array_equal(b0["params"], b1["params"]),
+              f"(b) {dt}: the ranks' {b0['params'].size} parameters bit-equal after "
+              f"{PARALLEL_STEPS + PARALLEL_TIMED + PROFILE_CALLS * (dt == 'bfloat16')} steps")
+    floor = parallel_gaps(a["bfloat16"], a["float32"])  # bf16's own rounding, one process
+    print(f"  (a) bf16 against (a) f32, the bf16 yardstick: loss |d| "
+          f"{[f'{x:.3g}' for x in floor['loss']]}, jaccard |d| "
+          f"{[f'{x:.3g}' for x in floor['jaccard']]}, parameters max |d| "
+          f"{floor['parameters'][0]:.3g} ({floor['parameters'][1]}), BN buffers max |d| "
+          f"{floor['BN buffers'][0]:.3g}, |d| / |update| {floor['update']:.3g}")
+    for name, r in (("(b) two gloo ranks", b[0]), ("(c) one-rank NCCL group", c)):
+        for dt in PARALLEL_DTYPES:
+            g = parallel_gaps(r[dt], a[dt])
+            f32 = dt == "float32"
+            if f32:
+                bounds = dict(PARALLEL_F32_BOUNDS)
+            else:
+                bounds = {k: PARALLEL_BF16_FACTOR * (floor[k] if k == "update" else floor[k][0])
+                          + PARALLEL_BF16_FLOOR[k] for k in ("parameters", "BN buffers", "update")}
+            for i in range(PARALLEL_STEPS):
+                loss_a = abs(a[dt]["loss"][i])
+                loss_bound = (PARALLEL_F32_BOUNDS["loss"][min(i, 1)] * loss_a if f32 else
+                              PARALLEL_BF16_FACTOR * floor["loss"][i]
+                              + PARALLEL_BF16_FLOOR["loss"] * loss_a)
+                jaccard_bound = (PARALLEL_F32_BOUNDS["jaccard"] if f32 else
+                                 PARALLEL_BF16_FACTOR * floor["jaccard"][i]
+                                 + PARALLEL_BF16_FLOOR["jaccard"])
+                check(g["loss"][i] <= loss_bound and g["jaccard"][i] <= jaccard_bound,
+                      f"{name} {dt} step {i + 1}: loss {r[dt]['loss'][i]:.6f} vs (a) "
+                      f"{a[dt]['loss'][i]:.6f} (|d| {g['loss'][i]:.3g} <= {loss_bound:.3g}), "
+                      f"jaccard {r[dt]['jaccard'][i]:.5f} vs {a[dt]['jaccard'][i]:.5f} "
+                      f"(|d| {g['jaccard'][i]:.3g} <= {jaccard_bound:.3g})")
+            for kind in ("parameters", "BN buffers"):
+                d, k = g[kind]
+                check(d <= bounds[kind], f"{name} {dt}: {kind} after step 1 against (a), "
+                                         f"max |d| {d:.3g} at {k} (<= {bounds[kind]:.3g})")
+            check(g["update"] <= bounds["update"],
+                  f"{name} {dt}: step 1's parameter update against (a)'s, |d| / |update| "
+                  f"{g['update']:.3g} (<= {bounds['update']:.3g})")
+    card = card_line()
+    for name, runs in (("(a) one process, b16", [a]),
+                       ("(b) two gloo ranks sharing the card, b8 each", b),
+                       ("(c) one-rank NCCL group, b16", [c])):
+        for both in runs:
+            for dt, r in both.items():
+                warm = r["ms"][1:]
+                print(f"  step times {name}, rank {r['rank']}, {dt}: median "
+                      f"{statistics.median(warm):.1f} ms of steps 2-{len(r['ms'])} "
+                      f"({', '.join(f'{t:.1f}' for t in r['ms'])} ms; host clock, "
+                      f"synchronized; step 1 includes the warm-up)  [{card}]")
+    print(f"the data-parallel phase took {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for both in b:
+        r = both["bfloat16"]
+        launches[f"data-parallel train, gloo rank {r['rank']} of 2, b8"] = r["train_launches"]
+        launches[f"data-parallel eval, gloo rank {r['rank']} of 2, b8"] = r["eval_launches"]
+    launches["data-parallel train, one-rank NCCL group, b16"] = c["bfloat16"]["train_launches"]
     return launches
 
 

@@ -94,6 +94,11 @@ class AugmentParams:
         return AugmentParams(**{f.name: getattr(self, f.name).to(device)
                                 for f in dataclasses.fields(self)})
 
+    def rows(self, start: int, stop: int) -> "AugmentParams":
+        """The parameters of samples `start:stop` of the batch."""
+        return AugmentParams(**{f.name: getattr(self, f.name)[start:stop]
+                                for f in dataclasses.fields(self)})
+
 
 def draw_augment_params(generator: Optional[torch.Generator], batch: int, h: int, w: int,
                         cfg: AugmentConfig = AugmentConfig()) -> AugmentParams:
@@ -396,16 +401,28 @@ def augment_batch(
     cfg: AugmentConfig = AugmentConfig(),
     num_classes: int = 21,
     ignore_index: int = 255,
+    mesh=None,
 ):
     """(images f32 in [-1, 1], labels int32 with values above C-1 set to
     `ignore_index`, the adaptive weight map) (JAX augment.py:392-420):
     the chain with parameters drawn from `generator`, then normalisation,
     the label clamp and the weights. `orig_hw` (B, 2) f32 defaults to the
     input size (the crop then never fires). The identity config skips the
-    ops, which would leave the images as they are."""
+    ops, which would leave the images as they are.
+
+    With a data-parallel `mesh` (`rank`, `size`), the batch is this rank's
+    block of rows of the global batch: the parameters are drawn for the
+    whole global batch, from a generator every rank seeds alike, and this
+    rank applies its rows of them, so that a sample is augmented as one
+    process augments it (JAX draws over the global batch with one key,
+    train.py:452-462)."""
     if cfg != AugmentConfig.identity():
         b, h, w = images.shape[:3]
-        params = draw_augment_params(generator, b, h, w, cfg).to(images.device)
+        rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+        params = draw_augment_params(generator, b * world, h, w, cfg)
+        if world > 1:
+            params = params.rows(rank * b, (rank + 1) * b)
+        params = params.to(images.device)
         if orig_hw is None:
             orig_hw = torch.tensor([[h, w]], dtype=torch.float32,
                                    device=images.device).expand(b, 2)

@@ -7,6 +7,13 @@ Layout: `<dataset>/images/<id>.jpg` + `<dataset>/labels/<id>.png`. The
 host decodes (cv2 or PIL), optionally applies CLAHE, and resizes to the
 model input; everything else runs on the device
 (`deeplabv3p_torch.data.augment`).
+
+Given a data-parallel `mesh` (`parallel.Mesh`: `rank`, `size`), a dataset
+walks the global batches in the order one process walks them (same seed)
+and decodes only this rank's block of rows of each (`rank_rows`). The CLAHE
+coin of each sample is tossed in the producer, in sample order, for the
+whole global batch, so the epoch's draws and the next epoch's shuffle are
+those of one process.
 """
 
 from __future__ import annotations
@@ -56,6 +63,17 @@ def _resize_pair(
     return image, label
 
 
+def rank_rows(idx: np.ndarray, batch_size: int, mesh=None):
+    """This rank's rows of a global batch of sample indices `idx` (a last
+    batch may be short): (the sample each row reads, whether the row pads
+    the batch). A padding row repeats the batch's last sample with its
+    labels set to ignore (255)."""
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    b = batch_size // world
+    rows = np.arange(rank * b, (rank + 1) * b)
+    return idx[np.minimum(rows, len(idx) - 1)], rows >= len(idx)
+
+
 class SegmentationDataset:
     """File-list dataset with threaded decode and batch prefetch."""
 
@@ -73,7 +91,13 @@ class SegmentationDataset:
         num_workers: int = 8,
         seed: int = 0,
         drop_remainder: bool = True,
+        mesh=None,
     ):
+        if mesh is not None:
+            from deeplabv3p_torch.parallel.mesh import check_batch
+
+            check_batch(batch_size, mesh.size)
+        self.mesh = mesh
         dataset_realpath = os.path.realpath(dataset_path)
         self.image_paths = [
             os.path.join(dataset_realpath, "images", i.strip() + ".jpg")
@@ -114,7 +138,7 @@ class SegmentationDataset:
     def num_samples(self) -> int:
         return len(self.image_paths)
 
-    def _load_sample(self, idx: int):
+    def _load_sample(self, idx: int, histeq=None):
         # images: cv2 JPEG decode is ~2x faster than PIL (3.0 vs 5.7 ms
         # for a VOC-sized image) — this is the pipeline's hot path.
         # labels: must stay PIL — cv2 expands palette PNGs to RGB colors
@@ -136,7 +160,9 @@ class SegmentationDataset:
         label = label.astype(np.uint8)
         orig_hw = np.array(image.shape[:2], np.float32)
 
-        if self.augment and self._rng.rand() < self.histeq_prob:
+        if histeq is None:  # the coin tossed here, in the decoding thread
+            histeq = self.augment and self._rng.rand() < self.histeq_prob
+        if histeq:
             image = _apply_clahe(image)
 
         image, label = _resize_pair(image, label, self.input_shape)
@@ -147,7 +173,8 @@ class SegmentationDataset:
     ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """Yield (images u8 (B,H,W,3), labels u8 (B,H,W), orig_hw (B,2))
         with background prefetch. Shuffles at epoch start (reference
-        shuffles at epoch end, data.py:156-160 — same distribution).
+        shuffles at epoch end, data.py:156-160 — same distribution). With a
+        mesh, B is this rank's share of the batch.
 
         Sample decodes for up to `prefetch + 1` batches are in flight at
         once (windowed futures over the persistent pool), so decoding of
@@ -176,23 +203,26 @@ class SegmentationDataset:
 
             def submit(b):
                 idx = order[b * self.batch_size : (b + 1) * self.batch_size]
-                return [self._pool.submit(self._load_sample, i) for i in idx]
+                histeq = [self.augment and self._rng.rand() < self.histeq_prob
+                          for _ in idx]
+                srcs, pads = rank_rows(np.arange(len(idx)), self.batch_size, self.mesh)
+                futures = {}
+                for j in srcs:  # a sample once, however many rows read it
+                    if j not in futures:
+                        futures[j] = self._pool.submit(self._load_sample, idx[j], histeq[j])
+                return [(futures[j], pad) for j, pad in zip(srcs, pads)]
 
             while next_submit < min(window, n_batches):
                 pending.append(submit(next_submit))
                 next_submit += 1
             emitted = 0
             while emitted < n_batches and not stop.is_set():
-                futures = pending.pop(0)
-                samples = [f.result() for f in futures]
-                short = self.batch_size - len(samples)
-                if short > 0:
-                    # pad the final partial batch: repeat the last sample
-                    # with labels forced to 255 so the padding is invisible
-                    # to losses and confusion-matrix metrics
-                    img, lbl, hw = samples[-1]
-                    pad_lbl = np.full_like(lbl, 255)
-                    samples = samples + [(img, pad_lbl, hw)] * short
+                samples = []
+                for f, pad in pending.pop(0):
+                    img, lbl, hw = f.result()
+                    # a row padding the final partial batch: labels forced to
+                    # 255, so it is invisible to losses and confusion metrics
+                    samples.append((img, np.full_like(lbl, 255) if pad else lbl, hw))
                 batch = (
                     np.stack([s[0] for s in samples]),
                     np.stack([s[1] for s in samples]),

@@ -1,6 +1,8 @@
 """Copy of deeplabv3p_tpu/data/shards.py (packed pre-decoded shards),
 pinned equal to it by tests/test_torch_train.py. numpy and PIL only, so
-the port reads and writes the same files without importing JAX.
+the port reads and writes the same files without importing JAX. With a
+data-parallel `mesh`, `ShardedDataset` reads only this rank's rows of each
+global batch (`pipeline.rank_rows`).
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ import os
 from typing import Iterator
 
 import numpy as np
+
+from deeplabv3p_torch.data.pipeline import rank_rows
 
 
 def pack_shards(
@@ -77,7 +81,13 @@ class ShardedDataset:
         shuffle: bool = True,
         seed: int = 0,
         drop_remainder: bool = True,
+        mesh=None,
     ):
+        if mesh is not None:
+            from deeplabv3p_torch.parallel.mesh import check_batch
+
+            check_batch(batch_size, mesh.size)
+        self.mesh = mesh
         with open(os.path.join(shard_dir, "meta.json")) as f:
             meta = json.load(f)
         self.input_shape = tuple(meta["input_shape"])
@@ -133,18 +143,10 @@ class ShardedDataset:
         h, w = self.input_shape
         for b in range(len(self)):
             idx = order[b * self.batch_size : (b + 1) * self.batch_size]
-            images, labels = self._gather(idx)
-            short = self.batch_size - len(idx)
-            if short > 0:
-                # pad the final partial batch with ignore-only labels
-                # (same convention as SegmentationDataset)
-                images = np.concatenate(
-                    [images, np.repeat(images[-1:], short, axis=0)]
-                )
-                labels = np.concatenate(
-                    [labels, np.full((short, h, w), 255, np.uint8)]
-                )
-            orig_hw = np.tile(
-                np.asarray([h, w], np.float32), (self.batch_size, 1)
-            )
+            # this rank's rows; rows padding the final partial batch repeat
+            # its last sample with ignore-only labels (as SegmentationDataset)
+            srcs, pads = rank_rows(idx, self.batch_size, self.mesh)
+            images, labels = self._gather(srcs)
+            labels[pads] = 255
+            orig_hw = np.tile(np.asarray([h, w], np.float32), (len(srcs), 1))
             yield images, labels, orig_hw

@@ -29,6 +29,7 @@ import torch
 
 from deeplabv3p_torch.models.factory import build_segmentation_model
 from deeplabv3p_torch.models.layers import init_parameters
+from deeplabv3p_torch.parallel.mesh import SPATIAL_REFUSAL
 from deeplabv3p_torch.postprocess import crf_postprocess, mask_argmax, mask_resize
 from deeplabv3p_torch.utils.config import get_classes
 from deeplabv3p_torch.utils.checkpoint import load_weights
@@ -80,9 +81,8 @@ class DeepLab:
         self.__dict__.update(DEFAULT_CONFIG)
         self.__dict__.update(kwargs)
         if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-GPU inference is not ported yet (ROADMAP Queue A item 11)"
-            )
+            # JAX takes only a mesh with a 'spatial' axis here (inference.py:107-112)
+            raise NotImplementedError(f"DeepLab(mesh=...): {SPATIAL_REFUSAL}")
         if self.class_names is None:
             if self.classes_path is None:
                 raise ValueError("need class_names or classes_path")

@@ -33,6 +33,13 @@ def jaccard_from_preds(
     (JAX metrics.py:43-72). Per-sample (C+2, C) confusion matrices: GT bins
     0..C-1, the literal value C, and everything else out of range (255),
     which still counts in the predicted-pixel totals."""
+    return jaccard_from_sample_cm(sample_confusion(y_true, preds, num_classes))
+
+
+def sample_confusion(y_true: torch.Tensor, preds: torch.Tensor,
+                     num_classes: int) -> torch.Tensor:
+    """The per-sample (N, C+2, C) f32 confusion matrices of
+    `jaccard_from_preds`."""
     n = y_true.shape[0]
     ncls = num_classes
     labels = y_true.reshape(n, -1).long()
@@ -43,12 +50,20 @@ def jaccard_from_preds(
     offset = torch.arange(n, device=labels.device).unsqueeze(1) * per_sample
     idx = offset + gt_bins * ncls + preds
     cm = torch.bincount(idx.reshape(-1), minlength=n * per_sample)
-    return jaccard_from_sample_cm(cm.reshape(n, ncls + 2, ncls).float())
+    return cm.reshape(n, ncls + 2, ncls).float()
 
 
 def jaccard_from_sample_cm(cm: torch.Tensor) -> torch.Tensor:
     """jaccard's reduction from per-sample (C+2, C) confusion matrices
     (JAX metrics.py:75-95)."""
+    return jaccard_from_sums(*jaccard_sums(cm))
+
+
+def jaccard_sums(cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two sums over samples that jaccard averages, from per-sample
+    (C+2, C) confusion matrices: per class (C+1) the IOU summed over the
+    samples whose ground truth holds it, and the count of those samples.
+    Over a data-parallel batch they add up over the ranks."""
     n, ncls = cm.shape[0], cm.shape[-1]
     zero = torch.zeros((n, 1), dtype=torch.float32, device=cm.device)
     inter = torch.cat([torch.diagonal(cm[:, :ncls, :], dim1=1, dim2=2), zero], dim=1)
@@ -57,8 +72,13 @@ def jaccard_from_sample_cm(cm: torch.Tensor) -> torch.Tensor:
     union = t_count + p_count - inter
     legal = t_count > 0
     ious = torch.where(legal & (union > 0), inter / union.clamp_min(1.0), 0.0)
-    cnt = legal.float().sum(dim=0)
-    class_mean = torch.where(cnt > 0, ious.sum(dim=0) / cnt.clamp_min(1.0),
+    return ious.sum(dim=0), legal.float().sum(dim=0)
+
+
+def jaccard_from_sums(iou_sum: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """jaccard from `jaccard_sums`: the per-class mean IOU over the samples
+    that hold the class, averaged over the classes that some sample holds."""
+    class_mean = torch.where(cnt > 0, iou_sum / cnt.clamp_min(1.0),
                              torch.full_like(cnt, float("nan")))
     valid = ~torch.isnan(class_mean)
     return torch.where(valid, class_mean, 0.0).sum() / valid.float().sum()

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from deeplabv3p_torch.ops.conv import atrous_explicit_pad, conv2d_same
 from deeplabv3p_torch.ops.resize import resize_bilinear
+from deeplabv3p_torch.parallel.mesh import AllReduceSum
 
 
 def _dtype(dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -94,6 +95,13 @@ class BatchNorm(nn.Module):
     `r = m * r + (1 - m) * batch`, in place. (`F.batch_norm` would put the
     unbiased variance into the buffer.) Gradients flow through the batch
     statistics, as in JAX.
+
+    `group` (a process group; None, the default, for this process alone)
+    makes the batch the global one of a data-parallel run, as GSPMD makes
+    it in JAX: the per-channel `[sum x, sum x^2, count]` is summed over the
+    ranks in one differentiable `all_reduce` (`parallel.AllReduceSum`), in
+    f32 or wider, then `mean = sum x / n` and `var = max(sum x^2 / n -
+    mean^2, 0)`. The trainer sets it on every BN (`set_batchnorm_group`).
     """
 
     def __init__(self, num_features: int, epsilon: float = 1e-3,
@@ -107,6 +115,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
         self.register_buffer("running_var", torch.ones(num_features, device=device))
+        self.group = None
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(scale, bias) with BN(x) == x * scale + bias, in f32."""
@@ -126,8 +135,18 @@ class BatchNorm(nn.Module):
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = (0, 2, 3)
-        mean = xf.mean(dim=axes)
-        var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+        if self.group is None:
+            mean = xf.mean(dim=axes)
+            var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+        else:
+            c = xf.shape[1]
+            # the count is exact in f32 up to 2^24 elements a channel
+            stats = AllReduceSum.apply(torch.cat([
+                xf.sum(dim=axes), (xf * xf).sum(dim=axes),
+                xf.new_full((1,), xf.numel() // c)]), self.group)
+            n = stats[2 * c]
+            mean = stats[:c] / n
+            var = torch.clamp_min(stats[c:2 * c] / n - mean * mean, 0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)

@@ -29,6 +29,12 @@ only; a UNet trains without the L2 penalty, as in the root CLI).
   retention and `history.jsonl`.
 * `recalibrate_batch_stats`: exact BN statistics over a dataset, after
   training (`--bn_recalibrate`).
+* `--num_devices N` (JAX: a 'data' mesh of N devices) trains over N ranks,
+  one process and one device each (`parallel/mesh.py`): each rank takes its
+  block of rows of every global batch, BatchNorm takes its statistics over
+  the global batch, the gradients are averaged by `all_reduce`, and every
+  rank logs the numbers one process would. `main` spawns the ranks itself,
+  or runs as one of them under torchrun.
 
 PyTorch runs eagerly, so model, optimizer and averages are updated in
 place; `TrainState` carries the rest. Frozen parameters stay out of the
@@ -61,6 +67,15 @@ from deeplabv3p_torch.models.factory import (
     trainable_parameters,
 )
 from deeplabv3p_torch.models.layers import Dropout
+from deeplabv3p_torch.parallel.mesh import (
+    Mesh,
+    broadcast_module,
+    check_batch,
+    make_mesh,
+    reduce_gradients,
+    set_batchnorm_group,
+    spawn,
+)
 from deeplabv3p_torch.utils.checkpoint import check_weights_path
 from deeplabv3p_torch.utils.weights import to_jax_variables
 
@@ -109,6 +124,7 @@ def make_train_step(
     average_type: Optional[str] = None,
     fused_loss: bool = False,
     fused_class_weights=None,
+    mesh: Optional[Mesh] = None,
 ):
     """The train step, `(state, images, labels, weights, lr_scale) ->
     metrics` (JAX train.py:77-209). images (B, H, W, 3) f32 in [-1, 1],
@@ -121,8 +137,16 @@ def make_train_step(
     `fused_loss` replaces the model's final upsample, `loss_fn` and the
     metric's argmax by `fused_upsample_ce`: (class-weighted) CE with the
     ignore index, which the caller must only enable for those losses.
+
+    With a `mesh` that has a group, the batch is this rank's rows of the
+    global batch: the fused loss kernel runs on them (JAX shard_maps it the
+    same way, train.py:107-148), the gradients are averaged over the ranks
+    at the step that updates, and the returned loss and jaccard are the
+    global batch's, the same on every rank.
     """
     from deeplabv3p_torch.ops.kernels.upsample_ce import fused_upsample_ce
+
+    group = None if mesh is None else mesh.group
 
     def forward_loss(images, labels, weights):
         """(loss, metric input): the train-mode forward and the loss,
@@ -151,6 +175,13 @@ def make_train_step(
             (loss / state.grad_accum if state.grad_accum > 1 else loss).backward()
         state.step += 1
         if state.step % state.grad_accum == 0:
+            if group is not None:
+                # each rank's loss is its own mean plus the L2 penalty; every
+                # rank holds as many pixels and the same L2, so the ranks'
+                # mean gradient is that of the global-batch mean plus L2 once.
+                # A step that trains nothing has no gradient on any rank.
+                reduce_gradients([p for g in state.optimizer.param_groups
+                                  for p in g["params"]], group)
             opt_lib.set_learning_rate(
                 state.optimizer, state.schedule(state.updates) * lr_scale)
             state.optimizer.step()
@@ -159,12 +190,32 @@ def make_train_step(
         state.avg = opt_lib.apply_average(average_type, state.avg, state.params, state.step)
 
         with torch.no_grad():
+            if group is not None:
+                return _global_metrics(loss.detach(), labels, metric_aux, fused_loss,
+                                       num_classes, mesh)
             jac = (metrics_lib.jaccard_from_preds(labels, metric_aux, num_classes)
                    if fused_loss else metrics_lib.jaccard(labels, metric_aux))
         return {"loss": loss.detach(), "jaccard": jac}
 
     step_fn.forward_loss = forward_loss
     return step_fn
+
+
+def _global_metrics(loss, labels, metric_aux, fused_loss: bool, num_classes: int,
+                    mesh: Mesh) -> dict:
+    """{'loss', 'jaccard'} of the global batch from this rank's share: the
+    loss averaged and jaccard's per-class sums added over the ranks, in one
+    f64 `all_reduce`."""
+    import torch.distributed as dist
+
+    preds = metric_aux if fused_loss else torch.argmax(metric_aux, dim=-1)
+    iou_sum, cnt = metrics_lib.jaccard_sums(
+        metrics_lib.sample_confusion(labels, preds, num_classes))
+    k = iou_sum.numel()
+    vec = torch.cat([loss.reshape(1).double(), iou_sum.double(), cnt.double()])
+    dist.all_reduce(vec, group=mesh.group)
+    return {"loss": (vec[0] / mesh.size).to(loss.dtype),
+            "jaccard": metrics_lib.jaccard_from_sums(vec[1:k + 1].float(), vec[k + 1:].float())}
 
 
 def make_eval_step(model, num_classes: int):
@@ -186,10 +237,13 @@ def make_eval_step(model, num_classes: int):
     return step_fn
 
 
-def accumulate_confusion(eval_step, data, num_classes: int, device) -> np.ndarray:
+def accumulate_confusion(eval_step, data, num_classes: int, device,
+                         group=None) -> np.ndarray:
     """Stream `data.epoch_batches()` (host batches: images u8, labels u8,
     ...) through `eval_step`, one step a batch, the (C, C) matrix summed on
-    the device and copied to the host once, at the end."""
+    the device and copied to the host once, at the end. With a process
+    `group`, `data` is this rank's share and the matrices are summed over
+    the ranks (exact in int64), so every rank returns the whole one."""
     cm = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
     feed = device_feed(data.epoch_batches(), device)
     try:
@@ -197,13 +251,39 @@ def accumulate_confusion(eval_step, data, num_classes: int, device) -> np.ndarra
             cm += eval_step(batch[0], batch[1])
     finally:
         feed.close()
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(cm, group=group)
     return cm.cpu().numpy()
 
 
-@torch.no_grad()
-def recalibrate_batch_stats(model, batches, num_classes: int, device, seed: int = 0) -> None:
+def recalibrate_batch_stats(model, batches, num_classes: int, device, seed: int = 0,
+                            mesh: Optional[Mesh] = None) -> None:
     """Replace every BatchNorm's running statistics by the exact statistics
     of `batches` (JAX train.py:250-329), in place.
+
+    With a `mesh` that has a group, rank 0 makes the pass alone over the
+    whole of `batches` (the other ranks pass None), with the BNs' groups
+    lifted, and broadcasts the result: every rank ends with the statistics
+    one process gives, dropout masks included.
+    """
+    group = None if mesh is None else mesh.group
+    if group is None:
+        _recalibrate(model, batches, num_classes, device, seed)
+        return
+    if mesh.rank == 0:
+        set_batchnorm_group(model, None)
+        try:
+            _recalibrate(model, batches, num_classes, device, seed)
+        finally:
+            set_batchnorm_group(model, group)
+    broadcast_module(model, group)
+
+
+@torch.no_grad()
+def _recalibrate(model, batches, num_classes: int, device, seed: int) -> None:
+    """`recalibrate_batch_stats` in one process.
 
     One training-mode pass at freeze level 0 over the host batches (images
     u8, labels u8, ...), normalised as for evaluation; a forward pre-hook on
@@ -278,12 +358,21 @@ def swapped_parameters(params: dict, values: dict):
 
 
 class Trainer:
-    """Two-stage transfer trainer (JAX train.py:332-721) on one device.
+    """Two-stage transfer trainer (JAX train.py:332-721).
 
     Stage 1 trains with the backbone frozen and an undecayed optimizer,
     stage 2 unfreezes and rebuilds the optimizer with LR decay and optional
     averaging. The dropout masks come from a generator on `device` seeded
-    with `seed`, which the trainer owns.
+    with `seed` (and the rank), which the trainer owns.
+
+    With a `mesh` that has a group (`parallel.make_mesh`), this is one rank
+    of a data-parallel run: the model is broadcast from rank 0 and its
+    BatchNorms take global-batch statistics; the data that `fit` and
+    `evaluate` get is this rank's share (the datasets' `mesh=`). Every
+    number the schedule decides on (the epoch's loss and jaccard, val and
+    eval mIoU) comes out of an `all_reduce`, which hands every rank the same
+    bits, so the ranks decide alike; rank 0 alone writes the history and the
+    checkpoints.
     """
 
     def __init__(
@@ -299,8 +388,12 @@ class Trainer:
         seed: int = 0,
         fused_loss: bool = False,
         fused_class_weights=None,
+        mesh: Optional[Mesh] = None,
     ):
         self.model = model
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.group
+        self.rank = 0 if mesh is None else mesh.rank
         self.num_classes = num_classes
         self.loss_fn = loss_fn
         self.device = torch.device(device)
@@ -314,7 +407,13 @@ class Trainer:
                             device=self.device))
         self.history: list[dict] = []
         self._best_eval_miou = -np.inf
-        self.dropout_generator = torch.Generator(device=self.device).manual_seed(seed)
+        if self.group is not None:
+            broadcast_module(model, self.group)
+            set_batchnorm_group(model, self.group)
+        # the ranks draw different masks; rank 0's are one process's
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(
+            seed if self.rank == 0 else
+            int(np.random.SeedSequence([seed, self.rank]).generate_state(1)[0]))
         for m in model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
@@ -348,7 +447,7 @@ class Trainer:
             freeze_level=stage.freeze_level,
             use_sample_weights=self.use_sample_weights, l2_factor=self.l2_factor,
             average_type=stage.average_type, fused_loss=self.fused_loss,
-            fused_class_weights=self.fused_class_weights,
+            fused_class_weights=self.fused_class_weights, mesh=self.mesh,
         )
 
     def fit(
@@ -422,14 +521,14 @@ class Trainer:
                     record["eval_miou"] = ev.miou
                     if ev.miou > self._best_eval_miou:
                         self._best_eval_miou = ev.miou
-                        if ckpt_manager is not None:
+                        if ckpt_manager is not None and self.rank == 0:
                             ckpt_manager.save_eval_best(
                                 self.eval_variables(state, stage), global_epoch, ev.miou)
 
                 if monitored > best_metric:
                     best_metric = monitored
                     plateau_wait = early_wait = 0
-                    if ckpt_manager is not None:
+                    if ckpt_manager is not None and self.rank == 0:
                         ckpt_manager.save_epoch(
                             self.eval_variables(state, stage), global_epoch, record)
                 else:
@@ -457,6 +556,8 @@ class Trainer:
             return to_jax_variables(self.model)
 
     def _log_record(self, record: dict) -> None:
+        if self.rank != 0:
+            return
         try:
             with open(os.path.join(self.log_dir, "history.jsonl"), "a") as f:
                 f.write(json.dumps(record) + "\n")
@@ -472,7 +573,7 @@ class Trainer:
         try:
             with swapped_parameters(state.params, params):
                 cm = accumulate_confusion(self._eval_step, val_data, self.num_classes,
-                                          self.device)
+                                          self.device, self.group)
         finally:
             self.model.train(was_training)
         return metrics_lib.segment_metrics_from_confusion(cm)
@@ -496,8 +597,9 @@ def _refuse_unported(args) -> None:
     """Flags of the root train.py the port does not run yet: each raises,
     naming its ROADMAP item; none is ignored."""
     unported = [
-        (args.spatial_partition > 1, "--spatial_partition > 1", "Queue A item 11"),
-        (args.num_devices > 1, "--num_devices > 1", "Queue A item 11"),
+        (args.spatial_partition > 1,
+         "--spatial_partition > 1 (a ('data', 'spatial') mesh over --num_devices)",
+         "Queue A item 11, spatial partitioning"),
         (args.remat != "off", "--remat", "Queue A item 14"),
     ]
     for hit, what, item in unported:
@@ -508,6 +610,53 @@ def _refuse_unported(args) -> None:
 
 
 def main(args):
+    """Train as the root train.py does. With `--num_devices N > 1` it spawns
+    N ranks and returns None (the results are in `--log_dir`); under
+    torchrun (RANK / WORLD_SIZE / LOCAL_RANK in the environment) it is one
+    of the ranks. Otherwise it trains in this process and returns the
+    `Trainer`."""
+    _refuse_unported(args)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but torch.cuda.is_available() is False; "
+                           "pass --device cpu to train on the CPU")
+    env = os.environ
+    if "RANK" in env and "WORLD_SIZE" in env:  # one rank of a torchrun launch
+        world = int(env["WORLD_SIZE"])
+        if args.num_devices not in (0, world):
+            raise ValueError(f"--num_devices {args.num_devices} under torchrun's "
+                             f"WORLD_SIZE {world}")
+        check_batch(args.batch_size, world)
+        mesh = make_mesh(world, args.device, rank=int(env["RANK"]),
+                         local_rank=int(env.get("LOCAL_RANK", env["RANK"])),
+                         init_method="env://")
+        try:
+            return train(args, mesh)
+        finally:
+            if mesh.group is not None:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
+    n = args.num_devices
+    if torch.device(args.device).type == "cuda":
+        visible = torch.cuda.device_count()
+        n = n or visible  # 0: every visible card
+        if n > visible:
+            raise ValueError(f"--num_devices {n} > the {visible} visible GPU(s)")
+    n = n or 1  # 0 on the CPU: one process
+    check_batch(args.batch_size, n)
+    if n == 1:
+        return train(args, None)
+    spawn(_train_rank, n, args, device=args.device)
+    return None
+
+
+def _train_rank(mesh: Mesh, args) -> list:
+    return train(args, mesh).history
+
+
+def train(args, mesh: Optional[Mesh] = None):
+    """The root train.py's run in this process: on one device, or as one
+    rank of `mesh`."""
     from deeplabv3p_torch.data.augment import AugmentConfig, augment_batch
     from deeplabv3p_torch.data.pipeline import SegmentationDataset
     from deeplabv3p_torch.data.shards import ShardedDataset, is_packed_dataset
@@ -522,18 +671,16 @@ def main(args):
     )
     from deeplabv3p_torch.utils.checkpoint import load_weights
 
-    _refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but torch.cuda.is_available() is False; "
-                           "pass --device cpu to train on the CPU")
+    device = torch.device(args.device) if mesh is None else mesh.device
+    rank = 0 if mesh is None else mesh.rank
+    say = print if rank == 0 else (lambda *a, **k: None)
     class_names = get_classes(args.classes_path)
     num_classes = len(class_names)
     assert num_classes < 254, "PNG label only supports < 254 classes"
     input_shape = parse_input_shape(args.model_input_shape)
 
     if is_packed_dataset(args.dataset_path):
-        train_ds = ShardedDataset(args.dataset_path, batch_size=args.batch_size)
+        train_ds = ShardedDataset(args.dataset_path, batch_size=args.batch_size, mesh=mesh)
         if tuple(train_ds.input_shape) != tuple(input_shape):
             raise SystemExit(f"packed dataset resolution {train_ds.input_shape} != "
                              f"--model_input_shape {input_shape}; re-pack or adjust")
@@ -542,30 +689,31 @@ def main(args):
         train_list = get_data_list(args.dataset_file)
         train_ds = SegmentationDataset(
             args.dataset_path, train_list, batch_size=args.batch_size,
-            num_classes=num_classes, input_shape=input_shape, augment=args.augment)
+            num_classes=num_classes, input_shape=input_shape, augment=args.augment,
+            mesh=mesh)
 
     if args.device_cache:
         # the whole uint8 set resident on the device, batches gathered there
         # (root train.py:149-156): a step's host traffic is B indices
         from deeplabv3p_torch.data.device_cache import DeviceCachedDataset
 
-        print("caching the train set into device memory ...")
-        train_ds = DeviceCachedDataset.from_source(train_ds, device=device)
+        say("caching the train set into device memory ...")
+        train_ds = DeviceCachedDataset.from_source(train_ds, device=device, mesh=mesh)
 
     val_ds = None
     if args.val_dataset_file and is_packed_dataset(args.val_dataset_file):
         val_ds = ShardedDataset(args.val_dataset_file, batch_size=args.batch_size,
-                                shuffle=False, drop_remainder=False)
+                                shuffle=False, drop_remainder=False, mesh=mesh)
     elif args.val_dataset_file:
         val_list = get_data_list(args.val_dataset_file)
         if val_list:
             val_ds = SegmentationDataset(
                 args.dataset_path, val_list, batch_size=args.batch_size,
                 num_classes=num_classes, input_shape=input_shape, augment=False,
-                shuffle=False, drop_remainder=False)
+                shuffle=False, drop_remainder=False, mesh=mesh)
 
     class_weights = None
-    if args.weighted_type == "balanced":
+    if args.weighted_type == "balanced" and rank == 0:
         wpath = os.path.join(args.dataset_path, "classes_weights.txt")
         if os.path.exists(wpath):
             class_weights = load_class_weights(wpath)
@@ -580,6 +728,8 @@ def main(args):
                     num_classes=num_classes, input_shape=input_shape, augment=False,
                     shuffle=False)
             class_weights = calculate_weights_labels(stat_ds, num_classes, save_path=wpath)
+    if args.weighted_type == "balanced" and mesh is not None and mesh.group is not None:
+        class_weights = _from_rank0(class_weights, num_classes, mesh)
     loss_fn = losses_lib.get_loss_fn(
         args.loss, weighted_type=args.weighted_type,
         class_weights=(None if class_weights is None else
@@ -605,6 +755,7 @@ def main(args):
         log_dir=args.log_dir, seed=args.seed,
         fused_loss=args.fused_loss,
         fused_class_weights=class_weights if args.weighted_type == "balanced" else None,
+        mesh=mesh,
     )
 
     total_steps = max(1, len(train_ds)) * max(args.total_epoch - args.transfer_epoch, 1)
@@ -628,7 +779,7 @@ def main(args):
 
     def augment_fn(images, labels, orig_hw):
         return augment_batch(aug_generator, images, labels, orig_hw, aug_cfg,
-                             num_classes=num_classes)
+                             num_classes=num_classes, mesh=mesh)
 
     trainer.fit(
         train_ds, stages, augment_fn=augment_fn, val_data=val_ds,
@@ -637,22 +788,36 @@ def main(args):
         ckpt_manager=ckpt)
     if args.bn_recalibrate:
         # exact BN statistics over the un-augmented train set, in order (root
-        # train.py:255-275): a short run ends before the 0.999 EMA settles
-        if is_packed_dataset(args.dataset_path):
-            recal_ds = ShardedDataset(args.dataset_path, batch_size=args.batch_size,
-                                      shuffle=False)
-        else:
-            recal_ds = SegmentationDataset(
+        # train.py:255-275): a short run ends before the 0.999 EMA settles;
+        # rank 0 makes the pass over the whole set and broadcasts
+        batches = None
+        if rank == 0 and is_packed_dataset(args.dataset_path):
+            batches = ShardedDataset(args.dataset_path, batch_size=args.batch_size,
+                                     shuffle=False).epoch_batches()
+        elif rank == 0:
+            batches = SegmentationDataset(
                 args.dataset_path, train_list, batch_size=args.batch_size,
                 num_classes=num_classes, input_shape=input_shape, augment=False,
-                shuffle=False)
-        print("recalibrating BN statistics over the train set ...")
-        recalibrate_batch_stats(model, recal_ds.epoch_batches(), num_classes, device)
-    path = ckpt.save_final(to_jax_variables(model))  # the live weights, as JAX
-    print(f"saved final model to {path}")
-    for rec in trainer.history:
-        print(rec)
+                shuffle=False).epoch_batches()
+        say("recalibrating BN statistics over the train set ...")
+        recalibrate_batch_stats(model, batches, num_classes, device, mesh=mesh)
+    if rank == 0:
+        path = ckpt.save_final(to_jax_variables(model))  # the live weights, as JAX
+        print(f"saved final model to {path}")
+        for rec in trainer.history:
+            print(rec)
     return trainer
+
+
+def _from_rank0(values, n: int, mesh: Mesh) -> np.ndarray:
+    """Rank 0's `n` floats on every rank."""
+    import torch.distributed as dist
+
+    t = (torch.zeros(n, dtype=torch.float64) if values is None else
+         torch.as_tensor(np.asarray(values, np.float64)))
+    t = t.to(mesh.device)
+    dist.broadcast(t, 0, group=mesh.group)
+    return t.cpu().numpy()
 
 
 def parse_args(argv=None):
@@ -694,9 +859,11 @@ def parse_args(argv=None):
                    help="periodic full-mIOU eval (reference --eval_online)")
     p.add_argument("--eval_epoch_interval", type=int, default=10)
     p.add_argument("--num_devices", type=int, default=0,
-                   help="one device only: more is not ported")
+                   help="data-parallel ranks, one process and one device each (0: every "
+                        "visible GPU, one process on --device cpu); --batch_size is the "
+                        "global batch and must divide by it")
     p.add_argument("--spatial_partition", type=int, default=1,
-                   help="1 only: spatial partitioning is not ported")
+                   help="1 only: spatial partitioning is not ported (ROADMAP item 11)")
     p.add_argument("--bn_recalibrate", action="store_true",
                    help="replace the BN running statistics by the exact statistics of "
                         "the un-augmented train set before the final save (short runs)")

@@ -130,6 +130,22 @@ def test_logits_match_jax_f32(model_type, output_stride):
     check_logits_match_jax_f32(model_type, output_stride, 64, fused=False)
 
 
+@pytest.mark.parametrize("model_type,hw", [
+    ("mobilenetv2", (72, 104)), ("mobilenetv2", (65, 97)), ("mobilenetv2_lite", (72, 104)),
+    ("mobilenetv2_lite", (65, 97)), ("mobilenetv3small_lite", (72, 104))])
+def test_logits_match_jax_f32_at_odd_sizes(model_type, hw):
+    """Odd, non-square inputs that are no multiple of the output stride:
+    the TF-SAME stride-2 padding and the half-pixel resizes at sizes where
+    they round, OS16, f32, unfused."""
+    variables = jax_variables(model_type, 16, 64)
+    x = np.random.default_rng(3).uniform(-1, 1, (1, *hw, 3)).astype(np.float32)
+    jm = build_segmentation_model(model_type, 21, output_stride=16)
+    want = np.asarray(jax.jit(lambda v, a: jm.apply(v, a, train=False))(variables, x))
+    got = port_logits(port_model(model_type, 16, variables), x)
+    assert got.shape == want.shape == (1, *hw, 21)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
 def test_skip_final_resize_matches_jax():
     """Logits at feature resolution (OS4 after the decoder), f32."""
     variables = jax_variables("mobilenetv2", 16, 64)

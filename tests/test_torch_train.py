@@ -506,7 +506,9 @@ def test_fit_reduces_lr_on_plateau_and_stops_early_or_on_nan(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--no_augment", "--spatial_partition", "2"], "spatial_partition"),
-    (["--no_augment", "--num_devices", "2"], "num_devices"),
+    # --num_devices N trains since the data-parallel port (test_torch_parallel*.py);
+    # what stays refused with it is a spatial split of the devices
+    (["--no_augment", "--num_devices", "2", "--spatial_partition", "2"], "num_devices"),
     (["--no_augment", "--remat"], "remat"),
 ])
 def test_unported_flags_raise(flags, match, tmp_path):
