@@ -6,6 +6,7 @@
     python3 chip_smoke.py --export # steps 1-2 and the export phase (15) alone
     python3 chip_smoke.py --onnx   # steps 1-2, the learning proof and the ONNX phase (15b)
     python3 chip_smoke.py --parallel  # steps 1-2 and the data-parallel phase (15c) alone
+    python3 chip_smoke.py --spatial   # steps 1-2 and the spatial phase (15d) alone
 
 1. prints the card (`nvidia-smi` name and power limit) and the versions;
 2. builds the CUDA kernels from deeplabv3p_torch/ops/kernels/csrc with nvcc;
@@ -156,6 +157,22 @@
    step on each rank; before the steps, one eval pass over 32 seeded images
    (the confusion kernel once a batch of 8 on each rank) whose summed matrix
    equals (a)'s; each configuration's step times;
+15d. spatial partitioning (`parallel/spatial.py`): the ASPP, decoder (with
+   its global row offsets) and inverted-residual kernels on every row slab
+   the phase's ranks hand them, against their plain versions and the whole
+   map's call, and the confusion kernel on an eval rank's block;
+   then, in this process and as four gloo ranks sharing the card (sub-meshes
+   (1, 2), twice, and (2, 2) of the (1, 4) world): `DeepLab(mesh=...)`
+   (mobilenetv2, seeded, the ASPP and decoder kernels) on (1, 2) at
+   1024x2048 with 19 classes and on (1, 4) at 512x512 with 21, the f32
+   logits gathered against one process's and the bf16 masks, the two kernels
+   once a request on every rank; eval with --fused_mbconv on (1, 2), the
+   ASPP, inverted-residual and confusion kernels on every rank and the
+   summed matrix against one process's and against torch.argmax + bincount
+   of the same logits; training on (1, 2) at b2 and (2, 2) at b4 (plain CE,
+   2 steps, bf16 and f32) at the data-parallel phase's bounds, bf16's step
+   2 against one process at the ranks' parameters after step 1, the ranks'
+   parameters bit-equal; each rank's request latency and step time;
 16. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
@@ -263,6 +280,22 @@ PARALLEL_F32_BOUNDS = {"loss": (1e-4, 1e-2), "jaccard": 1e-2, "parameters": 5e-3
 PARALLEL_BF16_FACTOR = 2.0
 PARALLEL_BF16_FLOOR = {"loss": 1e-3, "jaccard": 1e-2, "parameters": 1e-3, "BN buffers": 1e-4,
                        "update": 1e-2}  # loss: relative
+# spatial partitioning (15d): serving (mesh, H x W, classes) on Cityscapes' size
+# and on VOC's, SPATIAL_REQUESTS requests a run; eval on (1, 2) over 8 of the
+# data-parallel phase's val images, 4 a batch; training (mesh, global batch) on
+# its train set, SPATIAL_STEPS steps held, SPATIAL_TIMED more timed; the seeds
+# of the request, the eval weights and the kernel checks. Bounds set before the
+# first card run: f32 logits within 1e-4 of max|logits| (the blocks' convs may
+# take other cuDNN algorithms than the whole map's), bf16 masks agree on >= 0.999
+# of pixels, the eval matrix within 1e-4 of its pixels (bf16, --fused_mbconv),
+# training at the data-parallel phase's bounds: in bf16 against one process at
+# the same parameters (step 2 from the ranks' parameters after step 1), within
+# twice one process's own bf16-vs-f32 gap there plus the floors (spatial_phase)
+SPATIAL_SERVING = [((1, 2), (1024, 2048), 19), ((1, 4), INPUT, 21)]
+SPATIAL_REQUESTS, SPATIAL_EVAL_IMAGES, SPATIAL_EVAL_BATCH = 6, 8, 4
+SPATIAL_TRAINING = [((1, 2), 2), ((2, 2), 4)]
+SPATIAL_STEPS, SPATIAL_TIMED, SPATIAL_SEEDS = 2, 3, (21, 22, 23)
+SPATIAL_F32_LOGITS, SPATIAL_MASK_FLOOR, SPATIAL_EVAL_DISAGREE = 1e-4, 0.999, 1e-4
 # (logits shape, logits dtype name, labels dtype name): the eval slice's call first
 CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
                    ((8, 512, 512, 21), "bfloat16", "uint8"),
@@ -687,6 +720,14 @@ def main() -> None:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return
+    if "--spatial" in sys.argv[1:]:  # the spatial phase alone
+        launches = spatial_phase(torch, kaspp, kdec, kmb, kconf)
+        print(json.dumps({"spatial_launches": launches}))
+        if failures:
+            die(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
     if "--export" in sys.argv[1:]:  # the export phase alone
         requests = make_requests(preprocess_image)
         launches = export_phase(torch, kernels, classes_path, requests, kaspp, kdec, kmb)
@@ -939,6 +980,7 @@ def main() -> None:
     # -- 5r. data parallelism: one process, two gloo ranks on the card, a
     # one-rank NCCL group, the same weights and global batches ---------------------
     parallel_launches = parallel_phase(torch)
+    spatial_launches = spatial_phase(torch, kaspp, kdec, kmb, kconf)
 
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
@@ -1056,8 +1098,8 @@ def main() -> None:
         if row["name"] in ("multirate_atrous_depthwise", "confusion_matrix_fused"):
             row["also_on"][f"mobilenetv2 eval --do_crf b{EVAL_BATCH}"] = \
                 crf_eval_launches[row["name"]]
-    for path, counts in {**export_launches, **onnx_launches,
-                         **parallel_launches}.items():  # .pt2, ONNX, data-parallel paths
+    for path, counts in {**export_launches, **onnx_launches, **parallel_launches,
+                         **spatial_launches}.items():  # .pt2, ONNX, data-parallel, spatial
         for row in kernels:
             if counts[row["name"]]:
                 row.setdefault("also_on", {})[path] = counts[row["name"]]
@@ -3789,6 +3831,512 @@ def parallel_phase(torch) -> dict:
         launches[f"data-parallel train, gloo rank {r['rank']} of 2, b8"] = r["train_launches"]
         launches[f"data-parallel eval, gloo rank {r['rank']} of 2, b8"] = r["eval_launches"]
     launches["data-parallel train, one-rank NCCL group, b16"] = c["bfloat16"]["train_launches"]
+    return launches
+
+
+# -- 15d. spatial partitioning ------------------------------------------------
+
+
+def spatial_submeshes(world):
+    """From a world of 4 gloo ranks (`world`, a (1, 4) mesh): this rank's
+    (1, 2) mesh, whose world is its pair {0, 1} or {2, 3} (two replicas),
+    and the (2, 2) mesh (spatial groups the pairs, data groups {0, 2} and
+    {1, 3}). Every rank makes every group, in one order."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    columns = [dist.new_group([0, 2]), dist.new_group([1, 3])]
+    pair = pairs[world.rank // 2]
+    one_by_two = dataclasses.replace(world, rank=world.rank % 2, size=2, group=pair,
+                                     spatial=2, spatial_group=pair, data_group=None)
+    two_by_two = dataclasses.replace(world, spatial=2, spatial_group=pair,
+                                     data_group=columns[world.rank % 2])
+    return one_by_two, two_by_two
+
+
+def spatial_image(hw, seed: int) -> np.ndarray:
+    """A (1, H, W, 3) request in [-1, 1], as `preprocess_image` gives one."""
+    return np.random.RandomState(seed).uniform(-1, 1, (1, *hw, 3)).astype(np.float32)
+
+
+def spatial_serving_run(torch, mesh, hw, num_classes: int) -> dict:
+    """`DeepLab(mesh=...)` (mobilenetv2, OS16, seeded weights, the ASPP and
+    decoder kernels on) on one request: the f32 logits (TF32 off) of the
+    rows, gathered, and the bf16 mask; the bf16 launch counts of the
+    requests, then SPATIAL_REQUESTS timed requests. `mesh` None: one
+    process."""
+    from deeplabv3p_torch.inference import DeepLab
+    from deeplabv3p_torch.ops import kernels
+    from deeplabv3p_torch.parallel.spatial import gather_rows, own_rows, partitioned
+
+    names = [f"c{i}" for i in range(num_classes)]
+    image = spatial_image(hw, SPATIAL_SEEDS[0])
+    out = {}
+    f32 = DeepLab(device="cuda", dtype=torch.float32, model_type="mobilenetv2",
+                  class_names=names, model_input_shape=hw, fused_decoder=True, mesh=mesh)
+    x = torch.from_numpy(image).to(f32.device)
+    with torch.inference_mode():
+        if mesh is None:
+            logits = f32.model(x.permute(0, 3, 1, 2))
+        else:
+            with partitioned(mesh, hw) as part:
+                rows = f32.model(own_rows(x, mesh).permute(0, 3, 1, 2))
+            logits = gather_rows(rows.contiguous(), hw[0], part, dim=2)
+    out["logits"] = host_copy(logits)
+    del f32, logits
+    bf16 = DeepLab(device="cuda", dtype=torch.bfloat16, model_type="mobilenetv2",
+                   class_names=names, model_input_shape=hw, fused_decoder=True, mesh=mesh)
+    bf16.predict(image, hw)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()                    # the serving path starts here
+    masks, ms = serve_requests(torch, bf16, [(image, hw)] * SPATIAL_REQUESTS)
+    out["launches"] = kernels.launch_counts()        # ... and ends here
+    out["mask"], out["ms"] = masks[0], ms
+    return out
+
+
+class SpatialVal:
+    """The eval set in batches of SPATIAL_EVAL_BATCH, whole samples: each
+    rank of the spatial group runs its rows (`make_eval_step`)."""
+
+    def __init__(self, images, labels):
+        self.images, self.labels = images, labels
+
+    def epoch_batches(self):
+        for i in range(0, len(self.images), SPATIAL_EVAL_BATCH):
+            images = self.images[i:i + SPATIAL_EVAL_BATCH]
+            yield (images, self.labels[i:i + SPATIAL_EVAL_BATCH],
+                   np.tile(np.asarray(INPUT, np.float32), (len(images), 1)))
+
+
+def spatial_eval_run(torch, mesh) -> dict:
+    """`make_eval_step` + `accumulate_confusion` (mobilenetv2 bf16 as the
+    eval CLI builds it, --fused_mbconv on) over SPATIAL_EVAL_IMAGES seeded
+    pairs at 512x512; the launch counts of the pass and the matrix."""
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.ops import kernels
+    from deeplabv3p_torch.train import accumulate_confusion, make_eval_step
+
+    _, _, val_images, val_labels = parallel_data()
+    model = build_deeplab_model("mobilenetv2", 21, fused_aspp=True, fused_mbconv=True,
+                                dtype=torch.bfloat16, device="cuda")
+    init_parameters(model, torch.Generator().manual_seed(SPATIAL_SEEDS[1]))
+    step = make_eval_step(model.eval(), 21, mesh)
+    data = SpatialVal(val_images[:SPATIAL_EVAL_IMAGES], val_labels[:SPATIAL_EVAL_IMAGES])
+    accumulate_confusion(step, data, 21, model.conv_upsample.weight.device,
+                         None if mesh is None else mesh.group)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()                    # the eval path starts here
+    cm = accumulate_confusion(step, data, 21, model.conv_upsample.weight.device,
+                              None if mesh is None else mesh.group)
+    launches = kernels.launch_counts()               # ... and ends here
+    return {"confusion": cm, "launches": launches, **eval_library_pass(torch, model, data, mesh)}
+
+
+def eval_library_pass(torch, model, data, mesh, c: int = 21) -> dict:
+    """The eval pass once more, each batch's logits (this rank's rows) counted
+    by the confusion kernel and by torch.argmax + torch.bincount, each summed
+    over the mesh: {'kernel': ..., 'library': ...} (C, C) int64."""
+    import torch.distributed as dist
+
+    from deeplabv3p_torch.data.augment import preprocess_eval_batch
+    from deeplabv3p_torch.ops.kernels.confusion import confusion_matrix_fused
+    from deeplabv3p_torch.parallel.spatial import own_rows, partitioned
+
+    sums = torch.zeros((2, c, c), dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        for images, labels, _ in data.epoch_batches():
+            images, labels = preprocess_eval_batch(torch.from_numpy(images).cuda(),
+                                                   torch.from_numpy(labels).cuda(), c)
+            hw = tuple(labels.shape[1:3])
+            if mesh is not None:
+                images, labels = own_rows(images, mesh), own_rows(labels, mesh)
+            with partitioned(mesh, hw):
+                logits = model(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+            sums[0] += confusion_matrix_fused(labels.contiguous(), logits, c)
+            sums[1] += argmax_bincount(torch, labels, logits, c)
+    if mesh is not None:
+        dist.all_reduce(sums, group=mesh.group)
+    kern, lib = sums.cpu().numpy()
+    return {"kernel": kern, "library": lib}
+
+
+def argmax_bincount(torch, labels, logits, c: int):
+    """The (C, C) int64 confusion matrix by torch.argmax + torch.bincount,
+    labels outside [0, C) dropped."""
+    gt = labels.reshape(-1).long()
+    idx = torch.where((gt >= 0) & (gt < c), c * gt + torch.argmax(logits, dim=-1).reshape(-1),
+                      torch.full_like(gt, c * c))
+    return torch.bincount(idx, minlength=c * c + 1)[:c * c].reshape(c, c)
+
+
+def spatial_trainer(torch, mesh, dtype_name: str, batch: int) -> tuple:
+    """(model, step, state, batches): mobilenetv2 512x512 seeded, the plain
+    CE, SGD 1e-2, dropout off, and SPATIAL_STEPS global batches of `batch`
+    of the data-parallel phase's set; on a spatial `mesh` each batch is the
+    data group's whole samples."""
+    from deeplabv3p_torch.data.augment import preprocess_eval_batch
+    from deeplabv3p_torch.losses import get_loss_fn
+    from deeplabv3p_torch.models.layers import Dropout
+    from deeplabv3p_torch.train import StageConfig, Trainer
+
+    train_images, train_labels, _, _ = parallel_data()
+    model = make_train_model(torch, getattr(torch, dtype_name), seed=PARALLEL_SEEDS[1])
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    rank = 0 if mesh is None else mesh.rank
+    trainer = Trainer(model, 21, get_loss_fn("crossentropy"), device=torch.device("cuda"),
+                      log_dir=os.path.join(OUT_DIR, f"smoke_spatial_{batch}_{rank}"), mesh=mesh)
+    stage = StageConfig(freeze_level=0, optim_type="sgd", learning_rate=1e-2)
+    state = trainer.build_stage_state(stage)
+    d, nd = (0, 1) if mesh is None else (mesh.data_index, mesh.data_size)
+    b = batch // nd
+    batches = [preprocess_eval_batch(
+        torch.from_numpy(train_images[i][d * b:(d + 1) * b]).cuda(),
+        torch.from_numpy(train_labels[i][d * b:(d + 1) * b]).cuda(), num_classes=21)
+        for i in range(SPATIAL_STEPS)]
+    return model, trainer.make_train_step(stage), state, batches
+
+
+def spatial_train_run(torch, mesh, dtype_name: str, batch: int) -> dict:
+    """SPATIAL_STEPS train steps of `spatial_trainer`, recorded as
+    `parallel_run` records them; then SPATIAL_TIMED more, timed."""
+    from deeplabv3p_torch.ops import kernels
+
+    model, step, state, batches = spatial_trainer(torch, mesh, dtype_name, batch)
+    out = {"loss": [], "jaccard": [], "ms": [],
+           "before": {k: host_copy(p) for k, p in model.named_parameters()}}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()                    # the train path starts here
+    for i, (images, labels) in enumerate(batches):
+        t = time.perf_counter()
+        metrics = step(state, images, labels, None)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["loss"].append(metrics["loss"].item())
+        out["jaccard"].append(metrics["jaccard"].item())
+        if i == 0:
+            out["after_step1"] = {k: host_copy(v) for k, v in model.state_dict().items()}
+    out["launches"] = kernels.launch_counts()        # ... and ends here
+    for i in range(SPATIAL_TIMED):
+        t = time.perf_counter()
+        step(state, *batches[i % SPATIAL_STEPS], None)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+    out["params"] = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu().numpy()
+    return out
+
+
+def step2_at(torch, variables: dict, dtype_name: str, batch: int) -> tuple[float, float]:
+    """One process's (loss, jaccard) of step 2's global batch of
+    `spatial_trainer` (its train-mode forward, before the update) with the
+    model's parameters and buffers set to `variables`, a host state dict."""
+    model, step, state, batches = spatial_trainer(torch, None, dtype_name, batch)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in variables.items()})
+    metrics = step(state, *batches[1], None)
+    return metrics["loss"].item(), metrics["jaccard"].item()
+
+
+def spatial_runs(mesh4=None) -> dict:
+    """Every run of the phase, as one process (`mesh4` None) or as rank
+    `mesh4.rank` of four gloo ranks sharing the card: serving on (1, 2) at
+    1024x2048 and on (1, 4) at 512x512, eval on (1, 2), training on (1, 2)
+    at b2 and on (2, 2) at b4, in bf16 and f32."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False  # f32 is f32 in every process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m12, m22 = (None, None) if mesh4 is None else spatial_submeshes(mesh4)
+    meshes = {(1, 2): m12, (1, 4): mesh4, (2, 2): m22}
+    out = {"rank": 0 if mesh4 is None else mesh4.rank,
+           "jax_imported": [m for m in ("jax", "flax", "deeplabv3p_tpu") if m in sys.modules]}
+    for shape, hw, c in SPATIAL_SERVING:
+        out[("serve", shape)] = spatial_serving_run(torch, meshes[shape], hw, c)
+    out["eval"] = spatial_eval_run(torch, m12)
+    for shape, batch in SPATIAL_TRAINING:
+        for dt in PARALLEL_DTYPES:
+            out[("train", shape, dt)] = spatial_train_run(torch, meshes[shape], dt, batch)
+    return out
+
+
+def spatial_slabs(h: int, size: int, halo: int, decoder_of: int = 0) -> list[tuple]:
+    """(rank, block [lo, hi), slab [a, b)) of every non-empty block of a map
+    of height h over `size` spatial ranks, as the spatial path computes
+    them (`slab_needs` clipped to the map: `layers._on_slab`, whose kernel
+    pads past the edges itself). With `decoder_of` = the encoder map's
+    height, the decoder's: the skip slab and the encoder rows it samples,
+    (rank, lo, hi, s0, s1, e0, e1) (`Decoder._fused_frontend_rows`)."""
+    from deeplabv3p_torch.ops.resize import source_rows
+    from deeplabv3p_torch.parallel.spatial import Partition, clip, slab_needs
+
+    part = Partition(size, 0, None, {})
+    out = []
+    for r, ((lo, hi), (a, b)) in enumerate(zip(part.blocks(h), slab_needs(h, part, halo))):
+        if lo < hi:
+            a, b = clip(a, b, h)
+            out.append((r, lo, hi, a, b, *(source_rows(a, b, decoder_of, h)
+                                           if decoder_of else ())))
+    return out
+
+
+def spatial_kernel_checks(torch, kaspp, kdec, kmb, kconf) -> None:
+    """The kernels on every slab the spatial phase's ranks hand them: ASPP's
+    serving blocks on (1, 2) at 1024x2048 and on (1, 4) at 512x512 and its
+    eval blocks on (1, 2) b4 (each block + 18 rows a side inside the map),
+    the decoder's serving blocks (+ 1 skip row a side, with their global row
+    offsets), the inverted residual's slabs in the eval pass (the 8
+    distinct shapes of its 13 blocks, each block + its rate a side), and the
+    confusion kernel on an eval rank's block of logits. Each slab against the kernel's plain version on the same slab,
+    and cropped to its block against the whole map's call on those rows (at
+    `tolerance`, TF32 off; whether the crop is bit-equal is printed); the
+    confusion matrix equal to its plain version and to torch.argmax +
+    torch.bincount."""
+    print("kernels on the spatial path's row slabs, against the plain version and the whole "
+          "map:")
+    g = torch.Generator(device="cuda").manual_seed(SPATIAL_SEEDS[2])
+
+    def rand(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    out_stride = 16  # the phase's mobilenetv2
+    aspp_cases = [(f"serving {m} {hw[0]}x{hw[1]}", m[1], 1, hw) for m, hw, _ in SPATIAL_SERVING]
+    aspp_cases.append((f"eval (1, 2) b{SPATIAL_EVAL_BATCH}", 2, SPATIAL_EVAL_BATCH, INPUT))
+    rates = (6, 12, 18)
+    for dtype in (torch.float32, torch.bfloat16):
+        for who, size, n, hw in aspp_cases:
+            h, w = -(-hw[0] // out_stride), -(-hw[1] // out_stride)
+            x = rand(n, h, w, 320, dtype=dtype)
+            kern, sc, bi = rand(3, 3, 3, 320, scale=0.2), rand(3, 320).abs() + 0.5, rand(
+                3, 320, scale=0.1)
+            whole = kaspp.multirate_atrous_depthwise(x, kern, rates, sc, bi)
+            for r, lo, hi, a, b in spatial_slabs(h, size, max(rates)):
+                slab = kaspp.multirate_atrous_depthwise(x[:, a:b].contiguous(), kern, rates, sc,
+                                                        bi)
+                err, ref = max_err(slab, kaspp.multirate_atrous_depthwise_reference(
+                    x[:, a:b], kern, rates, sc, bi))
+                crop, rows = max_err([o[:, lo - a:hi - a] for o in slab],
+                                     [o[:, lo:hi] for o in whole])
+                tol = tolerance(ref, dtype)
+                check(err <= tol and crop <= tol,
+                      f"ASPP {who} rank {r} {dtype}: slab {tuple(x[:, a:b].shape)} (rows "
+                      f"[{a}, {b}) of {h} for block [{lo}, {hi})): max|err| against plain "
+                      f"{err:.3g}, cropped against the whole map's rows {crop:.3g} (<= "
+                      f"{tol:.3g}; bit-equal {crop == 0.0})")
+        for m, hw, _ in SPATIAL_SERVING:
+            he, we, hs, ws = hw[0] // 16, hw[1] // 16, hw[0] // 4, hw[1] // 4
+            enc, skip = rand(1, he, we, 256, dtype=dtype), rand(1, hs, ws, 48, dtype=dtype)
+            k, sc, bi = rand(3, 3, 304, scale=0.2), rand(304).abs() + 0.5, rand(304, scale=0.1)
+            whole = kdec.fused_decoder_frontend(enc, skip, k, sc, bi)
+            for r, lo, hi, s0, s1, e0, e1 in spatial_slabs(hs, m[1], 1, decoder_of=he):
+                args = (enc[:, e0:e1].contiguous(), skip[:, s0:s1].contiguous(), k, sc, bi,
+                        s0, hs, e0, he)
+                got = kdec.fused_decoder_frontend(*args)
+                err, ref = max_err(got, kdec.fused_decoder_reference(*args))
+                crop, _ = max_err(got[:, lo - s0:hi - s0], whole[:, lo:hi])
+                tol = tolerance(ref, dtype)
+                check(err <= tol and crop <= tol,
+                      f"decoder serving {m} {hw[0]}x{hw[1]} rank {r} {dtype}: skip rows [{s0}, "
+                      f"{s1}) of {hs} with encoder rows [{e0}, {e1}) of {he} (global row "
+                      f"offsets) for block [{lo}, {hi}): max|err| against plain {err:.3g}, "
+                      f"cropped against the whole map's rows {crop:.3g} (<= {tol:.3g}; "
+                      f"bit-equal {crop == 0.0})")
+        for shape in dict.fromkeys(body_block_shapes(SPATIAL_EVAL_BATCH, INPUT)):  # 8 of 13
+            rate, residual = shape[6], shape[7]
+            xb, *params = mbconv_case(torch, shape, dtype, SPATIAL_SEEDS[2])
+            whole = kmb.fused_inverted_residual(xb, *params, rate=rate, residual=residual)
+            for r, lo, hi, a, b in spatial_slabs(shape[1], 2, rate):
+                slab = xb[:, a:b].contiguous()
+                got = kmb.fused_inverted_residual(slab, *params, rate=rate, residual=residual)
+                err, ref = max_err(got, kmb.fused_inverted_residual_reference(
+                    slab, *params, rate=rate, residual=residual))
+                crop, _ = max_err(got[:, lo - a:hi - a], whole[:, lo:hi])
+                tol = tolerance(ref, torch.bfloat16)  # its two bf16 roundings (mbconv_checks)
+                check(err <= tol and crop <= tol,
+                      f"inverted residual {shape} eval (1, 2) rank {r} {dtype}: rows [{a}, {b}) "
+                      f"for block [{lo}, {hi}): max|err| against plain {err:.3g}, cropped "
+                      f"against the whole map's rows {crop:.3g} (<= {tol:.3g}; bit-equal "
+                      f"{crop == 0.0})")
+            del xb, params, whole
+    # the confusion kernel on an eval rank's block: (1, 2) at 512x512, b4
+    n, (h, w), c = SPATIAL_EVAL_BATCH, INPUT, 21
+    lo, hi = spatial_slabs(h, 2, 0)[1][1:3]
+    for dtype in (torch.float32, torch.bfloat16):  # the eval path's logits are f32
+        logits = rand(n, hi - lo, w, c, dtype=dtype)
+        labels = torch.randint(0, c + 3, (n, hi - lo, w), generator=g, device="cuda",
+                               dtype=torch.int32)
+        labels[labels >= c] = 255  # the eval batch's ignore label
+        got = kconf.confusion_matrix_fused(labels, logits, c)
+        plain = kconf.confusion_matrix_fused_reference(labels, logits, c)
+        lib = argmax_bincount(torch, labels, logits, c)
+        check(torch.equal(got, plain) and torch.equal(got, lib),
+              f"confusion eval (1, 2) rank 1 block {tuple(logits.shape)} {dtype}: equal to the "
+              f"plain version {torch.equal(got, plain)}, to torch.argmax + torch.bincount "
+              f"{torch.equal(got, lib)} ({int(got.sum())} pixels counted)")
+    torch.cuda.empty_cache()
+
+
+def spatial_phase(torch, kaspp, kdec, kmb, kconf) -> dict:
+    """(15d) spatial partitioning on the card: the kernels on row slabs, then
+    every run of `spatial_runs` in this process and as four gloo ranks
+    sharing the card, held to each other; returns each rank's bf16 launch
+    counts by path for the kernels' record. Every multi-rank time here is a
+    correctness run of gloo on one card, not a scaling number."""
+    import datetime
+
+    from deeplabv3p_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    spatial_kernel_checks(torch, kaspp, kdec, kmb, kconf)
+    print(f"spatial partitioning: mobilenetv2 OS16 seeded, serving {SPATIAL_SERVING} "
+          f"((mesh, H x W, classes)), eval b{SPATIAL_EVAL_BATCH} x "
+          f"{SPATIAL_EVAL_IMAGES // SPATIAL_EVAL_BATCH} with --fused_mbconv on (1, 2), training "
+          f"{SPATIAL_TRAINING} ((mesh, global batch)) at 512x512, {SPATIAL_STEPS} steps, bf16 "
+          f"and f32 (TF32 off); four gloo ranks on the one card")
+    a = spatial_runs()
+    ta = time.perf_counter()
+    ranks = spawn(spatial_runs, 4, device="cuda", backend="gloo",
+                  timeout=datetime.timedelta(minutes=5), join_timeout=600,
+                  axis_names=("data", "spatial"), mesh_shape=(1, 4))
+    tb = time.perf_counter()
+    print(f"  wall: one process {ta - t0:.1f} s, four ranks {tb - ta:.1f} s with their start")
+    card = card_line()
+    launches = {}
+    for r in ranks:
+        check(not r["jax_imported"], f"rank {r['rank']}: no JAX module imported "
+                                     f"({r['jax_imported'] or 'none'})")
+    for shape, hw, c in SPATIAL_SERVING:
+        want = a[("serve", shape)]
+        scale = float(np.abs(want["logits"]).max())
+        for r in ranks:
+            got = r[("serve", shape)]
+            who = f"serving {shape} {hw[0]}x{hw[1]}, rank {r['rank']}"
+            d = float(np.abs(got["logits"] - want["logits"]).max())
+            check(d <= SPATIAL_F32_LOGITS * scale,
+                  f"{who}: f32 logits gathered against one process's, max|d| {d:.3g} "
+                  f"({d / scale:.3g} of max|logits| {scale:.3g}; <= {SPATIAL_F32_LOGITS})")
+            agree = float((got["mask"] == want["mask"]).mean())
+            check(agree >= SPATIAL_MASK_FLOOR,
+                  f"{who}: bf16 mask agrees with one process's on {agree:.6f} of pixels "
+                  f"(>= {SPATIAL_MASK_FLOOR})")
+            want_l = {**ZERO_LAUNCHES, "multirate_atrous_depthwise": SPATIAL_REQUESTS,
+                      "fused_decoder_frontend": SPATIAL_REQUESTS}
+            check(got["launches"] == want_l,
+                  f"{who}: launches {got['launches']} (ASPP and decoder once a request)")
+            launches[f"spatial serving {shape} {hw[0]}x{hw[1]} bf16, gloo rank {r['rank']}, "
+                     f"{SPATIAL_REQUESTS} requests"] = got["launches"]
+            warm = got["ms"][1:]
+            print(f"  request latency, {who}, bf16: median {statistics.median(warm):.2f} ms of "
+                  f"requests 2-{len(got['ms'])} ({', '.join(f'{t:.2f}' for t in got['ms'])} ms; "
+                  f"host clock, synchronized)  [{card}]")
+        warm = want["ms"][1:]
+        print(f"  request latency, one process {hw[0]}x{hw[1]}, bf16: median "
+              f"{statistics.median(warm):.2f} ms  [{card}]")
+    batches = SPATIAL_EVAL_IMAGES // SPATIAL_EVAL_BATCH
+    want_cm = a["eval"]["confusion"]
+    for who, got in [("eval, one process", a["eval"]),
+                     *((f"eval (1, 2), rank {r['rank']}", r["eval"]) for r in ranks)]:
+        check(np.array_equal(got["kernel"], got["library"]),
+              f"{who}: the summed matrix of the kernel on the blocks' logits equals torch.argmax "
+              f"+ torch.bincount of the same logits, summed ({int(got['library'].sum())} "
+              f"pixels); the eval path's matrix equals this second pass's: "
+              f"{np.array_equal(got['kernel'], got['confusion'])}")
+    for r in ranks:
+        got = r["eval"]
+        who = f"eval (1, 2), rank {r['rank']}"
+        diff = int(np.abs(got["confusion"] - want_cm).sum()) // 2
+        check(got["confusion"].sum() == want_cm.sum()
+              and diff <= SPATIAL_EVAL_DISAGREE * want_cm.sum(),
+              f"{who}: the summed matrix against one process's: equal {diff == 0}, "
+              f"{diff} of {int(want_cm.sum())} pixels elsewhere (<= {SPATIAL_EVAL_DISAGREE})")
+        want_l = {**ZERO_LAUNCHES, "multirate_atrous_depthwise": batches,
+                  "confusion_matrix_fused": batches, "fused_inverted_residual": 13 * batches}
+        check(got["launches"] == want_l,
+              f"{who}: launches {got['launches']} (ASPP and confusion once a batch, the "
+              f"inverted residual 13 times)")
+        launches[f"spatial eval (1, 2) b{SPATIAL_EVAL_BATCH} --fused_mbconv, gloo rank "
+                 f"{r['rank']}"] = got["launches"]
+    for shape, batch in SPATIAL_TRAINING:
+        one = {dt: a[("train", shape, dt)] for dt in PARALLEL_DTYPES}
+        # bf16's yardstick: one process's own bf16-vs-f32 gap, at the same
+        # parameters: the seeded ones for step 1 and after it; for step 2 the
+        # ranks' parameters after step 1 (bit-equal over the ranks), because a
+        # bf16 step 1's update is mostly rounding, so one process's bf16 run
+        # reaches other parameters (and step-2 losses up to 0.02 apart from
+        # run to run; PERF.md)
+        yard = parallel_gaps(one["bfloat16"], one["float32"])
+        at = {dt: step2_at(torch, ranks[0][("train", shape, "bfloat16")]["after_step1"], dt,
+                           batch) for dt in PARALLEL_DTYPES}
+        refs = [{dt: (one[dt]["loss"][0], one[dt]["jaccard"][0]) for dt in PARALLEL_DTYPES}, at]
+        groups = [[0, 1], [2, 3]] if shape == (1, 2) else [[0, 1, 2, 3]]
+        for dt in PARALLEL_DTYPES:
+            want = one[dt]
+            for g in groups:
+                first = ranks[g[0]][("train", shape, dt)]
+                same = all(np.array_equal(ranks[i][("train", shape, dt)]["params"],
+                                          first["params"])
+                           and ranks[i][("train", shape, dt)]["loss"] == first["loss"]
+                           for i in g)
+                check(same, f"train {shape} b{batch} {dt}: ranks {g} log the same loss and "
+                            f"hold bit-equal parameters after {SPATIAL_STEPS + SPATIAL_TIMED} "
+                            f"steps")
+            f32 = dt == "float32"
+            if f32:
+                bounds = dict(PARALLEL_F32_BOUNDS)
+            else:
+                bounds = {k: PARALLEL_BF16_FACTOR * (yard[k] if k == "update" else yard[k][0])
+                          + PARALLEL_BF16_FLOOR[k] for k in ("parameters", "BN buffers",
+                                                             "update")}
+            for r in ranks:
+                got = r[("train", shape, dt)]
+                who = f"train {shape} b{batch} {dt}, rank {r['rank']}"
+                check(got["launches"] == ZERO_LAUNCHES,
+                      f"{who}: launches {got['launches']} (no kernel: the inference kernels "
+                      f"carry no gradient, the fused loss is refused)")
+                gap = parallel_gaps(got, want)
+                for i in range(SPATIAL_STEPS):
+                    if f32:
+                        ref, jref = want["loss"][i], want["jaccard"][i]
+                        lb = PARALLEL_F32_BOUNDS["loss"][min(i, 1)] * abs(ref)
+                        jb = PARALLEL_F32_BOUNDS["jaccard"]
+                        what = "one process"
+                    else:
+                        (ref, jref), (ref32, jref32) = refs[i]["bfloat16"], refs[i]["float32"]
+                        lb = (PARALLEL_BF16_FACTOR * abs(ref - ref32)
+                              + PARALLEL_BF16_FLOOR["loss"] * abs(ref32))
+                        jb = (PARALLEL_BF16_FACTOR * abs(jref - jref32)
+                              + PARALLEL_BF16_FLOOR["jaccard"])
+                        what = ("one process" if i == 0 else
+                                "one process at the ranks' parameters after step 1")
+                    dl, dj = abs(got["loss"][i] - ref), abs(got["jaccard"][i] - jref)
+                    check(dl <= lb and dj <= jb,
+                          f"{who} step {i + 1}: loss {got['loss'][i]:.6f} vs {what} {ref:.6f} "
+                          f"(|d| {dl:.3g} <= {lb:.3g}), jaccard |d| {dj:.3g} (<= {jb:.3g})")
+                if not f32:  # the trajectories, printed: step 2 from other parameters
+                    print(f"  {who} step 2 against one process's own bf16 run "
+                          f"{want['loss'][1]:.6f} and f32 run {one['float32']['loss'][1]:.6f}: "
+                          f"|d| {gap['loss'][1]:.3g} and "
+                          f"{abs(got['loss'][1] - one['float32']['loss'][1]):.3g} (not held)")
+                for kind in ("parameters", "BN buffers"):
+                    d, k = gap[kind]
+                    check(d <= bounds[kind], f"{who}: {kind} after step 1, max |d| {d:.3g} at "
+                                             f"{k} (<= {bounds[kind]:.3g})")
+                check(gap["update"] <= bounds["update"],
+                      f"{who}: step 1's update against one process's, |d| / |update| "
+                      f"{gap['update']:.3g} (<= {bounds['update']:.3g})")
+                warm = got["ms"][1:]
+                print(f"  step time, {who}: median {statistics.median(warm):.1f} ms of steps "
+                      f"2-{len(got['ms'])} ({', '.join(f'{t:.1f}' for t in got['ms'])} ms; "
+                      f"host clock, synchronized)  [{card}]")
+            print(f"  step time, one process b{batch} {dt}: median "
+                  f"{statistics.median(want['ms'][1:]):.1f} ms  [{card}]")
+        print(f"  one process b{batch} at the ranks' parameters after step 1, step 2: loss "
+              f"bf16 {at['bfloat16'][0]:.6f}, f32 {at['float32'][0]:.6f}; jaccard bf16 "
+              f"{at['bfloat16'][1]:.6f}, f32 {at['float32'][1]:.6f}")
+    print(f"the spatial phase took {time.perf_counter() - t0:.1f} s")
     return launches
 
 

@@ -410,15 +410,16 @@ def augment_batch(
     input size (the crop then never fires). The identity config skips the
     ops, which would leave the images as they are.
 
-    With a data-parallel `mesh` (`rank`, `size`), the batch is this rank's
-    block of rows of the global batch: the parameters are drawn for the
-    whole global batch, from a generator every rank seeds alike, and this
-    rank applies its rows of them, so that a sample is augmented as one
-    process augments it (JAX draws over the global batch with one key,
-    train.py:452-462)."""
+    With a `mesh` (`data_index`, `data_size`), the batch is this rank's
+    data group's block of rows of the global batch: the parameters are
+    drawn for the whole global batch, from a generator every rank seeds
+    alike, and this rank applies its rows of them, so that a sample is
+    augmented as one process augments it (JAX draws over the global batch
+    with one key, train.py:452-462). The ranks of a spatial group augment
+    the same whole samples alike; each then keeps its rows."""
     if cfg != AugmentConfig.identity():
         b, h, w = images.shape[:3]
-        rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+        rank, world = (0, 1) if mesh is None else (mesh.data_index, mesh.data_size)
         params = draw_augment_params(generator, b * world, h, w, cfg)
         if world > 1:
             params = params.rows(rank * b, (rank + 1) * b)

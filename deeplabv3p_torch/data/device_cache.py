@@ -16,8 +16,16 @@ rank d holds only the contiguous block `[d * local_n, (d + 1) * local_n)`
 on its device. Each epoch every rank draws the nd per-device permutations
 from the one `RandomState(seed)`, in the order d = 0..nd-1, and keeps its
 own; its rows of global batch b are `p_d[b * pb:(b + 1) * pb]`, so the
-global batch is JAX's, sample for sample. The spatial form (a
-('data', 'spatial') mesh) is ROADMAP Queue A item 11.
+global batch is JAX's, sample for sample.
+
+On a ('data', 'spatial') mesh (JAX :21-27, :200-206, `P('data',
+'spatial')`), d is the data index and the S ranks of a data group hold the
+group's block split by height: rank s keeps only its rows
+`parallel.spatial.block(H, S, s)` of each sample. The augmentation and the
+adaptive weights need whole samples, so a step first gathers each
+sample's uint8 rows over the spatial group (`spatial.gather_rows`, one
+`all_reduce` of the batch) and yields them whole, as every dataset does;
+the train step then keeps its rows again.
 """
 
 from __future__ import annotations
@@ -27,15 +35,16 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from deeplabv3p_torch.parallel.mesh import SPATIAL_REFUSAL, Mesh, check_batch
+from deeplabv3p_torch.parallel.mesh import Mesh, check_batch
+from deeplabv3p_torch.parallel.spatial import block, gather_rows, partition_of
 
 
 def _layout(n: int, batch_size: int, mesh) -> tuple[int, int, int]:
-    """(nd, rank, local_n) of a set of n samples (JAX :85-98)."""
+    """(nd, data index, local_n) of a set of n samples (JAX :85-98)."""
     if mesh is not None and not isinstance(mesh, Mesh):
-        raise NotImplementedError(f"a device cache over a mesh other than the port's data "
-                                  f"mesh: {SPATIAL_REFUSAL}")
-    nd, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+        raise TypeError(f"mesh must be a deeplabv3p_torch.parallel.Mesh, not "
+                        f"{type(mesh).__name__}")
+    nd, rank = (1, 0) if mesh is None else (mesh.data_size, mesh.data_index)
     check_batch(batch_size, nd)
     padded_n = max(-(-n // nd) * nd, batch_size)
     return nd, rank, padded_n // nd
@@ -74,12 +83,17 @@ class DeviceCachedDataset:
         start = rank * local_n
         self._place(_block(images, start, start + local_n),
                     _block(labels, start, start + local_n), n, batch_size, device, shuffle,
-                    seed, mem_limit_bytes, nd, rank)
+                    seed, mem_limit_bytes, nd, rank, mesh)
 
     def _place(self, images, labels, n: int, batch_size: int, device, shuffle: bool,
-               seed: int, mem_limit_bytes: int, nd: int, rank: int) -> None:
-        """Keep this rank's block (images, labels) of a set of n samples."""
+               seed: int, mem_limit_bytes: int, nd: int, rank: int, mesh) -> None:
+        """Keep this rank's block (images, labels) of a set of n samples,
+        and on a spatial mesh only its rows of them."""
         h, w = images.shape[1:3]
+        self._mesh = mesh if mesh is not None and mesh.spatial > 1 else None
+        if self._mesh is not None:
+            lo, hi = block(h, mesh.spatial, mesh.spatial_index)
+            images, labels = images[:, lo:hi], labels[:, lo:hi]
         nbytes = int(n) * h * w * 4  # 3 B image + 1 B label a pixel
         if nbytes > mem_limit_bytes:
             raise ValueError(
@@ -119,7 +133,7 @@ class DeviceCachedDataset:
                 images[j], labels[j] = img, lbl
         ds = cls.__new__(cls)
         ds._place(images, labels, n, source.batch_size, device, shuffle, seed,
-                  mem_limit_bytes, nd, rank)
+                  mem_limit_bytes, nd, rank, mesh)
         return ds
 
     def __len__(self) -> int:
@@ -134,5 +148,8 @@ class DeviceCachedDataset:
         b = self.batch_size // self._nd
         for i in range(len(self)):
             idx = torch.from_numpy(order[i * b:(i + 1) * b].astype(np.int64)).to(self.device)
-            yield (self._images.index_select(0, idx), self._labels.index_select(0, idx),
-                   self._orig_hw)
+            images, labels = self._images.index_select(0, idx), self._labels.index_select(0, idx)
+            if self._mesh is not None:  # each sample's rows from the spatial group
+                part, h = partition_of(self._mesh), self.input_shape[0]
+                images, labels = gather_rows(images, h, part), gather_rows(labels, h, part)
+            yield images, labels, self._orig_hw

@@ -67,8 +67,11 @@ def rank_rows(idx: np.ndarray, batch_size: int, mesh=None):
     """This rank's rows of a global batch of sample indices `idx` (a last
     batch may be short): (the sample each row reads, whether the row pads
     the batch). A padding row repeats the batch's last sample with its
-    labels set to ignore (255)."""
-    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    labels set to ignore (255). The rows are those of the rank's data group:
+    on a 2-D mesh every rank of a spatial group reads the group's samples
+    whole, and the train and eval steps keep its rows (augmentation and the
+    adaptive weights need the whole sample)."""
+    rank, world = (0, 1) if mesh is None else (mesh.data_index, mesh.data_size)
     b = batch_size // world
     rows = np.arange(rank * b, (rank + 1) * b)
     return idx[np.minimum(rows, len(idx) - 1)], rows >= len(idx)
@@ -96,7 +99,7 @@ class SegmentationDataset:
         if mesh is not None:
             from deeplabv3p_torch.parallel.mesh import check_batch
 
-            check_batch(batch_size, mesh.size)
+            check_batch(batch_size, mesh.data_size)
         self.mesh = mesh
         dataset_realpath = os.path.realpath(dataset_path)
         self.image_paths = [

@@ -86,7 +86,7 @@ class ShardedDataset:
         if mesh is not None:
             from deeplabv3p_torch.parallel.mesh import check_batch
 
-            check_batch(batch_size, mesh.size)
+            check_batch(batch_size, mesh.data_size)
         self.mesh = mesh
         with open(os.path.join(shard_dir, "meta.json")) as f:
             meta = json.load(f)

@@ -12,6 +12,13 @@ is `preprocess_image` (PIL bicubic resize + [-1, 1] normalise, on the host)
 `postprocess.crf_postprocess` on the denormalised input) -> cv2-nearest
 `mask_resize`, all but the first on the device.
 
+`mesh` (a `parallel.make_mesh` mesh with a 'spatial' axis, as in JAX
+inference.py:98-121) splits each image's height over the spatial group:
+every rank of the group runs the model on its block of rows
+(`parallel/spatial.py`), and the mask's rows are gathered so that every
+rank returns the whole mask; the 'data' axis replicates. A mesh without a
+'spatial' axis raises as in JAX.
+
 Weights come from an `.npz` of the JAX variables tree (`utils/weights.py`),
 the JAX package's `.ckpt` or a Keras `.h5` (`utils/checkpoint.load_weights`),
 or, with no path, from a seeded init. PIL is imported only where an image
@@ -29,7 +36,8 @@ import torch
 
 from deeplabv3p_torch.models.factory import build_segmentation_model
 from deeplabv3p_torch.models.layers import init_parameters
-from deeplabv3p_torch.parallel.mesh import SPATIAL_REFUSAL
+from deeplabv3p_torch.parallel.mesh import Mesh
+from deeplabv3p_torch.parallel.spatial import gather_rows, own_rows, partitioned
 from deeplabv3p_torch.postprocess import crf_postprocess, mask_argmax, mask_resize
 from deeplabv3p_torch.utils.config import get_classes
 from deeplabv3p_torch.utils.checkpoint import load_weights
@@ -80,9 +88,18 @@ class DeepLab:
     ):
         self.__dict__.update(DEFAULT_CONFIG)
         self.__dict__.update(kwargs)
-        if self.mesh is not None:
-            # JAX takes only a mesh with a 'spatial' axis here (inference.py:107-112)
-            raise NotImplementedError(f"DeepLab(mesh=...): {SPATIAL_REFUSAL}")
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(f"mesh must be a deeplabv3p_torch.parallel.Mesh (make_mesh), not "
+                            f"{type(self.mesh).__name__}")
+        if self.mesh is not None and self.mesh.size > 1:
+            # JAX inference.py:98-112: batch-1 inference splits the image's
+            # height over the 'spatial' axis; the 'data' axis replicates
+            if "spatial" not in self.mesh.axis_names:
+                raise ValueError(
+                    "multi-chip inference needs a mesh with a 'spatial' axis "
+                    "(make_mesh(n, axis_names=('data', 'spatial'))): a single image "
+                    "cannot shard over a pure 'data' mesh")
+            device = self.mesh.device
         if self.class_names is None:
             if self.classes_path is None:
                 raise ValueError("need class_names or classes_path")
@@ -112,6 +129,7 @@ class DeepLab:
         init_parameters(self.model, torch.Generator().manual_seed(0))
         if self.weights_path:
             load_weights(os.path.expanduser(self.weights_path), self.model)
+        self._split = self.mesh is not None and self.mesh.spatial > 1
 
     @torch.inference_mode()
     def predict(self, image_data: np.ndarray, image_shape) -> np.ndarray:
@@ -120,11 +138,24 @@ class DeepLab:
         `do_crf` the mask is refined by the dense CRF on this device before
         the resize (JAX inference.py:133-136)."""
         x = torch.from_numpy(np.ascontiguousarray(image_data, np.float32)).to(self.device)
-        logits = self.model(x.permute(0, 3, 1, 2))  # NHWC -> channels_last NCHW
-        mask = mask_argmax(logits, dim=1)[0]
+        if self._split:
+            mask = self._predict_rows(x)
+        else:
+            logits = self.model(x.permute(0, 3, 1, 2))  # NHWC -> channels_last NCHW
+            mask = mask_argmax(logits, dim=1)[0]
         if self.do_crf:
             mask = crf_postprocess(denormalize_image(x[0]), mask)
         return mask_resize(mask, tuple(image_shape)).cpu().numpy()
+
+    def _predict_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The (H, W) mask of one image on a spatial mesh: this rank's block
+        of rows through the model and the argmax, then the mask's rows
+        gathered over the spatial group, so every rank holds the whole
+        mask."""
+        h, w = x.shape[1:3]
+        with partitioned(self.mesh, (h, w)) as part:
+            logits = self.model(own_rows(x, self.mesh).permute(0, 3, 1, 2))
+        return gather_rows(mask_argmax(logits, dim=1)[0], h, part, dim=0)
 
     def segment_image(self, image):
         """Segment a PIL image, return the overlay visualization

@@ -93,12 +93,16 @@ def sparse_softmax_focal_loss(
 
 
 def reduce_loss(
-    losses: torch.Tensor, sample_weights: Optional[torch.Tensor] = None
+    losses: torch.Tensor, sample_weights: Optional[torch.Tensor] = None,
+    count: Optional[int] = None,
 ) -> torch.Tensor:
-    """Keras-style mean over all pixels; sample weights multiply first."""
+    """Keras-style mean over all pixels; sample weights multiply first.
+    With `count`, the sum over `count` pixels instead: a block of rows'
+    part of the mean over a batch of `count` pixels (spatial partitioning,
+    `train.make_train_step`)."""
     if sample_weights is not None:
         losses = losses * sample_weights
-    return losses.mean()
+    return losses.mean() if count is None else losses.sum() / count
 
 
 def conv_parameters(model: nn.Module) -> list[torch.Tensor]:

@@ -46,6 +46,7 @@ from deeplabv3p_torch.models.resnet50 import ResNet50Body
 from deeplabv3p_torch.models.unet import UNET_MODEL_REGISTRY, build_unet_model
 from deeplabv3p_torch.models.xception import XceptionBody
 from deeplabv3p_torch.ops.resize import resize_bilinear
+from deeplabv3p_torch.parallel import spatial
 
 
 class DeeplabV3Plus(nn.Module):
@@ -107,7 +108,7 @@ class DeeplabV3Plus(nn.Module):
         """x (N,3,H,W) -> f32 logits (N,C,H,W); with `skip_final_resize`,
         the f32 logits at feature resolution (the fused-loss contract; the
         subpixel head has no final resize to skip and raises)."""
-        in_h, in_w = x.shape[2], x.shape[3]
+        in_h, in_w = spatial.height_of(x), x.shape[3]
         if self.use_subpixel and skip_final_resize:
             raise ValueError("skip_final_resize is incompatible with the subpixel head "
                              "(its upsample is the pixel shuffle itself)")

@@ -29,6 +29,7 @@ from deeplabv3p_torch.models.layers import (
     channels_last,
 )
 from deeplabv3p_torch.ops.resize import resize_bilinear, resize_nearest_nchw
+from deeplabv3p_torch.parallel import spatial
 
 
 class ConvBlock(nn.Module):
@@ -79,7 +80,9 @@ class PyramidPooling(nn.Module):
     an average pool of window and stride max(1, h // bin) x max(1, w // bin)
     (VALID), a 3x3/2 'SAME' conv with bias to 128 channels, a bilinear
     resize back to (h, w) in f32 and a cast to the input's dtype (a rounding
-    point in bf16); the input and the four branches concatenated."""
+    point in bf16); the input and the four branches concatenated. In a
+    spatial forward the branches run on the whole map on every rank
+    (`spatial.all_rows`) and each keeps its rows."""
 
     def __init__(self, in_channels: int, bin_sizes: Sequence[int] = (2, 4, 6, 8),
                  dtype=None, device=None):
@@ -91,14 +94,26 @@ class PyramidPooling(nn.Module):
         self.out_channels = in_channels + 128 * len(self.bin_sizes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        part = spatial.current()
+        if part is None:
+            return channels_last(torch.cat([x, *self._branches(x)], dim=1))
+        # the bins straddle the blocks: every rank pools the whole map (its
+        # rows gathered), then keeps its rows of each branch's resize
+        h = part.height(x.shape[-1])
+        lo, hi = part.block(h)
+        with spatial.suspended():
+            branches = self._branches(spatial.all_rows(x, h, part))
+        return channels_last(torch.cat([x, *(b[:, :, lo:hi] for b in branches)], dim=1))
+
+    def _branches(self, x: torch.Tensor) -> list[torch.Tensor]:
         h, w = x.shape[2], x.shape[3]
-        outs = [x]
+        outs = []
         for b in self.bin_sizes:
             ph, pw = max(1, h // b), max(1, w // b)
             p = F.avg_pool2d(x, (ph, pw), stride=(ph, pw))
             p = getattr(self, f"bin{b}_conv")(p)
             outs.append(resize_bilinear(p.float(), (h, w)).to(x.dtype))
-        return channels_last(torch.cat(outs, dim=1))
+        return outs
 
 
 class FastSCNN(nn.Module):
@@ -138,13 +153,13 @@ class FastSCNN(nn.Module):
         gfe = self.ppm(gfe)
 
         ff1 = self.ff_low(lds)
-        ff2 = resize_nearest_nchw(gfe, (gfe.shape[2] * 4, gfe.shape[3] * 4))
+        ff2 = resize_nearest_nchw(gfe, (spatial.height_of(gfe) * 4, gfe.shape[3] * 4))
         ff2 = torch.relu(self.ff_dsconv_BN(self.ff_dsconv(ff2)))
         ff = torch.relu(self.ff_BN(ff1 + self.ff_conv(ff2)))
 
         c = self.DSConv2_classifier(self.DSConv1_classifier(ff))
         c = self.dropout(self.classifier_conv(c))  # the mask at 1/8, before the 8x
-        logits = resize_nearest_nchw(c, (c.shape[2] * 8, c.shape[3] * 8))
+        logits = resize_nearest_nchw(c, (spatial.height_of(c) * 8, c.shape[3] * 8))
         return logits.float()
 
 

@@ -27,6 +27,7 @@ import torch.nn as nn
 
 from deeplabv3p_torch.models.layers import BatchNorm, Conv, DepthwiseConv, channels_last
 from deeplabv3p_torch.models.mobilenetv2 import make_divisible
+from deeplabv3p_torch.parallel import spatial
 from deeplabv3p_torch.ops.activations import hard_sigmoid
 
 # (kernel, expansion size, out channels, se ratio, stride, rate) a block, a
@@ -104,7 +105,7 @@ class GhostSqueezeExcite(nn.Module):
         self.conv_expand = Conv(reduce_chs, channels, 1, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        s = spatial.mean_hw(x)  # of the whole map in a spatial forward
         s = self.conv_expand(torch.relu(self.conv_reduce(s)))
         return x * hard_sigmoid(s)
 

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from deeplabv3p_torch.ops.conv import atrous_explicit_pad, conv2d_same
 from deeplabv3p_torch.ops.resize import resize_bilinear
+from deeplabv3p_torch.parallel import spatial
 from deeplabv3p_torch.parallel.mesh import AllReduceSum
 
 
@@ -102,6 +103,9 @@ class BatchNorm(nn.Module):
     ranks in one differentiable `all_reduce` (`parallel.AllReduceSum`), in
     f32 or wider, then `mean = sum x / n` and `var = max(sum x^2 / n -
     mean^2, 0)`. The trainer sets it on every BN (`set_batchnorm_group`).
+    On a 2-D mesh `group` is every rank, so the statistics are over both
+    axes, as in JAX; `n` counts this rank's elements, none for an empty
+    block of rows.
     """
 
     def __init__(self, num_features: int, epsilon: float = 1e-3,
@@ -336,11 +340,23 @@ class ConvTransposeK(Conv):
             return conv2d_same(x.to(dt), w, bias, padding=self.padding)
         k = w.shape[-1]
         before, after = self.padding[0]
-        y = F.conv_transpose2d(
-            x.to(dt), w.flip(2, 3).transpose(0, 1), bias, stride=s,
-            padding=k - 1 - before, output_padding=max(after - before, 0),
-        )
-        return y[:, :, : x.shape[2] * s, : x.shape[3] * s]
+
+        def transpose(x):
+            y = F.conv_transpose2d(
+                x.to(dt), w.flip(2, 3).transpose(0, 1), bias, stride=s,
+                padding=k - 1 - before, output_padding=max(after - before, 0),
+            )
+            return y[:, :, : x.shape[2] * s, : x.shape[3] * s]
+
+        part = spatial.current()
+        if part is None:
+            return transpose(x)
+        if k != s:
+            raise NotImplementedError(f"a {k}x{k}/{s} transposed conv inside a spatial forward")
+        # k = s (UNet's 2x2/2): output row o comes from input row o // s alone
+        h = part.height(x.shape[-1])
+        part.record(x.shape[-1] * s, h * s)
+        return spatial.rows_through(x, h, h * s, s, transpose, part)
 
 
 class Subpixel(nn.Module):
@@ -362,9 +378,19 @@ class Subpixel(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.c(x)
+        part = spatial.current()
+        if part is None:
+            return self._depth_to_space(x)
+        # output row o comes from input row o // r: the rows of this rank's
+        # output block, made from the input rows they need
+        h, w, r = part.height(x.shape[-1]), x.shape[-1], self.r
+        part.record(w * r, h * r)
+        return spatial.rows_through(x, h, h * r, r, self._depth_to_space, part)
+
+    def _depth_to_space(self, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
         r = self.r
-        x = x.view(n, c // (r * r), r, r, h, w)  # (N, C', i, j, H, W)
+        x = x.reshape(n, c // (r * r), r, r, h, w)  # (N, C', i, j, H, W)
         return x.permute(0, 1, 4, 3, 5, 2).reshape(n, c // (r * r), h * r, w * r)
 
 
@@ -414,7 +440,9 @@ def aspp_rates(output_stride: int) -> tuple[int, int, int]:
 class ImagePoolingBranch(nn.Module):
     """ASPP image-feature branch: global mean -> 1x1 conv/BN/ReLU on the
     1x1 map -> broadcast (reference AveragePooling2D + resize,
-    layers.py:131-138)."""
+    layers.py:131-138). In a spatial forward the mean is over the whole map
+    (`spatial.global_mean_hw`), and the 1x1 map is the same on every rank of
+    the spatial group."""
 
     def __init__(self, in_channels: int, features: int = 256, dtype=None,
                  device=None):
@@ -425,7 +453,9 @@ class ImagePoolingBranch(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, _, h, w = x.shape
-        pooled = x.mean(dim=(2, 3), keepdim=True)
+        part = spatial.current()
+        pooled = (x.mean(dim=(2, 3), keepdim=True) if part is None else
+                  spatial.global_mean_hw(x, part))
         pooled = torch.relu(self.image_pooling_BN(self.image_pooling(pooled)))
         return pooled.expand(n, self.features, h, w)
 
@@ -434,11 +464,40 @@ def _fold_pointwise(branch: SepConvBN, dw: torch.Tensor, dt: torch.dtype,
                     out_dtype: torch.dtype) -> torch.Tensor:
     """Pointwise 1x1 in the compute dtype, then the folded f32 BN + ReLU
     (layers.py:316-326 / :446-455). `dw` is NHWC."""
-    y = F.conv2d(channels_last(dw.permute(0, 3, 1, 2).to(dt)),
-                 branch.pointwise.weight.to(dt))
+    y = conv2d_same(channels_last(dw.permute(0, 3, 1, 2).to(dt)),
+                    branch.pointwise.weight.to(dt), padding=[(0, 0), (0, 0)])
     inv, b = branch.pointwise_BN.folded()
     y = y.float() * inv.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
     return torch.relu(y).to(out_dtype)
+
+
+def _on_slab(x: torch.Tensor, halo: int, part, fn: Callable, dim: int = 1):
+    """fn (a row-local stencil of reach `halo`, inference only) on this
+    rank's block x of an NCHW map, computed on the block widened by `halo`
+    rows each side (the rows inside the image, from `spatial.halo_rows`),
+    then cropped to the block along `dim` of fn's output. An empty block
+    runs fn on one row of zeros and keeps none of it."""
+    h = part.height(x.shape[-1])
+    needs = spatial.slab_needs(h, part, halo)
+    slab, _, _ = spatial.halo_rows(x, h, needs, part)
+    lo, hi = part.block(h)
+    first = max(needs[part.index][0], 0)
+    if lo == hi:
+        out = fn(slab.new_zeros(slab.shape[:2] + (1,) + slab.shape[3:]).contiguous(
+            memory_format=torch.channels_last))
+        return _crop(out, dim, 0, 0)
+    return _crop(fn(slab.contiguous(memory_format=torch.channels_last)), dim, lo - first,
+                 hi - first)
+
+
+def _crop(out, dim: int, lo: int, hi: int):
+    """Rows [lo, hi) along `dim` of an NHWC tensor (dim 1) or a tuple of
+    them, or of an NCHW one (dim 2), copied dense in its layout (NHWC, or
+    channels_last NCHW): a crop of a batch is no dense block."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_crop(o, dim, lo, hi) for o in out)
+    out = out.narrow(dim, lo, hi - lo)
+    return out.contiguous() if dim == 1 else channels_last(out)
 
 
 def _dw_kernel(branch: SepConvBN) -> torch.Tensor:
@@ -459,7 +518,9 @@ class ASPP(KeepsPrepared):
     rounds its f32 sum once, as that cast does, so the pointwise stage gets
     the same bits. The stacked kernels and folded BNs are prepared once
     (`prepared_for`), not on every forward. Same parameters as the standard
-    path.
+    path. In a spatial forward the kernel runs on the rank's block widened
+    by `max(rates)` rows each side (`spatial.halo_rows`; its own zero
+    padding stands in past the image's edges), and the block is cropped out.
     """
 
     def __init__(self, in_channels: int, output_stride: int = 16,
@@ -523,7 +584,13 @@ class ASPP(KeepsPrepared):
         elif not nhwc.is_contiguous():
             raise ValueError("ASPP's fused branches take a channels_last input")
         kernels, scale, bias = self.prepared_for(x.device)
-        dw_outs = multirate_atrous_depthwise(nhwc, kernels, self.rates, scale, bias)
+        part = spatial.current()
+        if part is None:
+            dw_outs = multirate_atrous_depthwise(nhwc, kernels, self.rates, scale, bias)
+        else:
+            dw_outs = _on_slab(x, max(self.rates), part, lambda slab: multirate_atrous_depthwise(
+                slab.permute(0, 2, 3, 1).contiguous(), kernels, self.rates, scale, bias),
+                dim=1)
         return [
             _fold_pointwise(br, dw, self.dtype, x.dtype)
             for br, dw in zip(self._branches(), dw_outs)
@@ -573,7 +640,9 @@ class Decoder(nn.Module):
 
     `fused_inference`: upsample + concat + decoder_conv0's depthwise/BN/ReLU
     run as ONE `fused_decoder_frontend` call (CUDA kernel on the card) in
-    the compute dtype, then the pointwise+BN+ReLU. Same parameters.
+    the compute dtype, then the pointwise+BN+ReLU. Same parameters. In a
+    spatial forward the call takes the rank's block of skip rows with its
+    place in the global maps (`_fused_frontend_rows`).
     """
 
     def __init__(self, in_channels: int, skip_channels: int,
@@ -596,18 +665,44 @@ class Decoder(nn.Module):
 
         conv0 = self.decoder_conv0
         scale, bias = conv0.depthwise_BN.folded()
-        # the model dtype on the kernel's in/out (layers.py:435-444)
-        y = fused_decoder_frontend(
-            x.permute(0, 2, 3, 1).contiguous(),
-            skip48.to(x.dtype).permute(0, 2, 3, 1).contiguous(),
-            _dw_kernel(conv0).float().contiguous(),
-            scale.float().contiguous(),
-            bias.float().contiguous(),
-        )
+        skip48 = skip48.to(x.dtype)
+        args = (_dw_kernel(conv0).float().contiguous(), scale.float().contiguous(),
+                bias.float().contiguous())
+        part = spatial.current()
+        if part is None:
+            # the model dtype on the kernel's in/out (layers.py:435-444)
+            y = fused_decoder_frontend(x.permute(0, 2, 3, 1).contiguous(),
+                                       skip48.permute(0, 2, 3, 1).contiguous(), *args)
+        else:
+            y = self._fused_frontend_rows(x, skip48, args, part)
         return _fold_pointwise(conv0, y, self.dtype, x.dtype)
 
+    @staticmethod
+    def _fused_frontend_rows(x, skip48, args, part) -> torch.Tensor:
+        """The kernel on this rank's block of skip rows: the block and one
+        halo row each side of the skip map, the encoder rows those sample,
+        the global rows and sizes passed in (`row0`, `erow0`), the block
+        cropped out of the NHWC result."""
+        from deeplabv3p_torch.ops.kernels.decoder import fused_decoder_frontend
+        from deeplabv3p_torch.ops.resize import source_rows
+
+        hs, he = part.height(skip48.shape[-1]), part.height(x.shape[-1])
+        s_needs = [spatial.clip(a, b, hs) for a, b in spatial.slab_needs(hs, part, 1)]
+        e_needs = [source_rows(a, b, he, hs) for a, b in s_needs]
+        skip_slab, _, _ = spatial.halo_rows(skip48, hs, s_needs, part)
+        enc_slab, _, _ = spatial.halo_rows(x, he, e_needs, part)
+        lo, hi = part.block(hs)
+        row0 = s_needs[part.index][0]
+        if lo == hi:  # nothing to compute; the exchanges above still ran
+            return skip_slab.new_zeros((x.shape[0], 0, skip48.shape[-1],
+                                        x.shape[1] + skip48.shape[1]))
+        y = fused_decoder_frontend(
+            enc_slab.permute(0, 2, 3, 1).contiguous(), skip_slab.permute(0, 2, 3, 1).contiguous(),
+            *args, row0, hs, e_needs[part.index][0], he)
+        return y[:, lo - row0:hi - row0]
+
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        skip_hw = (skip.shape[2], skip.shape[3])
+        skip_hw = (spatial.height_of(skip), skip.shape[3])
         skip = torch.relu(self.feature_projection0_BN(self.feature_projection0(skip)))
         if self.fused_inference and not self.training:  # JAX layers.py:469-476
             x = self._fused_frontend(x, skip)

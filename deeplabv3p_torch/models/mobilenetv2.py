@@ -22,8 +22,9 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from deeplabv3p_torch.models.layers import BatchNorm, Conv, DepthwiseConv, KeepsPrepared
+from deeplabv3p_torch.models.layers import BatchNorm, Conv, DepthwiseConv, KeepsPrepared, _on_slab
 from deeplabv3p_torch.ops.activations import relu6
+from deeplabv3p_torch.parallel import spatial
 
 BodyBN = partial(BatchNorm, epsilon=1e-3, momentum=0.999)
 
@@ -63,7 +64,9 @@ class InvertedResBlock(KeepsPrepared):
     and the kernel's weight layout are prepared once (`prepared_for`), not
     on every forward. Strided
     blocks and block 0 keep the standard path, and so does training: the
-    kernel carries no gradient."""
+    kernel carries no gradient. In a spatial forward the kernel runs on the
+    rank's block of rows widened by `rate` rows each side (its 1x1s are
+    pointwise, so the cropped block is exact)."""
 
     def __init__(self, in_channels: int, expansion: int, stride: int,
                  alpha: float, filters: int, block_id: int,
@@ -125,6 +128,12 @@ class InvertedResBlock(KeepsPrepared):
                               elem_size=x.element_size()))
 
     def _fused_forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        part = spatial.current()
+        if part is not None:  # the block + `rate` halo rows each side, cropped
+            return _on_slab(inputs, self.rate, part, self._fused_whole, dim=2)
+        return self._fused_whole(inputs)
+
+    def _fused_whole(self, inputs: torch.Tensor) -> torch.Tensor:
         from deeplabv3p_torch.ops.kernels import mbconv
 
         x = inputs.permute(0, 2, 3, 1).contiguous()

@@ -27,6 +27,7 @@ import torch.nn as nn
 
 from deeplabv3p_torch.models.layers import BatchNorm, Conv, DepthwiseConv
 from deeplabv3p_torch.models.mobilenetv2 import make_divisible, os_control_table
+from deeplabv3p_torch.parallel import spatial
 from deeplabv3p_torch.ops.activations import hard_sigmoid, hard_swish
 
 BodyBN = partial(BatchNorm, epsilon=1e-3, momentum=0.999)
@@ -49,7 +50,7 @@ class SEBlock(nn.Module):
                         Conv(squeeze, filters, 1, use_bias=True, **kw))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        s = spatial.mean_hw(x)  # of the whole map in a spatial forward
         s = torch.relu(getattr(self, self.prefix + "squeeze_excite--Conv")(s))
         s = getattr(self, self.prefix + "squeeze_excite--Conv_1")(s)
         return x * hard_sigmoid(s)

@@ -47,6 +47,7 @@ from deeplabv3p_torch.models.layers import (
     channels_last,
 )
 from deeplabv3p_torch.models.mobilenetv2 import os_control_table
+from deeplabv3p_torch.parallel import spatial
 
 BodyBN = partial(BatchNorm, momentum=0.1)
 
@@ -155,7 +156,9 @@ class TransformerBlock(nn.Module):
 class MobileViTBlock(nn.Module):
     """3x3 and 1x1 ConvBlocks -> transformer layers over all H * W tokens ->
     fold -> 1x1 back to the input's channels -> concat with the input ->
-    3x3 fuse (JAX mobilevit.py:159-197)."""
+    3x3 fuse (JAX mobilevit.py:159-197). In a spatial forward the unfolded
+    map's rows are gathered over the spatial group (`spatial.all_rows`),
+    every rank runs the transformer on all tokens, and keeps its rows."""
 
     def __init__(self, in_channels: int, num_blocks: int, num_heads: int, projection_dim: int,
                  dropout: float, block_id: int, rate: int = 1, dtype=None, device=None):
@@ -174,11 +177,18 @@ class MobileViTBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         m = lambda name: getattr(self, self.prefix + name)  # noqa: E731
         local = m("conv2")(m("conv1")(x))
+        part = spatial.current()
+        if part is not None:  # attention over every token: the whole map on each rank
+            h = spatial.height_of(local)
+            rows = part.block(h)
+            local = spatial.all_rows(local, h, part)
         n, c, h, w = local.shape
         tokens = local.permute(0, 2, 3, 1).reshape(n, h * w, c)
         for i in range(self.num_blocks):
             tokens = m(f"transformer_{i}")(tokens)
         folded = channels_last(tokens.reshape(n, h, w, c).permute(0, 3, 1, 2))
+        if part is not None:  # ... and this rank's rows of the result
+            folded = channels_last(folded[:, :, rows[0]:rows[1]])
         folded = m("conv3")(folded)
         return m("conv4")(channels_last(torch.cat([x, folded], dim=1)))
 

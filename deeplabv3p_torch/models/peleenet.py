@@ -21,9 +21,9 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from deeplabv3p_torch.models.layers import BatchNorm, Conv, channels_last
+from deeplabv3p_torch.ops.conv import pool2d
 
 
 class BasicConv(nn.Module):
@@ -92,7 +92,7 @@ class StemBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.stem1(x)
         b2 = self.stem2b(self.stem2a(out))
-        b1 = F.max_pool2d(out, 2, stride=2)
+        b1 = pool2d(out, "max", 2, stride=2)
         return self.stem3(channels_last(torch.cat([b1, b2], dim=1)))
 
 
@@ -145,5 +145,5 @@ class PeleeNetBody(nn.Module):
             if i == 0:
                 skip = x  # OS4
             if pool:
-                x = F.avg_pool2d(x, 2, stride=2)
+                x = pool2d(x, "avg", 2, stride=2)
         return x, skip

@@ -22,10 +22,10 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from deeplabv3p_torch.models.layers import BatchNorm, Conv
 from deeplabv3p_torch.models.mobilenetv2 import os_control_table
+from deeplabv3p_torch.ops.conv import pool2d
 
 
 class BottleneckBlock(nn.Module):
@@ -110,7 +110,7 @@ class ResNet50Body(nn.Module):
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         x = torch.relu(self.bn_conv1(self.conv1(x)))
         # the -inf pad then a VALID 3x3/2 max: max_pool2d's implicit pad is -inf
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = pool2d(x, "max", 3, stride=2, padding=1)
         skip = None
         for name in self.stage_names:
             x = getattr(self, name)(x)

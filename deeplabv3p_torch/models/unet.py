@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from deeplabv3p_torch.models.layers import (
     BatchNorm,
@@ -30,23 +29,21 @@ from deeplabv3p_torch.models.layers import (
     SeparableConv,
     channels_last,
 )
-from deeplabv3p_torch.ops.conv import tf_same_padding
+from deeplabv3p_torch.ops.conv import pool2d
 from deeplabv3p_torch.ops.resize import resize_nearest_nchw
+from deeplabv3p_torch.parallel import spatial
 
 
 def up2(x: torch.Tensor) -> torch.Tensor:
     """Keras UpSampling2D(2): nearest, cv2 indices (JAX `_up2`, unet.py:61-64)."""
-    return resize_nearest_nchw(x, (x.shape[2] * 2, x.shape[3] * 2))
+    return resize_nearest_nchw(x, (spatial.height_of(x) * 2, x.shape[3] * 2))
 
 
 def max_pool_same(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
     """flax `max_pool(k, k, stride s, 'SAME')`: TF-SAME pads of -inf, (0, 1)
     on an even map for 3x3/2 where torch's `padding=1` would pad (1, 1), then
     a VALID max."""
-    ph = tf_same_padding(x.shape[2], k, s)
-    pw = tf_same_padding(x.shape[3], k, s)
-    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
-    return channels_last(F.max_pool2d(x, k, stride=s))
+    return channels_last(pool2d(x, "max", k, s, padding="same"))
 
 
 class _UNetEncDec(nn.Module):
@@ -89,10 +86,10 @@ class _UNetEncDec(nn.Module):
         """x (N,3,H,W) -> f32 logits (N,C,H,W)."""
         x = channels_last(x.to(self.dtype))
         conv1 = self._block(x, 1)
-        conv2 = self._block(F.max_pool2d(conv1, 2), 2)
-        conv3 = self._block(F.max_pool2d(conv2, 2), 3)
-        conv4 = self.dropout4(self._block(F.max_pool2d(conv3, 2), 4))
-        conv5 = self.dropout5(self._block(F.max_pool2d(conv4, 2), 5))
+        conv2 = self._block(pool2d(conv1, "max", 2, 2), 2)
+        conv3 = self._block(pool2d(conv2, "max", 2, 2), 3)
+        conv4 = self.dropout4(self._block(pool2d(conv3, "max", 2, 2), 4))
+        conv5 = self.dropout5(self._block(pool2d(conv4, "max", 2, 2), 5))
         x = conv5
         for idx, skip in zip(range(6, 10), (conv4, conv3, conv2, conv1)):
             up = torch.relu(getattr(self, f"up{idx}")(x))

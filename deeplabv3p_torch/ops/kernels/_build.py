@@ -146,7 +146,9 @@ def load_library() -> ctypes.CDLL:
             p, p, p, p, p, p,        # x_enc, skip, dw_kernel, scale, bias, out
             i, i, i, i, i, i, i, i,  # dtype, n, he, we, ce, hs, ws, cs
             f, f,                    # row / column source scale (in / out)
-            i, p,                    # channels a thread (4 or 1), stream
+            i,                       # channels a thread (4 or 1)
+            i, i, i,                 # a row block's row0, erow0, he_total
+            p,                       # stream
         ]
         lib.fused_decoder_frontend.restype = i
         lib.fused_decoder_frontend_tile_rows.argtypes = [i, i]  # we, ws

@@ -74,13 +74,22 @@ struct __align__(16) DecTap {
   int valid;
 };
 
-__device__ __forceinline__ DecTap decoder_tap(int o, float scale, int in_size, int out_size) {
-  const float src = (o + 0.5f) * scale - 0.5f;
+//
+// A row block of a larger map (spatial partitioning) passes its place in it:
+// output row `o` is global row `o + o0` and the input holds global rows
+// `i0_first ..` of `in_total`; the sample is taken in global coordinates and
+// clamped at the global map's edges, then indexed into the block. A whole map
+// has o0 = i0_first = 0 and in_total = in_size.
+__device__ __forceinline__ DecTap decoder_tap(int o, float scale, int in_size, int out_size,
+                                              int o0 = 0, int i0_first = 0,
+                                              int in_total = 0) {
+  const int total = in_total > 0 ? in_total : in_size;
+  const float src = (o + o0 + 0.5f) * scale - 0.5f;
   const float fl = floorf(src);
   const int i0 = static_cast<int>(fl);
   DecTap t;
-  t.lo = min(max(i0, 0), in_size - 1);
-  t.hi = min(max(i0 + 1, 0), in_size - 1);
+  t.lo = min(max(i0, 0), total - 1) - i0_first;
+  t.hi = min(max(i0 + 1, 0), total - 1) - i0_first;
   t.frac = src - fl;
   t.valid = (o >= 0 && o < out_size) ? 1 : 0;
   return t;
@@ -207,7 +216,8 @@ __global__ void __launch_bounds__(kDecThreads)
                             const float* __restrict__ scale, const float* __restrict__ bias,
                             T* __restrict__ out,            // (N,hs,ws,Ce+Cs)
                             int he, int we, int ce, int hs, int ws, int cs, float sh, float sw,
-                            int tile, int enc_blocks, int skip_items) {
+                            int tile, int enc_blocks, int skip_items, int row0, int erow0,
+                            int he_total) {
   extern __shared__ __align__(16) float smem[];
   const int cv = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
   const int tid = ty * blockDim.x + cv, nthreads = blockDim.x * ny;
@@ -239,7 +249,8 @@ __global__ void __launch_bounds__(kDecThreads)
   DecTap* coltab = reinterpret_cast<DecTap*>(wbuf + 3 * tile * we * kDecGroup);
   DecTap* rowtab = coltab + ws;  // rows y0 - 1 .. y0 + rows
   for (int x = tid; x < ws; x += nthreads) coltab[x] = decoder_tap(x, sw, we, ws);
-  for (int r = tid; r < rows + 2; r += nthreads) rowtab[r] = decoder_tap(y0 - 1 + r, sh, he, hs);
+  for (int r = tid; r < rows + 2; r += nthreads)
+    rowtab[r] = decoder_tap(y0 - 1 + r, sh, he, hs, row0, erow0, he_total);
   __syncthreads();
 
   // Phase 1: W_dx[y][j] = sum_dy k[dy][dx] V[y + dy - 1][j]
@@ -358,7 +369,7 @@ template <typename T, int VEC>
 cudaError_t launch_decoder(const void* x_enc, const void* skip, const float* dwk,
                            const float* scale, const float* bias, void* out, int n, int he,
                            int we, int ce, int hs, int ws, int cs, float sh, float sw,
-                           cudaStream_t stream) {
+                           int row0, int erow0, int he_total, cudaStream_t stream) {
   const int tile = decoder_tile_rows(we, ws);
   if (tile == 0) return cudaErrorInvalidValue;
   const size_t smem = decoder_smem_bytes(we, ws, tile);
@@ -370,7 +381,8 @@ cudaError_t launch_decoder(const void* x_enc, const void* skip, const float* dwk
   const dim3 block(kDecGroup / VEC, kDecThreads / (kDecGroup / VEC));
   decoder_frontend_kernel<T, VEC><<<enc_blocks + skip_blocks, block, smem, stream>>>(
       static_cast<const T*>(x_enc), static_cast<const T*>(skip), dwk, scale, bias,
-      static_cast<T*>(out), he, we, ce, hs, ws, cs, sh, sw, tile, enc_blocks, skip_items);
+      static_cast<T*>(out), he, we, ce, hs, ws, cs, sh, sw, tile, enc_blocks, skip_items, row0,
+      erow0, he_total);
   return cudaGetLastError();
 }
 
@@ -390,14 +402,17 @@ extern "C" long long fused_decoder_frontend_smem_bytes(int we, int ws) {
 // Launches on `stream` (of the current device) and returns a cudaError_t
 // (0 on success). x_enc/skip/out are f32 (dtype 0) or bf16 (dtype 1);
 // dw_kernel, scale and bias f32. sh = he / hs and sw = we / ws are the
-// source-index scales. vec is the channels a thread owns: 4 (Ce and Cs
-// multiples of 4, every pointer 16-byte aligned) or 1.
+// source-index scales (of the global map for a row block). vec is the
+// channels a thread owns: 4 (Ce and Cs multiples of 4, every pointer 16-byte
+// aligned) or 1. A row block of a map he_total x hs_total rows (spatial
+// partitioning) passes the global rows of its first output row (row0) and of
+// x_enc's first row (erow0); a whole map passes 0, 0, he.
 extern "C" int fused_decoder_frontend(const void* x_enc, const void* skip,
                                       const void* dw_kernel, const void* scale,
                                       const void* bias, void* out, int dtype,
                                       int n, int he, int we, int ce, int hs,
                                       int ws, int cs, float sh, float sw, int vec,
-                                      void* stream) {
+                                      int row0, int erow0, int he_total, void* stream) {
   if (n * hs * ws == 0 || ce + cs == 0) return 0;
   if (vec == 4 && (ce % 4 != 0 || cs % 4 != 0)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -407,16 +422,16 @@ extern "C" int fused_decoder_frontend(const void* x_enc, const void* skip,
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == dlk::kFloat32 && vec == 4) {
     err = dlk::launch_decoder<float, 4>(x_enc, skip, k, sc, bi, out, n, he, we, ce, hs, ws, cs,
-                                        sh, sw, s);
+                                        sh, sw, row0, erow0, he_total, s);
   } else if (dtype == dlk::kFloat32 && vec == 1) {
     err = dlk::launch_decoder<float, 1>(x_enc, skip, k, sc, bi, out, n, he, we, ce, hs, ws, cs,
-                                        sh, sw, s);
+                                        sh, sw, row0, erow0, he_total, s);
   } else if (dtype == dlk::kBFloat16 && vec == 4) {
     err = dlk::launch_decoder<__nv_bfloat16, 4>(x_enc, skip, k, sc, bi, out, n, he, we, ce, hs,
-                                                ws, cs, sh, sw, s);
+                                                ws, cs, sh, sw, row0, erow0, he_total, s);
   } else if (dtype == dlk::kBFloat16 && vec == 1) {
     err = dlk::launch_decoder<__nv_bfloat16, 1>(x_enc, skip, k, sc, bi, out, n, he, we, ce, hs,
-                                                ws, cs, sh, sw, s);
+                                                ws, cs, sh, sw, row0, erow0, he_total, s);
   }
   return static_cast<int>(err);
 }

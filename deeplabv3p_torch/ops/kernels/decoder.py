@@ -11,6 +11,14 @@ with the most memory-hostile sequence of the network:
 features and the projected skip (CUDA kernel `csrc/decoder.cu`);
 `fused_decoder_reference` is the plain chain above in PyTorch.
 
+A row block of a larger map (spatial partitioning, `parallel/spatial.py`)
+passes its place in it: `row0`, the global row of skip48's first row, in a
+skip map of `hs_total` rows, and `erow0`, the global row of x_enc's first
+row, in an encoder map of `he_total` rows. The upsample then samples in
+global coordinates, at the global scale, clamped at the global map's edges
+only (x_enc must hold every row that skip48's rows sample); the depthwise
+still pads the block's own edges with zeros.
+
 Layout at this interface is the JAX one, NHWC. Unlike the TPU kernel there
 is no `Ce % 128` rule: the CUDA kernel takes any channel count (4 channels a
 thread where Ce and Cs are multiples of 4, else one) and any scale.
@@ -29,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplabv3p_torch.ops.kernels._build import LIB, check, launch_counter, load_library
-from deeplabv3p_torch.ops.resize import resize_bilinear
+from deeplabv3p_torch.ops.resize import bilinear_rows, bilinear_taps, resize_bilinear
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SHARED_BYTES = 232448  # sm_90's 227 KB a block
@@ -41,11 +49,20 @@ def fused_decoder_reference(
     dw_kernel: torch.Tensor,
     scale: torch.Tensor,
     bias: torch.Tensor,
+    row0: int = 0,
+    hs_total: int = 0,
+    erow0: int = 0,
+    he_total: int = 0,
 ) -> torch.Tensor:
     """Plain version: f32 bilinear resize -> concat -> depthwise SAME ->
-    scale/bias -> ReLU, cast to x_enc's dtype. NHWC in, NHWC out."""
+    scale/bias -> ReLU, cast to x_enc's dtype. NHWC in, NHWC out. With
+    `hs_total`, a row block as the module docstring says."""
     hs, ws = skip48.shape[1], skip48.shape[2]
-    up = resize_bilinear(x_enc.permute(0, 3, 1, 2).float(), (hs, ws))
+    if hs_total:
+        up = bilinear_rows(x_enc.permute(0, 3, 1, 2).float(), 3, 0, x_enc.shape[2], ws, 0, ws)
+        up = bilinear_rows(up, 2, erow0, he_total, hs_total, row0, row0 + hs)
+    else:
+        up = resize_bilinear(x_enc.permute(0, 3, 1, 2).float(), (hs, ws))
     cat = torch.cat([up, skip48.permute(0, 3, 1, 2).float()], dim=1)
     c = cat.shape[1]
     w = dw_kernel.float().permute(2, 0, 1).unsqueeze(1)  # (C,1,3,3)
@@ -72,6 +89,23 @@ def vector_width(ce: int, cs: int, *tensors: torch.Tensor) -> int:
     return 4 if whole and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
 
 
+def _check_rows(x_enc, skip48, row0, hs_total, erow0, he_total) -> None:
+    """A row block's place must hold the rows its upsample samples."""
+    if not hs_total:
+        if row0 or erow0 or he_total:
+            raise ValueError("row0/erow0/he_total need hs_total")
+        return
+    he, hs = x_enc.shape[1], skip48.shape[1]
+    if not (0 <= row0 and row0 + hs <= hs_total and 0 <= erow0 and erow0 + he <= he_total):
+        raise ValueError(f"row block: skip rows {row0}+{hs} of {hs_total}, encoder rows "
+                         f"{erow0}+{he} of {he_total}")
+    if hs:
+        i0, i1, _ = bilinear_taps(row0, row0 + hs, he_total, hs_total)
+        if int(i0[0]) < erow0 or int(i1[-1]) >= erow0 + he:
+            raise ValueError(f"encoder rows {erow0}..{erow0 + he} miss rows that skip rows "
+                             f"{row0}..{row0 + hs} sample")
+
+
 def _check_args(x_enc, skip48, dw_kernel, scale, bias) -> None:
     if x_enc.ndim != 4 or skip48.ndim != 4:
         raise ValueError("x_enc and skip48 must be NHWC")
@@ -91,24 +125,28 @@ def _check_args(x_enc, skip48, dw_kernel, scale, bias) -> None:
 
 
 LIB.define("fused_decoder_frontend(Tensor x_enc, Tensor skip48, Tensor dw_kernel, "
-           "Tensor scale, Tensor bias) -> Tensor")
+           "Tensor scale, Tensor bias, int row0=0, int hs_total=0, int erow0=0, "
+           "int he_total=0) -> Tensor")
 
 
 @torch.library.register_fake("deeplabv3p::fused_decoder_frontend")
-def _fake(x_enc, skip48, dw_kernel, scale, bias):
+def _fake(x_enc, skip48, dw_kernel, scale, bias, row0=0, hs_total=0, erow0=0, he_total=0):
     _check_args(x_enc, skip48, dw_kernel, scale, bias)
     n, hs, ws, cs = skip48.shape
     return x_enc.new_empty((n, hs, ws, x_enc.shape[-1] + cs))
 
 
-def _plain(x_enc, skip48, dw_kernel, scale, bias):
+def _plain(x_enc, skip48, dw_kernel, scale, bias, row0=0, hs_total=0, erow0=0, he_total=0):
     _check_args(x_enc, skip48, dw_kernel, scale, bias)
-    return fused_decoder_reference(x_enc, skip48, dw_kernel, scale, bias)
+    _check_rows(x_enc, skip48, row0, hs_total, erow0, he_total)
+    return fused_decoder_reference(x_enc, skip48, dw_kernel, scale, bias,
+                                   row0, hs_total, erow0, he_total)
 
 
-def _launch(x_enc, skip48, dw_kernel, scale, bias):
+def _launch(x_enc, skip48, dw_kernel, scale, bias, row0=0, hs_total=0, erow0=0, he_total=0):
     """The operator's CUDA implementation."""
     _check_args(x_enc, skip48, dw_kernel, scale, bias)
+    _check_rows(x_enc, skip48, row0, hs_total, erow0, he_total)
     if skip48.device != x_enc.device:
         raise ValueError("skip48 must be on x_enc's device")
     for t in (dw_kernel, scale, bias):
@@ -133,7 +171,9 @@ def _launch(x_enc, skip48, dw_kernel, scale, bias):
             x_enc.data_ptr(), skip48.data_ptr(), dw_kernel.data_ptr(),
             scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[x_enc.dtype], n, he, we, ce, hs, ws, cs,
-            he / hs, we / ws, vec, torch.cuda.current_stream(x_enc.device).cuda_stream,
+            (he_total / hs_total) if hs_total else (he / hs), we / ws, vec,
+            row0, erow0, he_total or he,
+            torch.cuda.current_stream(x_enc.device).cuda_stream,
         )
     check(status, "fused_decoder_frontend")
     fused_decoder_frontend.launches += 1
@@ -152,9 +192,14 @@ def fused_decoder_frontend(
     dw_kernel: torch.Tensor,
     scale: torch.Tensor,
     bias: torch.Tensor,
+    row0: int = 0,
+    hs_total: int = 0,
+    erow0: int = 0,
+    he_total: int = 0,
 ) -> torch.Tensor:
     """relu(BN(depthwise3x3(concat([upsample(x_enc), skip48])))) without
-    materialising the upsample or the concat.
+    materialising the upsample or the concat; with `hs_total`, of a row
+    block (the module docstring).
 
     x_enc (N,he,we,Ce) and skip48 (N,hs,ws,Cs) in float32 or bfloat16 (the
     same); dw_kernel (3,3,Ce+Cs), scale/bias (Ce+Cs,) float32. Returns
@@ -163,4 +208,4 @@ def fused_decoder_frontend(
     """
     if x_enc.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no kernel for device {x_enc.device}")
-    return _op(x_enc, skip48, dw_kernel, scale, bias)
+    return _op(x_enc, skip48, dw_kernel, scale, bias, row0, hs_total, erow0, he_total)

@@ -1,6 +1,7 @@
-"""Data parallelism over processes (deeplabv3p_tpu/parallel): one rank a
-device, gradients and BatchNorm statistics summed by `all_reduce`
-(`mesh.py`)."""
+"""Parallelism over processes (deeplabv3p_tpu/parallel): one rank a device,
+gradients and BatchNorm statistics summed by `all_reduce` (`mesh.py`), and
+on a ('data', 'spatial') mesh each image's rows split over a spatial group
+with the halo exchanges written out (`spatial.py`)."""
 
 from deeplabv3p_torch.parallel.mesh import (  # noqa: F401
     AllReduceSum,

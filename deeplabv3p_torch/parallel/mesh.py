@@ -21,9 +21,17 @@ a process that drives one device:
   `file://` store in a temporary directory (no port, no network), and
   returns what each rank returned.
 
+A 2-D mesh (`axis_names=("data", "spatial")`, JAX mesh.py:43-69) lays
+the ranks out as `rank = data_index * S + spatial_index`, as
+`np.asarray(devices).reshape(mesh_shape)` lays out JAX's devices: the S
+ranks of a data group split each of its samples by height
+(`parallel/spatial.py`), and the D data groups split the batch. The mesh
+then also carries this rank's spatial group (halo rows, global means, the
+mask's rows) and data group, besides `group`, all ranks (gradients and
+BatchNorm statistics, which JAX reduces over both axes).
+
 Only `all_reduce` and `broadcast` are used: the two collectives that gloo
-also runs on CUDA tensors. Spatial partitioning (the JAX package's
-('data', 'spatial') mesh) is ROADMAP Queue A item 11.
+also runs on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import threading
 import time
 from typing import Any, Callable, Iterable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -45,20 +54,49 @@ import torch.distributed as dist
 # ranks > 0 waiting for rank 0's BN recalibration (`--bn_recalibrate`)
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
 BUCKET_BYTES = 32 << 20
-SPATIAL_REFUSAL = ("spatial partitioning (a ('data', 'spatial') mesh) is not ported yet "
-                   "(ROADMAP Queue A item 11, spatial partitioning)")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place in a data-parallel run: it holds rows
-    `[rank * b, (rank + 1) * b)` of every global batch of `size * b` rows,
-    on `device`. `group` is None on the single-device path."""
+    """This process's place in a run: it holds rows `[d * b, (d + 1) * b)`
+    of every global batch of `D * b` rows, d its data index, on `device`;
+    on a 2-D mesh of `spatial` S > 1 ranks a data group, only its block of
+    each sample's rows (`parallel/spatial.py`). `group` (all ranks) is None
+    on the single-device path; `spatial_group` and `data_group` are this
+    rank's groups along the two axes of a 2-D mesh of more than one rank
+    (`data_group` None where the data axis has one rank)."""
 
     rank: int = 0
     size: int = 1
     device: torch.device = torch.device("cpu")
     group: Optional[Any] = None
+    axis_names: tuple = ("data",)
+    spatial: int = 1
+    spatial_group: Optional[Any] = None
+    data_group: Optional[Any] = None
+
+    @property
+    def data_size(self) -> int:
+        return self.size // self.spatial
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
+
+
+def auto_shape(n: int, n_axes: int) -> tuple[int, ...]:
+    """JAX `_auto_shape` (mesh.py:30-40): on two axes, spatial is the
+    largest power of two that divides n, capped at 4."""
+    if n_axes == 1:
+        return (n,)
+    spatial = 1
+    while spatial < 4 and n % (spatial * 2) == 0:
+        spatial *= 2
+    return (n // spatial, spatial)
 
 
 def check_batch(batch_size: int, num_devices: int) -> None:
@@ -73,9 +111,14 @@ def check_batch(batch_size: int, num_devices: int) -> None:
 def make_mesh(num_devices: int = 1, device="cuda", *, rank: int = 0,
               local_rank: Optional[int] = None, init_method: Optional[str] = None,
               backend: Optional[str] = None,
-              timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> Mesh:
+              timeout: datetime.timedelta = DEFAULT_TIMEOUT,
+              axis_names: tuple = ("data",), mesh_shape: Optional[tuple] = None) -> Mesh:
     """Join this process, rank `rank` of `num_devices`, to the default
-    process group and return its `Mesh` (JAX `make_mesh(num_devices)`).
+    process group and return its `Mesh` (JAX `make_mesh(num_devices,
+    axis_names, mesh_shape=...)`). `axis_names=("data", "spatial")` makes
+    the 2-D mesh, shaped `mesh_shape` (D, S) or by `auto_shape`; every rank
+    then makes the D spatial groups and the S data groups (where D > 1), in
+    that order.
 
     An index-less `cuda` becomes `cuda:<local_rank (default: rank) modulo
     the visible cards>`. `init_method` is the rendezvous (`file://...` as
@@ -86,12 +129,20 @@ def make_mesh(num_devices: int = 1, device="cuda", *, rank: int = 0,
     """
     if num_devices < 1 or not 0 <= rank < num_devices:
         raise ValueError(f"rank {rank} of {num_devices} devices")
+    axis_names = tuple(axis_names)
+    if axis_names not in (("data",), ("data", "spatial")):
+        raise ValueError(f"axis_names {axis_names}: ('data',) or ('data', 'spatial')")
+    shape = tuple(mesh_shape) if mesh_shape is not None else auto_shape(
+        num_devices, len(axis_names))
+    if len(shape) != len(axis_names) or int(np.prod(shape)) != num_devices:
+        raise ValueError(f"mesh_shape {shape} for axes {axis_names} and {num_devices} devices")
+    spatial = shape[1] if len(shape) == 2 else 1
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         local = rank if local_rank is None else local_rank
         device = torch.device("cuda", local % max(torch.cuda.device_count(), 1))
     if num_devices == 1 and backend is None:
-        return Mesh(0, 1, device, None)
+        return Mesh(0, 1, device, None, axis_names)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("the nccl backend needs --device cuda")
@@ -99,21 +150,38 @@ def make_mesh(num_devices: int = 1, device="cuda", *, rank: int = 0,
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=num_devices, rank=rank, timeout=timeout)
-    return Mesh(rank, num_devices, device, dist.group.WORLD)
+    if len(axis_names) == 1:
+        return Mesh(rank, num_devices, device, dist.group.WORLD)
+    d_size = num_devices // spatial
+    # every rank makes every group, in the same order (dist.new_group)
+    spatial_groups = [dist.new_group([d * spatial + s for s in range(spatial)])
+                      for d in range(d_size)]
+    data_groups = ([dist.new_group([d * spatial + s for d in range(d_size)])
+                    for s in range(spatial)] if d_size > 1 else [None] * spatial)
+    return Mesh(rank, num_devices, device, dist.group.WORLD, axis_names, spatial,
+                spatial_groups[rank // spatial], data_groups[rank % spatial])
 
 
 def local_rows(x, mesh: Optional[Mesh]):
     """This rank's contiguous block of the leading axis of `x` (a global
-    batch), which must divide over the mesh as in JAX."""
+    batch), which must divide over the mesh's data axis as in JAX; on a 2-D
+    mesh an array of rank >= 3 (N, H, ...) keeps only this rank's block of
+    rows of H as well (JAX `batch_arg_sharding`, mesh.py:72-90)."""
     if mesh is None or mesh.size == 1:
         return x
-    check_batch(x.shape[0], mesh.size)
-    b = x.shape[0] // mesh.size
-    return x[mesh.rank * b:(mesh.rank + 1) * b]
+    check_batch(x.shape[0], mesh.data_size)
+    b = x.shape[0] // mesh.data_size
+    x = x[mesh.data_index * b:(mesh.data_index + 1) * b]
+    if mesh.spatial > 1 and x.ndim >= 3:
+        from deeplabv3p_torch.parallel.spatial import block
+
+        lo, hi = block(x.shape[1], mesh.spatial, mesh.spatial_index)
+        x = x[:, lo:hi]
+    return x
 
 
 def shard_batch(mesh: Optional[Mesh], batch):
-    """This rank's rows of each array of a global batch (JAX
+    """This rank's share of each array of a global batch (JAX
     `shard_batch`, mesh.py:93-99, which places each device's block)."""
     if isinstance(batch, (tuple, list)):
         return type(batch)(local_rows(x, mesh) for x in batch)
@@ -159,12 +227,15 @@ def _coalesced(tensors: Iterable[torch.Tensor], op: Callable[[torch.Tensor], Non
 
 
 @torch.no_grad()
-def reduce_gradients(params: Iterable[torch.Tensor], group) -> None:
-    """Average the parameters' `.grad` over the ranks of `group`: a
-    flattened, bucketed `all_reduce`, divided by the world size. Parameters
-    without a gradient are left out, on every rank alike (the ranks run the
-    same model and freeze level)."""
-    world = dist.get_world_size(group)
+def reduce_gradients(params: Iterable[torch.Tensor], group,
+                     divisor: Optional[int] = None) -> None:
+    """Sum the parameters' `.grad` over the ranks of `group` and divide by
+    `divisor` (default: the world size, the average): a flattened, bucketed
+    `all_reduce`. On a 2-D mesh the divisor is the data axis's size: a
+    spatial group's ranks hold parts of one loss, whose gradients add up.
+    Parameters without a gradient are left out, on every rank alike (the
+    ranks run the same model and freeze level)."""
+    world = dist.get_world_size(group) if divisor is None else divisor
 
     def average(flat):
         dist.all_reduce(flat, group=group)
@@ -175,8 +246,10 @@ def reduce_gradients(params: Iterable[torch.Tensor], group) -> None:
 
 @torch.no_grad()
 def broadcast_module(model: torch.nn.Module, group, src: int = 0) -> None:
-    """Every parameter and buffer of `model` becomes rank `src`'s."""
+    """Every parameter and buffer of `model` becomes that of rank `src` of
+    `group` (its rank within the group)."""
     tensors = [p.detach() for p in model.parameters()] + list(model.buffers())
+    src = dist.get_global_rank(group, src) if group is not dist.group.WORLD else src
     _coalesced(tensors, lambda flat: dist.broadcast(flat, src, group=group))
 
 
@@ -204,12 +277,13 @@ def _exit_with_parent() -> None:
 
 
 def _rank_main(rank: int, fn, args, num_devices: int, device: str, backend, timeout,
-               init_method: str, out_dir: str) -> None:
+               init_method: str, out_dir: str, axis_names: tuple, mesh_shape) -> None:
     _exit_with_parent()
     if torch.device(device).type == "cpu":  # the ranks share the cores
         torch.set_num_threads(max(1, torch.get_num_threads() // num_devices))
     mesh = make_mesh(num_devices, device, rank=rank, init_method=init_method,
-                     backend=backend, timeout=timeout)
+                     backend=backend, timeout=timeout, axis_names=axis_names,
+                     mesh_shape=mesh_shape)
     try:
         out = fn(mesh, *args)
     finally:
@@ -221,9 +295,11 @@ def _rank_main(rank: int, fn, args, num_devices: int, device: str, backend, time
 
 def spawn(fn: Callable, num_devices: int, *args, device="cuda", backend: Optional[str] = None,
           timeout: datetime.timedelta = DEFAULT_TIMEOUT,
-          join_timeout: Optional[float] = None) -> list:
+          join_timeout: Optional[float] = None, axis_names: tuple = ("data",),
+          mesh_shape: Optional[tuple] = None) -> list:
     """Run `fn(mesh, *args)` in `num_devices` new processes (spawned, one
-    rank each) and return the ranks' return values in rank order.
+    rank each; `axis_names` and `mesh_shape` as `make_mesh` takes them) and
+    return the ranks' return values in rank order.
 
     `fn` and `args` are pickled, so `fn` is a module-level function. A rank
     that raises ends the others and raises here with its traceback; so does
@@ -235,7 +311,8 @@ def spawn(fn: Callable, num_devices: int, *args, device="cuda", backend: Optiona
         ctx = mp.start_processes(
             _rank_main, nprocs=num_devices, join=False, start_method="spawn",
             args=(fn, args, num_devices, str(device), backend, timeout,
-                  "file://" + os.path.join(tmp, "store"), tmp))
+                  "file://" + os.path.join(tmp, "store"), tmp, tuple(axis_names),
+                  mesh_shape))
         deadline = None if join_timeout is None else time.monotonic() + join_timeout
         try:
             while not ctx.join(timeout=5.0):

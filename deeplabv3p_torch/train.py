@@ -34,7 +34,10 @@ only; a UNet trains without the L2 penalty, as in the root CLI).
   block of rows of every global batch, BatchNorm takes its statistics over
   the global batch, the gradients are averaged by `all_reduce`, and every
   rank logs the numbers one process would. `main` spawns the ranks itself,
-  or runs as one of them under torchrun.
+  or runs as one of them under torchrun. With `--spatial_partition S` the
+  mesh is ('data', 'spatial') of N/S x S: the S ranks of a data group each
+  run the model on their block of every sample's rows
+  (`parallel/spatial.py`).
 
 PyTorch runs eagerly, so model, optimizer and averages are updated in
 place; `TrainState` carries the rest. Frozen parameters stay out of the
@@ -76,6 +79,7 @@ from deeplabv3p_torch.parallel.mesh import (
     set_batchnorm_group,
     spawn,
 )
+from deeplabv3p_torch.parallel.spatial import own_rows, partitioned
 from deeplabv3p_torch.utils.checkpoint import check_weights_path
 from deeplabv3p_torch.utils.weights import to_jax_variables
 
@@ -143,18 +147,44 @@ def make_train_step(
     same way, train.py:107-148), the gradients are averaged over the ranks
     at the step that updates, and the returned loss and jaccard are the
     global batch's, the same on every rank.
+
+    On a 2-D mesh of S > 1 spatial ranks (`parallel/spatial.py`) the batch
+    is the data group's samples, whole; each rank keeps its block of rows
+    and runs the forward on it. Its loss is its rows' part of the data
+    group's: the sum of its pixels' losses over the data group's pixel
+    count (b x H x W), plus L2 / S. The spatial group's losses add up to the
+    data group's, and so do their gradients (the halo exchanges and global
+    sums carry each rank's part back to where it came from): the gradients
+    are summed over all ranks and divided by the data axis's size, the rule
+    `reduce_gradients` applies with `mesh.data_size`. The fused loss, which
+    would need a halo exchange inside its kernel, raises as in JAX.
     """
     from deeplabv3p_torch.ops.kernels.upsample_ce import fused_upsample_ce
 
     group = None if mesh is None else mesh.group
+    split = mesh is not None and mesh.spatial > 1
+    if split and fused_loss:  # JAX train.py:430-438
+        raise ValueError("fused_loss supports data-parallel meshes only "
+                         "(spatial_partition must be 1)")
 
     def forward_loss(images, labels, weights):
         """(loss, metric input): the train-mode forward and the loss,
         L2 included (JAX `loss_of`); the metric input is the fused
-        kernel's preds or the full-resolution NHWC logits."""
+        kernel's preds or the full-resolution NHWC logits. On a spatial
+        mesh, of this rank's rows (the labels too are returned)."""
         set_train_mode(model, freeze_level)
-        x = images.permute(0, 3, 1, 2)  # NHWC -> channels_last NCHW, free
         sw = weights if use_sample_weights else None
+        if split:
+            b, h, w = labels.shape
+            images, labels = own_rows(images, mesh), own_rows(labels, mesh)
+            sw = None if sw is None else own_rows(sw, mesh)
+            with partitioned(mesh, (h, w)):
+                logits = model(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            loss = losses_lib.reduce_loss(loss_fn(labels, logits), sw, count=b * h * w)
+            if l2_factor:
+                loss = loss + losses_lib.l2_penalty(model, l2_factor) / mesh.spatial
+            return loss, (logits, labels)
+        x = images.permute(0, 3, 1, 2)  # NHWC -> channels_last NCHW, free
         if fused_loss:
             logits_lr = model(x, skip_final_resize=True)
             loss_sum, metric_aux = fused_upsample_ce(
@@ -171,17 +201,21 @@ def make_train_step(
 
     def step_fn(state: TrainState, images, labels, weights, lr_scale: float = 1.0):
         loss, metric_aux = forward_loss(images, labels, weights)
+        if split:
+            metric_aux, labels = metric_aux
         if loss.requires_grad:  # else nothing trains (UNet, Fast-SCNN at level 2)
             (loss / state.grad_accum if state.grad_accum > 1 else loss).backward()
         state.step += 1
         if state.step % state.grad_accum == 0:
             if group is not None:
-                # each rank's loss is its own mean plus the L2 penalty; every
-                # rank holds as many pixels and the same L2, so the ranks'
-                # mean gradient is that of the global-batch mean plus L2 once.
-                # A step that trains nothing has no gradient on any rank.
+                # each data group's loss is its own mean plus the L2 penalty
+                # (on a spatial mesh, the sum of its ranks' parts); every data
+                # group holds as many pixels and the same L2, so the gradients
+                # summed over the ranks and divided by the data groups are the
+                # global-batch mean's plus L2 once. A step that trains nothing
+                # has no gradient on any rank.
                 reduce_gradients([p for g in state.optimizer.param_groups
-                                  for p in g["params"]], group)
+                                  for p in g["params"]], group, mesh.data_size)
             opt_lib.set_learning_rate(
                 state.optimizer, state.schedule(state.updates) * lr_scale)
             state.optimizer.step()
@@ -203,32 +237,51 @@ def make_train_step(
 
 def _global_metrics(loss, labels, metric_aux, fused_loss: bool, num_classes: int,
                     mesh: Mesh) -> dict:
-    """{'loss', 'jaccard'} of the global batch from this rank's share: the
-    loss averaged and jaccard's per-class sums added over the ranks, in one
-    f64 `all_reduce`."""
+    """{'loss', 'jaccard'} of the global batch from this rank's share, in
+    f64 `all_reduce`s: on a spatial mesh the rows' losses and per-sample
+    confusion matrices are first added over the spatial group (the data
+    group's samples, whole); then the loss is summed over the data groups
+    and divided by their number, and jaccard's per-class sums are added."""
     import torch.distributed as dist
 
     preds = metric_aux if fused_loss else torch.argmax(metric_aux, dim=-1)
-    iou_sum, cnt = metrics_lib.jaccard_sums(
-        metrics_lib.sample_confusion(labels, preds, num_classes))
+    cm = metrics_lib.sample_confusion(labels, preds, num_classes)
+    loss_sum = loss.reshape(1).double()
+    group = mesh.group
+    if mesh.spatial > 1:
+        parts = torch.cat([loss_sum, cm.double().reshape(-1)])  # counts: exact
+        dist.all_reduce(parts, group=mesh.spatial_group)
+        loss_sum, cm = parts[:1], parts[1:].reshape(cm.shape).to(cm.dtype)
+        group = mesh.data_group
+    iou_sum, cnt = metrics_lib.jaccard_sums(cm)
     k = iou_sum.numel()
-    vec = torch.cat([loss.reshape(1).double(), iou_sum.double(), cnt.double()])
-    dist.all_reduce(vec, group=mesh.group)
-    return {"loss": (vec[0] / mesh.size).to(loss.dtype),
+    vec = torch.cat([loss_sum, iou_sum.double(), cnt.double()])
+    if group is not None:  # a (1, S) mesh's data group is this rank alone
+        dist.all_reduce(vec, group=group)
+    return {"loss": (vec[0] / mesh.data_size).to(loss.dtype),
             "jaccard": metrics_lib.jaccard_from_sums(vec[1:k + 1].float(), vec[k + 1:].float())}
 
 
-def make_eval_step(model, num_classes: int):
+def make_eval_step(model, num_classes: int, mesh: Optional[Mesh] = None):
     """`(images_u8, labels_u8) -> (C, C)` int64 confusion delta on the
     device (JAX train.py:221-247): normalise, forward, then argmax and
     confusion matrix in one `confusion_matrix_fused` call on the NHWC view of
-    the logits. The model must be in eval mode."""
+    the logits. The model must be in eval mode. On a spatial `mesh` the
+    batch is the data group's samples, whole: the rank runs the forward and
+    the kernel on its block of rows, so it counts only the pixels it owns
+    (the caller sums the matrices over the ranks)."""
     from deeplabv3p_torch.ops.kernels.confusion import confusion_matrix_fused
+
+    split = mesh is not None and mesh.spatial > 1
 
     @torch.no_grad()
     def step_fn(images_u8, labels_u8):
         images, labels = preprocess_eval_batch(images_u8, labels_u8, num_classes=num_classes)
-        logits = model(images.permute(0, 3, 1, 2))
+        hw = tuple(labels.shape[1:3])
+        if split:
+            images, labels = own_rows(images, mesh), own_rows(labels, mesh)
+        with partitioned(mesh, hw):
+            logits = model(images.permute(0, 3, 1, 2))
         # channels_last NCHW -> NHWC is a view; contiguous() copies only if
         # the model handed back another layout
         return confusion_matrix_fused(
@@ -407,6 +460,9 @@ class Trainer:
                             device=self.device))
         self.history: list[dict] = []
         self._best_eval_miou = -np.inf
+        if mesh is not None and mesh.spatial > 1 and fused_loss:  # JAX train.py:430-438
+            raise ValueError("fused_loss supports data-parallel meshes only "
+                             "(spatial_partition must be 1)")
         if self.group is not None:
             broadcast_module(model, self.group)
             set_batchnorm_group(model, self.group)
@@ -417,7 +473,7 @@ class Trainer:
         for m in model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
-        self._eval_step = make_eval_step(model, num_classes)
+        self._eval_step = make_eval_step(model, num_classes, mesh)
         os.makedirs(log_dir, exist_ok=True)
 
     def build_stage_state(self, stage: StageConfig) -> TrainState:
@@ -596,12 +652,7 @@ def parse_input_shape(spec):
 def _refuse_unported(args) -> None:
     """Flags of the root train.py the port does not run yet: each raises,
     naming its ROADMAP item; none is ignored."""
-    unported = [
-        (args.spatial_partition > 1,
-         "--spatial_partition > 1 (a ('data', 'spatial') mesh over --num_devices)",
-         "Queue A item 11, spatial partitioning"),
-        (args.remat != "off", "--remat", "Queue A item 14"),
-    ]
+    unported = [(args.remat != "off", "--remat", "Queue A item 14")]
     for hit, what, item in unported:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
@@ -625,10 +676,10 @@ def main(args):
         if args.num_devices not in (0, world):
             raise ValueError(f"--num_devices {args.num_devices} under torchrun's "
                              f"WORLD_SIZE {world}")
-        check_batch(args.batch_size, world)
+        mesh_kw = _mesh_args(args, world)
         mesh = make_mesh(world, args.device, rank=int(env["RANK"]),
                          local_rank=int(env.get("LOCAL_RANK", env["RANK"])),
-                         init_method="env://")
+                         init_method="env://", **mesh_kw)
         try:
             return train(args, mesh)
         finally:
@@ -643,11 +694,28 @@ def main(args):
         if n > visible:
             raise ValueError(f"--num_devices {n} > the {visible} visible GPU(s)")
     n = n or 1  # 0 on the CPU: one process
-    check_batch(args.batch_size, n)
+    mesh_kw = _mesh_args(args, n)
     if n == 1:
         return train(args, None)
-    spawn(_train_rank, n, args, device=args.device)
+    spawn(_train_rank, n, args, device=args.device, **mesh_kw)
     return None
+
+
+def _mesh_args(args, n: int) -> dict:
+    """`make_mesh`'s axes for `--spatial_partition` over n devices (root
+    train.py:132-148), after the checks the root CLI makes: S divides n,
+    the batch divides over the data axis, no fused loss with S > 1."""
+    s = args.spatial_partition
+    if s < 1 or n % s:
+        raise SystemExit(f"--spatial_partition {s} must divide the device count ({n})")
+    check_batch(args.batch_size, n // s)
+    if s == 1:
+        return {}
+    if args.fused_loss:  # root train.py:170-175
+        raise SystemExit("--fused_loss supports data-parallel meshes only "
+                         "(--spatial_partition 1); the in-kernel upsample would "
+                         "need a halo exchange under an H-split")
+    return dict(axis_names=("data", "spatial"), mesh_shape=(n // s, s))
 
 
 def _train_rank(mesh: Mesh, args) -> list:
@@ -863,7 +931,8 @@ def parse_args(argv=None):
                         "visible GPU, one process on --device cpu); --batch_size is the "
                         "global batch and must divide by it")
     p.add_argument("--spatial_partition", type=int, default=1,
-                   help="1 only: spatial partitioning is not ported (ROADMAP item 11)")
+                   help="S > 1 splits each image's height over S of the --num_devices "
+                        "ranks (a ('data', 'spatial') mesh of N/S x S; S must divide N)")
     p.add_argument("--bn_recalibrate", action="store_true",
                    help="replace the BN running statistics by the exact statistics of "
                         "the un-augmented train set before the final save (short runs)")

@@ -82,7 +82,9 @@ def test_memory_limit_and_mesh_raise():
                         mem_limit_bytes=10 * 16 * 12 * 4)
     with pytest.raises(ValueError, match="labels shape"):
         DeviceCachedDataset(images, labels[:, :-1], batch_size=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    # a mesh that is not the port's (the spatial form runs since it was
+    # ported: test_torch_spatial_train.py)
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         DeviceCachedDataset(images, labels, batch_size=4, device="cpu", mesh=object())
 
 

@@ -174,7 +174,9 @@ def test_cuda_device_raises_without_cuda():
 def test_unported_options_raise(weights):
     kw = dict(device="cpu", classes_path=VOC, model_input_shape=(PX, PX))
     assert tinf.DeepLab(do_crf=True, **kw).do_crf  # ported: tests/test_torch_crf.py
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    # a spatial mesh serves since spatial partitioning was ported
+    # (test_torch_spatial.py); what is not the port's mesh raises
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tinf.DeepLab(mesh=object(), **kw)
     # an .onnx is a program, which the JAX package's DeepLab takes no more than
     # the port's does (it runs in the eval CLI: tests/test_torch_onnx.py)

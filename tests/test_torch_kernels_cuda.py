@@ -197,6 +197,76 @@ def test_decoder_kernel_matches_plain(dev, enc_shape, skip_shape, dtype):
     _assert_close(got, want)
 
 
+# a row block of the skip map (spatial partitioning): (encoder map, skip map, the
+# block's skip rows [lo, hi)): the 1024x2048 serving path's rank 1 of 2, the
+# 512x512 path's rank 1 of 4, a scale of 4 with a block of 1 row, odd sizes at
+# non-integer scales
+DECODER_ROW_CASES = [
+    ((1, 64, 128, 256), (1, 256, 512, 48), 128, 256),
+    ((1, 32, 32, 256), (1, 128, 128, 48), 32, 64),
+    ((2, 8, 8, 256), (2, 32, 32, 48), 9, 10),
+    ((1, 13, 11, 24), (1, 37, 29, 8), 10, 20),
+    ((1, 7, 5, 16), (1, 25, 19, 4), 0, 9),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("enc_shape,skip_shape,lo,hi", DECODER_ROW_CASES)
+def test_decoder_kernel_on_a_row_block(dev, enc_shape, skip_shape, lo, hi, dtype):
+    """The kernel on skip rows [lo - 1, hi + 1) and the encoder rows they
+    sample, with their global rows and sizes passed in: equal to its plain
+    version, and cropped to [lo, hi) to the whole map's call."""
+    from deeplabv3p_torch.ops.resize import source_rows
+
+    gen = torch.Generator().manual_seed(4)
+    c = enc_shape[-1] + skip_shape[-1]
+    x = _rand(gen, enc_shape).to(dev, dtype)
+    skip = _rand(gen, skip_shape).relu().to(dev, dtype)
+    k = (_rand(gen, (3, 3, c)) / 3.0).to(dev)
+    scale = _rand(gen, (c,), 1.0, 0.5, uniform=True).to(dev)
+    bias = (_rand(gen, (c,)) * 0.1).to(dev)
+    hs, he = skip_shape[1], enc_shape[1]
+    s0, s1 = max(lo - 1, 0), min(hi + 1, hs)
+    e0, e1 = source_rows(s0, s1, he, hs)
+    args = (x[:, e0:e1].contiguous(), skip[:, s0:s1].contiguous(), k, scale, bias, s0, hs, e0, he)
+    got = fused_decoder_frontend(*args)
+    _assert_close(got, fused_decoder_reference(*args))
+    whole = fused_decoder_frontend(x, skip, k, scale, bias)
+    _assert_close(got[:, lo - s0:hi - s0], whole[:, lo:hi])
+
+
+# (map height, block [lo, hi), rates): every slab is a strict part of the map, cut
+# at its top, its bottom or both: the 1024x2048 path's two ranks of (1, 2) and the
+# 512x512 path's ranks 0 and 3 of (1, 4) at OS16, OS8's rates on a taller map,
+# and a ragged map at OS32's rates
+ASPP_SLAB_CASES = [(64, 0, 32, (6, 12, 18)), (64, 32, 64, (6, 12, 18)),
+                   (32, 0, 8, (6, 12, 18)), (32, 24, 32, (6, 12, 18)),
+                   (128, 32, 64, (12, 24, 36)), (37, 15, 20, (3, 6, 9))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,lo,hi,rates", ASPP_SLAB_CASES)
+def test_aspp_kernel_on_a_halo_slab(dev, h, lo, hi, rates, dtype):
+    """The kernel on a block widened by max(rates) rows each side, inside
+    the map (its own zero padding past the map's edges): equal to its plain
+    version on the slab, and cropped to the block bit-equal to the whole
+    map's call on those rows."""
+    gen = torch.Generator().manual_seed(5)
+    x = _rand(gen, (1, h, 24, 64)).to(dev, dtype)
+    kern = (_rand(gen, (len(rates), 3, 3, 64)) * 0.2).to(dev)
+    scale = _rand(gen, (len(rates), 64), 1.0, 0.5, uniform=True).to(dev)
+    bias = (_rand(gen, (len(rates), 64)) * 0.1).to(dev)
+    a, b = max(lo - max(rates), 0), min(hi + max(rates), h)
+    assert b - a < h
+    whole = multirate_atrous_depthwise(x, kern, rates, scale, bias)
+    part = x[:, a:b].contiguous()
+    slab = multirate_atrous_depthwise(part, kern, rates, scale, bias)
+    for w, g, p in zip(whole, slab,
+                       multirate_atrous_depthwise_reference(part, kern, rates, scale, bias)):
+        _assert_close(g, p)
+        assert torch.equal(g[:, lo - a:hi - a], w[:, lo:hi])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(1, 8, 8, 16, device=dev)
     k = torch.zeros(3, 3, 3, 16, device=dev)

@@ -5,9 +5,11 @@ same CLI as two ranks of a torchrun launch (with `--weighted_type balanced`:
 rank 0's class weights, broadcast): rank 0 alone writes one history.jsonl
 (the loss falls over the two epochs) and the final checkpoint, which loads.
 A `jax` module that raises when imported sits first on the ranks' path, so a
-rank that imported JAX would fail the run. Then the arguments that raise: a
-batch that does not divide over the ranks, `--spatial_partition 2` and
-`--device cuda` without a card."""
+rank that imported JAX would fail the run. Then the arguments that raise (a
+batch that does not divide over the ranks, `--device cuda` without a card,
+`--fused_loss` with `--spatial_partition 2`), and `--spatial_partition 2`
+itself, refused before spatial partitioning was ported, now two ranks of a
+(1, 2) mesh that train."""
 
 import json
 import os
@@ -85,12 +87,34 @@ def test_two_ranks_train_the_toy_set(toy, no_jax_env, tmp_path, launch, extra):
 @pytest.mark.parametrize("extra,error,match", [
     (["--num_devices", "3"], ValueError,
      r"batch_size 4 must divide over the mesh's data axis \(3\)"),
-    (["--spatial_partition", "2"], NotImplementedError, "spatial partitioning"),
+    # a spatial split of two ranks trains since spatial partitioning was ported
+    (["--num_devices", "2", "--spatial_partition", "2"], None, None),
     (["--num_devices", "2", "--device", "cuda"], RuntimeError, "cuda"),
-], ids=["batch", "spatial", "cuda"])
-def test_arguments_that_raise(toy, tmp_path, extra, error, match):
+    (["--num_devices", "2", "--spatial_partition", "2", "--fused_loss"], SystemExit,
+     r"--fused_loss supports data-parallel meshes only \(--spatial_partition 1\); the "
+     r"in-kernel upsample would need a halo exchange under an H-split"),
+], ids=["batch", "spatial", "cuda", "fused_loss-spatial"])
+def test_arguments_that_raise(toy, no_jax_env, tmp_path, extra, error, match):
+    """What the CLI refuses, as the root CLI words it; and the case that no
+    longer raises: `python -m deeplabv3p_torch.train` spawns two ranks on a
+    (1, 2) mesh that train the toy set with the augmentation on
+    (tests/test_parallel.py:372-410), rank 0 alone writing the history and
+    the final weights."""
     if "cuda" in extra and torch.cuda.is_available():
         pytest.skip("this machine has a card")
+    if error is None:
+        cmd = [sys.executable, "-m", "deeplabv3p_torch.train",
+               *(a for a in argv(toy, tmp_path, *extra) if a != "--no_augment")]
+        r = subprocess.run(cmd, env=no_jax_env, cwd=str(tmp_path), capture_output=True,
+                           text=True, timeout=240)
+        assert r.returncode == 0, r.stderr[-3000:]
+        assert r.stdout.count("saved final model") == 1
+        records = [json.loads(line) for line in (tmp_path / "history.jsonl").read_text()
+                   .splitlines()]
+        assert [rec["epoch"] for rec in records] == [0, 1]
+        assert all(rec["steps"] == 2 and np.isfinite(rec["loss"]) for rec in records)
+        assert os.path.exists(tmp_path / "trained_final.npz")
+        return
     with pytest.raises(error, match=match):
         main(parse_args(argv(toy, tmp_path, *extra)))
     assert not os.path.exists(tmp_path / "history.jsonl")

@@ -506,15 +506,34 @@ def test_fit_reduces_lr_on_plateau_and_stops_early_or_on_nan(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--no_augment", "--spatial_partition", "2"], "spatial_partition"),
-    # --num_devices N trains since the data-parallel port (test_torch_parallel*.py);
-    # what stays refused with it is a spatial split of the devices
+    # --num_devices N trains since the data-parallel port (test_torch_parallel*.py),
+    # and split spatially since spatial partitioning's (test_torch_spatial*.py)
     (["--no_augment", "--num_devices", "2", "--spatial_partition", "2"], "num_devices"),
     (["--no_augment", "--remat"], "remat"),
 ])
-def test_unported_flags_raise(flags, match, tmp_path):
+def test_unported_flags_raise(flags, match, toy_dataset, tmp_path):
+    """`--remat` raises naming its ROADMAP item. `--spatial_partition 2` on
+    one CPU process raises as the root CLI does: S must divide the device
+    count. With `--num_devices 2` it trains: two epochs of a (1, 2) mesh
+    on the toy set."""
     args = parse_args(["--device", "cpu", "--log_dir", str(tmp_path), *flags])
-    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP"):
-        main(args)
+    if match == "spatial_partition":
+        with pytest.raises(SystemExit, match=r"--spatial_partition 2 must divide the device "
+                                             r"count \(1\)"):
+            main(args)
+    elif match == "num_devices":
+        root, list_path = toy_dataset
+        main(parse_args(["--device", "cpu", "--log_dir", str(tmp_path), *flags,
+                         "--model_type", "mobilenetv2_lite", "--model_input_shape", "32",
+                         "--batch_size", "4", "--transfer_epoch", "0", "--total_epoch", "2",
+                         "--dataset_path", root, "--dataset_file", list_path,
+                         "--classes_path", os.path.join(root, "classes.txt")]))
+        records = [json.loads(line) for line in open(tmp_path / "history.jsonl")]
+        assert [r["epoch"] for r in records] == [0, 1]
+        assert all(np.isfinite(r["loss"]) for r in records)
+    else:
+        with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP"):
+            main(args)
 
 
 def test_cuda_device_without_a_card_is_an_error(toy_dataset, tmp_path):
