@@ -7,6 +7,7 @@
     python3 chip_smoke.py --onnx   # steps 1-2, the learning proof and the ONNX phase (15b)
     python3 chip_smoke.py --parallel  # steps 1-2 and the data-parallel phase (15c) alone
     python3 chip_smoke.py --spatial   # steps 1-2 and the spatial phase (15d) alone
+    python3 chip_smoke.py --tools     # steps 1-2 and the tools phase (15e) alone
 
 1. prints the card (`nvidia-smi` name and power limit) and the versions;
 2. builds the CUDA kernels from deeplabv3p_torch/ops/kernels/csrc with nvcc;
@@ -166,13 +167,28 @@
    (mobilenetv2, seeded, the ASPP and decoder kernels) on (1, 2) at
    1024x2048 with 19 classes and on (1, 4) at 512x512 with 21, the f32
    logits gathered against one process's and the bf16 masks, the two kernels
-   once a request on every rank; eval with --fused_mbconv on (1, 2), the
+   once a request on every rank; unet_simple (seeded, no kernel) on (1, 2)
+   at a 1080x1920 frame, whose maps of one width take two heights and whose
+   logits are 1088 rows high, gathered at that height: the f32 logits and
+   masks held the same way, the bf16 mask by its agreement with one
+   process's f32 mask against one process's own bf16 one (its seeded bf16
+   logits tie on a share of pixels); eval with --fused_mbconv on (1, 2), the
    ASPP, inverted-residual and confusion kernels on every rank and the
    summed matrix against one process's and against torch.argmax + bincount
    of the same logits; training on (1, 2) at b2 and (2, 2) at b4 (plain CE,
    2 steps, bf16 and f32) at the data-parallel phase's bounds, bf16's step
    2 against one process at the ranks' parameters after step 1, the ranks'
    parameters bit-equal; each rank's request latency and step time;
+15e. the dataset and evaluation tools (deeplabv3p_torch/tools/, the card
+   machine has no JAX): the toy set of data/toy.py packed at 512x512 by
+   `dataset_converter.pack_dataset` (the shards equal to the dataset's
+   decode; seconds and img/s), mobilenetv2 b4 trained 2 steps from the
+   packed path through the train CLI, `label_statistics` and
+   `dataset_visualize` on the toy set, the trained model's masks of the toy
+   images as gray PNGs through `onboard_png_convert` and
+   `onboard_segment_eval` on the card (its matrix equal to np.bincount over
+   the same PNGs), `model_statistics` of mobilenetv2 at 512 on the card
+   (FLOPs >= the convolutions'), every dataset tool's --help in one process;
 16. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
@@ -292,10 +308,51 @@ PARALLEL_BF16_FLOOR = {"loss": 1e-3, "jaccard": 1e-2, "parameters": 1e-3, "BN bu
 # the same parameters (step 2 from the ranks' parameters after step 1), within
 # twice one process's own bf16-vs-f32 gap there plus the floors (spatial_phase)
 SPATIAL_SERVING = [((1, 2), (1024, 2048), 19), ((1, 4), INPUT, 21)]
+# ... and unet_simple on a full-HD frame, no multiple of 16 high: its SAME pools
+# round 1080 -> 540 -> 270 -> 135 -> 68, its decoder doubles 68 -> ... -> 1088,
+# so maps of one width have two heights and the logits are 1088 rows high. Its
+# seeded bf16 logits are rounded to steps of 2^-5 at their scale (max ~7), and a
+# share of its pixels tie in bf16 (the phase prints it): one process's own bf16
+# masks leave its f32 ones on ~2 % of pixels, so a rank's bf16 mask is held by
+# what it adds to that: its agreement with one process's f32 mask within
+# SPATIAL_BF16_VS_F32 of one process's bf16 agreement (held to SPATIAL_MASK_FLOOR
+# against one process's bf16 mask instead, it failed on an H100 at 0.998288 on
+# every rank, with f32 logits within 1.2e-06 of max|logits|)
+SPATIAL_UNET = ((1, 2), (1080, 1920), 19)
+SPATIAL_BF16_VS_F32 = 1e-3
 SPATIAL_REQUESTS, SPATIAL_EVAL_IMAGES, SPATIAL_EVAL_BATCH = 6, 8, 4
 SPATIAL_TRAINING = [((1, 2), 2), ((2, 2), 4)]
 SPATIAL_STEPS, SPATIAL_TIMED, SPATIAL_SEEDS = 2, 3, (21, 22, 23)
 SPATIAL_F32_LOGITS, SPATIAL_MASK_FLOOR, SPATIAL_EVAL_DISAGREE = 1e-4, 0.999, 1e-4
+# the dataset and evaluation tools (15e): the toy set of data/toy.py packed at
+# 512x512 in shards of 4, mobilenetv2 trained b4 for TOOLS_STEPS steps on the
+# shards, its masks of the toy images scored by the PNG tools
+TOOLS_HW, TOOLS_BATCH, TOOLS_SHARD, TOOLS_STEPS = (512, 512), 4, 4, 2
+# every module of the dataset tools' package and the evaluation tools, each
+# imported and, where it has a main, run with --help (one process)
+TOOLS_HELP = """
+import contextlib, importlib, io, pkgutil, sys
+import deeplabv3p_torch.tools.dataset_converter as tools
+names = sorted(m.name for m in pkgutil.walk_packages(tools.__path__, tools.__name__ + "."))
+names += ["deeplabv3p_torch.tools." + n for n in sys.argv[1:]]
+ran = []
+for name in names:
+    mod = importlib.import_module(name)
+    if hasattr(mod, "main"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            try:
+                mod.main(["--help"])
+            except SystemExit as e:
+                assert e.code == 0, (name, e.code)
+        assert buf.getvalue().startswith("usage:"), name
+        ran.append(name)
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "deeplabv3p_tpu", "tools")]
+assert not leaked, leaked
+print(len(names), "modules,", len(ran), "tools")
+print(" ".join(ran))
+"""
+EVAL_TOOLS = ("onboard_png_convert", "onboard_segment_eval", "model_statistics")
 # (logits shape, logits dtype name, labels dtype name): the eval slice's call first
 CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
                    ((8, 512, 512, 21), "bfloat16", "uint8"),
@@ -728,6 +785,14 @@ def main() -> None:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return
+    if "--tools" in sys.argv[1:]:  # the dataset and evaluation tools alone
+        launches = tools_phase(torch, kernels, train_main, train_args)
+        print(json.dumps({"tools_launches": launches}))
+        if failures:
+            die(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
     if "--export" in sys.argv[1:]:  # the export phase alone
         requests = make_requests(preprocess_image)
         launches = export_phase(torch, kernels, classes_path, requests, kaspp, kdec, kmb)
@@ -981,6 +1046,7 @@ def main() -> None:
     # one-rank NCCL group, the same weights and global batches ---------------------
     parallel_launches = parallel_phase(torch)
     spatial_launches = spatial_phase(torch, kaspp, kdec, kmb, kconf)
+    tools_launches = tools_phase(torch, kernels, train_main, train_args)
 
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
@@ -1099,7 +1165,8 @@ def main() -> None:
             row["also_on"][f"mobilenetv2 eval --do_crf b{EVAL_BATCH}"] = \
                 crf_eval_launches[row["name"]]
     for path, counts in {**export_launches, **onnx_launches, **parallel_launches,
-                         **spatial_launches}.items():  # .pt2, ONNX, data-parallel, spatial
+                         **spatial_launches, **tools_launches}.items():  # .pt2, ONNX,
+        # data-parallel, spatial, the tools' flow
         for row in kernels:
             if counts[row["name"]]:
                 row.setdefault("also_on", {})[path] = counts[row["name"]]
@@ -3861,20 +3928,22 @@ def spatial_image(hw, seed: int) -> np.ndarray:
     return np.random.RandomState(seed).uniform(-1, 1, (1, *hw, 3)).astype(np.float32)
 
 
-def spatial_serving_run(torch, mesh, hw, num_classes: int) -> dict:
+def spatial_serving_run(torch, mesh, hw, num_classes: int,
+                        model_type: str = "mobilenetv2") -> dict:
     """`DeepLab(mesh=...)` (mobilenetv2, OS16, seeded weights, the ASPP and
-    decoder kernels on) on one request: the f32 logits (TF32 off) of the
-    rows, gathered, and the bf16 mask; the bf16 launch counts of the
+    decoder kernels on; or `model_type`, which may have no kernel) on one
+    request: the f32 logits (TF32 off) of the rows, gathered at their own
+    global height, and the bf16 mask; the bf16 launch counts of the
     requests, then SPATIAL_REQUESTS timed requests. `mesh` None: one
     process."""
     from deeplabv3p_torch.inference import DeepLab
     from deeplabv3p_torch.ops import kernels
-    from deeplabv3p_torch.parallel.spatial import gather_rows, own_rows, partitioned
+    from deeplabv3p_torch.parallel.spatial import gather_rows, height_of, own_rows, partitioned
 
     names = [f"c{i}" for i in range(num_classes)]
     image = spatial_image(hw, SPATIAL_SEEDS[0])
     out = {}
-    f32 = DeepLab(device="cuda", dtype=torch.float32, model_type="mobilenetv2",
+    f32 = DeepLab(device="cuda", dtype=torch.float32, model_type=model_type,
                   class_names=names, model_input_shape=hw, fused_decoder=True, mesh=mesh)
     x = torch.from_numpy(image).to(f32.device)
     with torch.inference_mode():
@@ -3883,11 +3952,18 @@ def spatial_serving_run(torch, mesh, hw, num_classes: int) -> dict:
         else:
             with partitioned(mesh, hw) as part:
                 rows = f32.model(own_rows(x, mesh).permute(0, 3, 1, 2))
-            logits = gather_rows(rows.contiguous(), hw[0], part, dim=2)
+                h = height_of(rows)
+            logits = gather_rows(rows.contiguous(), h, part, dim=2)
     out["logits"] = host_copy(logits)
+    out["mask_f32"] = f32.predict(image, hw)
     del f32, logits
-    bf16 = DeepLab(device="cuda", dtype=torch.bfloat16, model_type="mobilenetv2",
+    bf16 = DeepLab(device="cuda", dtype=torch.bfloat16, model_type=model_type,
                    class_names=names, model_input_shape=hw, fused_decoder=True, mesh=mesh)
+    if mesh is None:  # the share of pixels whose top two bf16 logits tie
+        with torch.inference_mode():
+            top2 = bf16.model(x.permute(0, 3, 1, 2)).float().topk(2, dim=1).values
+        out["ties"] = float((top2[:, 0] == top2[:, 1]).float().mean())
+        del top2
     bf16.predict(image, hw)  # warm-up
     torch.cuda.synchronize()
     kernels.reset_launch_counts()                    # the serving path starts here
@@ -4056,6 +4132,9 @@ def spatial_runs(mesh4=None) -> dict:
            "jax_imported": [m for m in ("jax", "flax", "deeplabv3p_tpu") if m in sys.modules]}
     for shape, hw, c in SPATIAL_SERVING:
         out[("serve", shape)] = spatial_serving_run(torch, meshes[shape], hw, c)
+    shape, hw, c = SPATIAL_UNET
+    out[("serve", "unet_simple")] = spatial_serving_run(torch, meshes[shape], hw, c,
+                                                        "unet_simple")
     out["eval"] = spatial_eval_run(torch, m12)
     for shape, batch in SPATIAL_TRAINING:
         for dt in PARALLEL_DTYPES:
@@ -4192,7 +4271,7 @@ def spatial_phase(torch, kaspp, kdec, kmb, kconf) -> dict:
     t0 = time.perf_counter()
     spatial_kernel_checks(torch, kaspp, kdec, kmb, kconf)
     print(f"spatial partitioning: mobilenetv2 OS16 seeded, serving {SPATIAL_SERVING} "
-          f"((mesh, H x W, classes)), eval b{SPATIAL_EVAL_BATCH} x "
+          f"((mesh, H x W, classes)) and unet_simple {SPATIAL_UNET}, eval b{SPATIAL_EVAL_BATCH} x "
           f"{SPATIAL_EVAL_IMAGES // SPATIAL_EVAL_BATCH} with --fused_mbconv on (1, 2), training "
           f"{SPATIAL_TRAINING} ((mesh, global batch)) at 512x512, {SPATIAL_STEPS} steps, bf16 "
           f"and f32 (TF32 off); four gloo ranks on the one card")
@@ -4208,32 +4287,56 @@ def spatial_phase(torch, kaspp, kdec, kmb, kconf) -> dict:
     for r in ranks:
         check(not r["jax_imported"], f"rank {r['rank']}: no JAX module imported "
                                      f"({r['jax_imported'] or 'none'})")
-    for shape, hw, c in SPATIAL_SERVING:
-        want = a[("serve", shape)]
+    served = [(("serve", shape), shape, hw, "mobilenetv2", {
+        "multirate_atrous_depthwise": SPATIAL_REQUESTS,
+        "fused_decoder_frontend": SPATIAL_REQUESTS}) for shape, hw, _ in SPATIAL_SERVING]
+    served.append((("serve", "unet_simple"), SPATIAL_UNET[0], SPATIAL_UNET[1], "unet_simple", {}))
+    for key, shape, hw, model_type, kernel_launches in served:
+        want = a[key]
         scale = float(np.abs(want["logits"]).max())
+        one_vs_f32 = float((want["mask"] == want["mask_f32"]).mean())
+        print(f"  one process {model_type} {hw[0]}x{hw[1]}: bf16 mask agrees with its f32 mask "
+              f"on {one_vs_f32:.6f} of pixels; top two bf16 logits tie on {want['ties']:.6f}")
         for r in ranks:
-            got = r[("serve", shape)]
-            who = f"serving {shape} {hw[0]}x{hw[1]}, rank {r['rank']}"
-            d = float(np.abs(got["logits"] - want["logits"]).max())
+            got = r[key]
+            who = f"serving {model_type} {shape} {hw[0]}x{hw[1]}, rank {r['rank']}"
+            same_shape = got["logits"].shape == want["logits"].shape
+            check(same_shape, f"{who}: logits gathered {got['logits'].shape}, one process's "
+                              f"{want['logits'].shape}")
+            d = (float(np.abs(got["logits"] - want["logits"]).max()) if same_shape
+                 else float("inf"))
             check(d <= SPATIAL_F32_LOGITS * scale,
                   f"{who}: f32 logits gathered against one process's, max|d| {d:.3g} "
                   f"({d / scale:.3g} of max|logits| {scale:.3g}; <= {SPATIAL_F32_LOGITS})")
             agree = float((got["mask"] == want["mask"]).mean())
-            check(agree >= SPATIAL_MASK_FLOOR,
-                  f"{who}: bf16 mask agrees with one process's on {agree:.6f} of pixels "
+            vs_f32 = float((got["mask"] == want["mask_f32"]).mean())
+            f32_agree = float((got["mask_f32"] == want["mask_f32"]).mean())
+            check(f32_agree >= SPATIAL_MASK_FLOOR,
+                  f"{who}: f32 mask agrees with one process's on {f32_agree:.6f} of pixels "
                   f"(>= {SPATIAL_MASK_FLOOR})")
-            want_l = {**ZERO_LAUNCHES, "multirate_atrous_depthwise": SPATIAL_REQUESTS,
-                      "fused_decoder_frontend": SPATIAL_REQUESTS}
+            if model_type == "unet_simple":
+                check(vs_f32 >= one_vs_f32 - SPATIAL_BF16_VS_F32,
+                      f"{who}: bf16 mask agrees with one process's f32 mask on {vs_f32:.6f} of "
+                      f"pixels, one process's bf16 mask on {one_vs_f32:.6f} (>= that - "
+                      f"{SPATIAL_BF16_VS_F32}); with one process's bf16 mask {agree:.6f} "
+                      f"(not held: bf16 ties)")
+            else:
+                check(agree >= SPATIAL_MASK_FLOOR,
+                      f"{who}: bf16 mask agrees with one process's on {agree:.6f} of pixels "
+                      f"(>= {SPATIAL_MASK_FLOOR}); with its f32 mask {vs_f32:.6f}")
+            want_l = {**ZERO_LAUNCHES, **kernel_launches}
             check(got["launches"] == want_l,
-                  f"{who}: launches {got['launches']} (ASPP and decoder once a request)")
-            launches[f"spatial serving {shape} {hw[0]}x{hw[1]} bf16, gloo rank {r['rank']}, "
-                     f"{SPATIAL_REQUESTS} requests"] = got["launches"]
+                  f"{who}: launches {got['launches']} "
+                  f"({'ASPP and decoder once a request' if kernel_launches else 'no kernel'})")
+            if kernel_launches:
+                launches[f"spatial serving {shape} {hw[0]}x{hw[1]} bf16, gloo rank {r['rank']}, "
+                         f"{SPATIAL_REQUESTS} requests"] = got["launches"]
             warm = got["ms"][1:]
             print(f"  request latency, {who}, bf16: median {statistics.median(warm):.2f} ms of "
                   f"requests 2-{len(got['ms'])} ({', '.join(f'{t:.2f}' for t in got['ms'])} ms; "
                   f"host clock, synchronized)  [{card}]")
         warm = want["ms"][1:]
-        print(f"  request latency, one process {hw[0]}x{hw[1]}, bf16: median "
+        print(f"  request latency, one process {model_type} {hw[0]}x{hw[1]}, bf16: median "
               f"{statistics.median(warm):.2f} ms  [{card}]")
     batches = SPATIAL_EVAL_IMAGES // SPATIAL_EVAL_BATCH
     want_cm = a["eval"]["confusion"]
@@ -4338,6 +4441,189 @@ def spatial_phase(torch, kaspp, kdec, kmb, kconf) -> dict:
               f"{at['bfloat16'][1]:.6f}, f32 {at['float32'][1]:.6f}")
     print(f"the spatial phase took {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def quiet(fn, *args):
+    """(fn(*args), what it printed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def nearest_np(a: np.ndarray, hw) -> np.ndarray:
+    """`ops.resize.resize_nearest(convention="cv2")` in numpy: source index
+    floor(dst * (in / out)) in f32, clipped."""
+    def index(out, n):
+        src = np.floor(np.arange(out, dtype=np.float32) * np.float32(n / out)).astype(np.int64)
+        return np.clip(src, 0, n - 1)
+
+    return a[index(hw[0], a.shape[0])][:, index(hw[1], a.shape[1])]
+
+
+def tools_phase(torch, kernels, train_main, train_args) -> dict:
+    """(15e) the dataset and evaluation tools on the card machine, which has
+    no JAX: the toy set of data/toy.py from example/, packed at 512x512 by
+    the port's `pack_dataset` (the shards held equal to the dataset's own
+    decode), mobilenetv2 b4 trained TOOLS_STEPS steps on the card from the
+    packed path through the train CLI, `label_statistics` and
+    `dataset_visualize` on the toy set, the trained model's masks of the toy
+    images (`DeepLab`, bf16, the ASPP kernel once a request) written as gray
+    PNGs and run through `onboard_png_convert` and `onboard_segment_eval`
+    on the card (its matrix held equal to np.bincount over the same PNGs),
+    `model_statistics` of mobilenetv2 at 512 on the card (FLOPs >=
+    `conv_flops`), and every dataset tool's --help in one subprocess.
+    Returns the serving run's launch counts for the kernels' record."""
+    import shutil
+
+    from PIL import Image
+
+    from deeplabv3p_torch.data import toy
+    from deeplabv3p_torch.data.pipeline import SegmentationDataset
+    from deeplabv3p_torch.inference import DeepLab, preprocess_image
+    from deeplabv3p_torch.tools import model_statistics, onboard_png_convert, onboard_segment_eval
+    from deeplabv3p_torch.tools.dataset_converter import (
+        dataset_visualize,
+        label_statistics,
+        pack_dataset,
+    )
+    from deeplabv3p_torch.utils.config import get_classes, get_data_list
+
+    t0 = time.perf_counter()
+    card = card_line()
+    root = os.path.join(OUT_DIR, "tools")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "toy")
+    list_path = toy.build_overfit_dataset(data, source_dir=os.path.join(REPO, "example"))
+    classes_path = os.path.join(data, "classes.txt")
+    names = get_classes(classes_path)
+    ids = get_data_list(list_path, shuffle=False)
+    print(f"dataset and evaluation tools: the toy set ({len(ids)} pairs, {len(names)} classes) "
+          f"from example/")
+
+    # pack at 512x512, the shards against the dataset's own decode
+    packed = os.path.join(root, "packed")
+    t = time.perf_counter()
+    _, text = quiet(pack_dataset.main, ["--dataset_path", data, "--dataset_file", list_path,
+                                        "--model_input_shape", f"{TOOLS_HW[0]}",
+                                        "--output", packed, "--shard_size", f"{TOOLS_SHARD}"])
+    pack_s = time.perf_counter() - t
+    print(f"  pack_dataset: {text.strip()}; {pack_s:.3f} s with the tool's start, "
+          f"{len(ids) / pack_s:.1f} img/s  [{card}]")
+    with open(os.path.join(packed, "meta.json")) as f:
+        meta = json.load(f)
+    images = np.concatenate([np.load(os.path.join(packed, f"shard_{k}_images.npy"))
+                             for k in range(len(meta["shard_sizes"]))])
+    labels = np.concatenate([np.load(os.path.join(packed, f"shard_{k}_labels.npy"))
+                             for k in range(len(meta["shard_sizes"]))])
+    ds = SegmentationDataset(data, meta["ids"], batch_size=1, input_shape=TOOLS_HW,
+                             augment=False, shuffle=False)
+    same = all(np.array_equal(images[i], ds._load_sample(i)[0])
+               and np.array_equal(labels[i], ds._load_sample(i)[1]) for i in range(len(ids)))
+    check(same and images.shape == (len(ids), *TOOLS_HW, 3) and sorted(meta["ids"]) == sorted(ids),
+          f"pack_dataset: shards {images.shape} uint8 images and {labels.shape} labels in "
+          f"{meta['shard_sizes']}, equal to SegmentationDataset's decode of the same ids")
+
+    # mobilenetv2 b4 on the card from the packed path
+    log_dir = os.path.join(root, "logs")
+    argv = ["--model_type", "mobilenetv2", "--model_input_shape", f"{TOOLS_HW[0]}",
+            "--batch_size", f"{TOOLS_BATCH}", "--no_augment", "--transfer_epoch", "0",
+            "--total_epoch", f"{TOOLS_STEPS * TOOLS_BATCH // len(ids)}",
+            "--dataset_path", packed, "--dataset_file", list_path,
+            "--classes_path", classes_path, "--log_dir", log_dir]
+    _, wall, counts, _ = run_cli(torch, kernels, train_main, train_args(argv))
+    with open(os.path.join(log_dir, "history.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = sum(r["steps"] for r in records)
+    check(steps == TOOLS_STEPS and all(np.isfinite(r["loss"]) for r in records)
+          and os.path.exists(os.path.join(log_dir, "trained_final.npz")),
+          f"train CLI on the packed set (mobilenetv2 b{TOOLS_BATCH} bf16, 512x512): {steps} "
+          f"steps, losses {[round(r['loss'], 4) for r in records]}, {wall:.1f} s with its "
+          f"start; launches {counts}  [{card}]")
+
+    # the label tools on the toy set
+    _, text = quiet(label_statistics.main, ["--label_path", os.path.join(data, "labels"),
+                                            "--dataset_file", list_path,
+                                            "--classes_path", classes_path])
+    lines = text.strip().splitlines()
+    check(len(lines) == len(names) + 3 and lines[-1].startswith(f"total images: {len(ids)},"),
+          f"label_statistics: {lines[-1]}")
+    dump = os.path.join(root, "visualize")
+    quiet(dataset_visualize.main, ["--dataset_path", data, "--dataset_file", list_path,
+                                   "--classes_path", classes_path, "--dump", dump])
+    shapes = [Image.open(os.path.join(dump, f"{i}.jpg")).size for i in ids]
+    try:  # with matplotlib a 1000x1000 figure with the legend, else the blend alone
+        import matplotlib  # noqa: F401
+        want = [(1000, 1000)] * len(ids)
+    except ImportError:
+        want = [Image.open(os.path.join(data, "images", f"{i}.jpg")).size for i in ids]
+    check(shapes == want, f"dataset_visualize: {len(shapes)} overlays of sizes "
+                          f"{sorted(set(shapes))}, as expected {shapes == want}")
+
+    # the trained model's masks as gray PNGs, then the PNG tools on the card
+    served = DeepLab(device="cuda", model_type="mobilenetv2", classes_path=classes_path,
+                     model_input_shape=TOOLS_HW,
+                     weights_path=os.path.join(log_dir, "trained_final.npz"))
+    pred_dir = os.path.join(root, "pred")
+    os.makedirs(pred_dir)
+    kernels.reset_launch_counts()                    # the serving path starts here
+    for i in ids:
+        image = Image.open(os.path.join(data, "images", f"{i}.jpg")).convert("RGB")
+        mask = served.predict(preprocess_image(image, TOOLS_HW), (image.size[1], image.size[0]))
+        Image.fromarray(mask.astype(np.uint8)).save(os.path.join(pred_dir, f"{i}.png"))
+    serve_counts = kernels.launch_counts()           # ... and ends here
+    check(serve_counts == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": len(ids)},
+          f"the toy masks served: launches {serve_counts} (ASPP once a request)")
+    palette = os.path.join(root, "palette")
+    n, text = quiet(onboard_png_convert.main, ["--input_label_path", pred_dir,
+                                               "--output_label_path", palette,
+                                               "--classes_path", classes_path])
+    same = all(np.array_equal(np.array(Image.open(os.path.join(palette, f"{i}.png"))),
+                              np.array(Image.open(os.path.join(pred_dir, f"{i}.png"))))
+               and Image.open(os.path.join(palette, f"{i}.png")).mode == "P" for i in ids)
+    check(same, f"onboard_png_convert: {len(ids)} palette PNGs holding the gray masks' indices; "
+                f"{text.strip().splitlines()[0]}")
+    t = time.perf_counter()
+    m, text = quiet(onboard_segment_eval.main, [
+        "--dataset_file", list_path, "--gt_label_path", os.path.join(data, "labels"),
+        "--pred_label_path", pred_dir, "--classes_path", classes_path,
+        "--model_output_shape", f"{TOOLS_HW[0]}x{TOOLS_HW[1]}"])
+    eval_s = time.perf_counter() - t
+    c = len(names)
+    want = np.zeros((c, c), np.int64)
+    for i in ids:
+        gt = nearest_np(np.array(Image.open(os.path.join(data, "labels", f"{i}.png"))).astype(
+            np.int64), TOOLS_HW)
+        gt[gt > c - 1] = 255
+        pred = nearest_np(np.array(Image.open(os.path.join(pred_dir, f"{i}.png"))).astype(
+            np.int64), gt.shape)
+        ok = gt < c
+        want += np.bincount(c * gt[ok] + pred[ok], minlength=c * c).reshape(c, c)
+    check(np.array_equal(m.confusion, want),
+          f"onboard_segment_eval on the card: its matrix ({int(want.sum())} pixels) equals "
+          f"np.bincount over the same PNGs resized; "
+          f"{' '.join(text.strip().splitlines()[-4:])}; {eval_s:.3f} s")
+
+    # model statistics on the card
+    (n_params, flops), _ = quiet(model_statistics.main, ["--model_type", "mobilenetv2",
+                                                         "--model_input_shape",
+                                                         f"{TOOLS_HW[0]}"])
+    conv = conv_flops(torch, "mobilenetv2", 21, TOOLS_HW)
+    check(flops >= conv, f"model_statistics mobilenetv2 512x512 on the card: {n_params} "
+                         f"parameters, {flops / 1e9:.3f} GFLOPs (>= the convolutions' "
+                         f"{conv / 1e9:.3f})  [{card}]")
+
+    # every dataset tool's --help, one process
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", TOOLS_HELP, *EVAL_TOOLS], env=env, cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"every dataset and evaluation tool's --help in one process: "
+                             f"{r.stdout.splitlines()[0] if r.stdout else r.stderr[-500:]}")
+    print(f"the tools phase took {time.perf_counter() - t0:.1f} s")
+    return {f"tools: the toy set's masks served, {len(ids)} requests": serve_counts}
 
 
 def card_line() -> str:

@@ -37,7 +37,7 @@ import torch
 from deeplabv3p_torch.models.factory import build_segmentation_model
 from deeplabv3p_torch.models.layers import init_parameters
 from deeplabv3p_torch.parallel.mesh import Mesh
-from deeplabv3p_torch.parallel.spatial import gather_rows, own_rows, partitioned
+from deeplabv3p_torch.parallel.spatial import gather_rows, height_of, own_rows, partitioned
 from deeplabv3p_torch.postprocess import crf_postprocess, mask_argmax, mask_resize
 from deeplabv3p_torch.utils.config import get_classes
 from deeplabv3p_torch.utils.checkpoint import load_weights
@@ -148,13 +148,15 @@ class DeepLab:
         return mask_resize(mask, tuple(image_shape)).cpu().numpy()
 
     def _predict_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """The (H, W) mask of one image on a spatial mesh: this rank's block
-        of rows through the model and the argmax, then the mask's rows
-        gathered over the spatial group, so every rank holds the whole
-        mask."""
-        h, w = x.shape[1:3]
-        with partitioned(self.mesh, (h, w)) as part:
+        """The mask of one image on a spatial mesh, as one process's: this
+        rank's block of rows through the model and the argmax, then the
+        mask's rows gathered over the spatial group, so every rank holds the
+        whole mask. It is as high as the logits, which is the image's height
+        or, for `unet_simple` off multiples of 16, its own (80 rows for
+        68)."""
+        with partitioned(self.mesh, x.shape[1:3]) as part:
             logits = self.model(own_rows(x, self.mesh).permute(0, 3, 1, 2))
+            h = height_of(logits)
         return gather_rows(mask_argmax(logits, dim=1)[0], h, part, dim=0)
 
     def segment_image(self, image):

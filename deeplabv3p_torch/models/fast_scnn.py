@@ -99,7 +99,7 @@ class PyramidPooling(nn.Module):
             return channels_last(torch.cat([x, *self._branches(x)], dim=1))
         # the bins straddle the blocks: every rank pools the whole map (its
         # rows gathered), then keeps its rows of each branch's resize
-        h = part.height(x.shape[-1])
+        h = part.height(x)
         lo, hi = part.block(h)
         with spatial.suspended():
             branches = self._branches(spatial.all_rows(x, h, part))

@@ -354,7 +354,7 @@ class ConvTransposeK(Conv):
         if k != s:
             raise NotImplementedError(f"a {k}x{k}/{s} transposed conv inside a spatial forward")
         # k = s (UNet's 2x2/2): output row o comes from input row o // s alone
-        h = part.height(x.shape[-1])
+        h = part.height(x)
         part.record(x.shape[-1] * s, h * s)
         return spatial.rows_through(x, h, h * s, s, transpose, part)
 
@@ -383,7 +383,7 @@ class Subpixel(nn.Module):
             return self._depth_to_space(x)
         # output row o comes from input row o // r: the rows of this rank's
         # output block, made from the input rows they need
-        h, w, r = part.height(x.shape[-1]), x.shape[-1], self.r
+        h, w, r = part.height(x), x.shape[-1], self.r
         part.record(w * r, h * r)
         return spatial.rows_through(x, h, h * r, r, self._depth_to_space, part)
 
@@ -477,7 +477,7 @@ def _on_slab(x: torch.Tensor, halo: int, part, fn: Callable, dim: int = 1):
     rows each side (the rows inside the image, from `spatial.halo_rows`),
     then cropped to the block along `dim` of fn's output. An empty block
     runs fn on one row of zeros and keeps none of it."""
-    h = part.height(x.shape[-1])
+    h = part.height(x)
     needs = spatial.slab_needs(h, part, halo)
     slab, _, _ = spatial.halo_rows(x, h, needs, part)
     lo, hi = part.block(h)
@@ -686,7 +686,7 @@ class Decoder(nn.Module):
         from deeplabv3p_torch.ops.kernels.decoder import fused_decoder_frontend
         from deeplabv3p_torch.ops.resize import source_rows
 
-        hs, he = part.height(skip48.shape[-1]), part.height(x.shape[-1])
+        hs, he = part.height(skip48), part.height(x)
         s_needs = [spatial.clip(a, b, hs) for a, b in spatial.slab_needs(hs, part, 1)]
         e_needs = [source_rows(a, b, he, hs) for a, b in s_needs]
         skip_slab, _, _ = spatial.halo_rows(skip48, hs, s_needs, part)

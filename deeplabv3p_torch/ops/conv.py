@@ -110,7 +110,7 @@ def _conv2d_rows(x, weight, bias, stride: int, rate: int, groups: int, padding, 
     if kh == 1 and stride == 1 and (padding is None or tuple(padding[0]) == (0, 0)):
         top = bottom = 0
     else:
-        h = part.height(w_in)
+        h = part.height(x)
         ph = tf_same_padding(h, kh, stride, rate) if padding is None else tuple(padding[0])
         k_eff = (kh - 1) * rate + 1
         ho = (h + ph[0] + ph[1] - k_eff) // stride + 1

@@ -73,7 +73,7 @@ def source_rows(out_lo: int, out_hi: int, in_size: int, out_size: int) -> tuple[
 
 def _resize_rows(x: torch.Tensor, size: tuple[int, int], part) -> torch.Tensor:
     """`resize_bilinear` on this rank's block of rows (upsampling only)."""
-    h_in, w_in = part.height(x.shape[-1]), x.shape[-1]
+    h_in, w_in = part.height(x), x.shape[-1]
     h, w = size
     if h < h_in or w < w_in:
         raise NotImplementedError("a downsampling resize inside a spatial forward "
@@ -148,7 +148,7 @@ def resize_nearest_nchw(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     part = spatial.current()
     if part is None:
         return F.interpolate(x, size=tuple(size), mode="nearest")
-    h_in, w_in = part.height(x.shape[-1]), x.shape[-1]
+    h_in, w_in = part.height(x), x.shape[-1]
     h, w = size
     part.record(w, h)
     src = _nearest_indices(h, h_in, "cv2", "cpu")

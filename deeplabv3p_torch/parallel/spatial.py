@@ -15,8 +15,9 @@ out:
   `ops.resize.resize_bilinear`, the global means, the fused kernels' row
   slabs) take this rank's block of rows of each map and return its block of
   their output. A map's global height is looked up by its width, which is
-  not split: every map of these models with one width has one height
-  (`Partition.height`); an operator that makes a map records its size.
+  not split, and is that of the latest map of its width made
+  (`Partition.height`, which checks the map's rows against it): an
+  operator that makes a map records its size.
 * `halo_rows` hands a rank the global rows its outputs need, from whichever
   ranks own them, any number of ranks away. Every rank works out from the
   shapes alone which rows every other rank needs, fills the rows it owns
@@ -61,8 +62,8 @@ def block(h: int, size: int, index: int) -> tuple[int, int]:
 @dataclasses.dataclass
 class Partition:
     """This rank's place on the spatial axis during one forward: `size`
-    ranks in `group`, this one `index`; `heights` maps a map's width to its
-    global height."""
+    ranks in `group`, this one `index`; `heights` maps a map's width to the
+    global height of the latest map of that width made (see `record`)."""
 
     size: int
     index: int
@@ -75,20 +76,38 @@ class Partition:
     def blocks(self, h: int) -> list[tuple[int, int]]:
         return [block(h, self.size, j) for j in range(self.size)]
 
-    def height(self, width: int) -> int:
-        """The global height of the maps `width` wide."""
+    def height(self, x: torch.Tensor) -> int:
+        """The global height of the NCHW map x, of which this rank holds
+        its block: that of the latest map of x's width. Raises when x's
+        rows are not this rank's block of it. Every height differs from
+        every other in some rank's block, so a map read at a wrong height
+        fails on at least one rank, which ends the group (`spawn`)."""
+        width = x.shape[-1]
         try:
-            return self.heights[width]
+            h = self.heights[width]
         except KeyError:
             raise ValueError(f"no map {width} wide has been made in this spatial forward; "
                              f"known widths {sorted(self.heights)}") from None
+        lo, hi = self.block(h)
+        if x.shape[-2] != hi - lo:
+            raise ValueError(f"a map {width} wide with {x.shape[-2]} rows on spatial rank "
+                             f"{self.index} of {self.size} is no block of the latest map "
+                             f"of that width, {h} rows high")
+        return h
 
     def record(self, width: int, height: int) -> None:
-        """A map `width` wide of global height `height` was made."""
-        if self.heights.setdefault(width, height) != height:
-            raise NotImplementedError(
-                f"maps {width} wide with heights {self.heights[width]} and {height} in one "
-                f"spatial forward")
+        """A map `width` wide of global height `height` was made; it
+        replaces an earlier height of that width. That is right because no
+        model of the registry reads a map of the old height after one of
+        the new is made: off multiples of the output stride a second height
+        comes only from an operator that scales rows, and what follows reads
+        only its maps: `unet_simple`'s 2x nearest (its decoder doubles 5 ->
+        10 where the encoder pooled 9 -> 5, and it has no skips) and the
+        subpixel head's depth-to-space (its output is the logits). Anywhere
+        else two heights of one width would meet in a concat or an add,
+        which raises in one process too. `height` checks each map read
+        against the latest height."""
+        self.heights[width] = height
 
 
 @contextlib.contextmanager
@@ -106,9 +125,9 @@ def suspended():
 
 def height_of(x: torch.Tensor) -> int:
     """The global height of the NCHW map x: its own outside a spatial
-    forward, else the one recorded for its width."""
+    forward, else `Partition.height`."""
     part = current()
-    return x.shape[2] if part is None else part.height(x.shape[3])
+    return x.shape[2] if part is None else part.height(x)
 
 
 def partition_of(mesh) -> Partition:
@@ -265,7 +284,7 @@ def global_mean_hw(x: torch.Tensor, part: Partition) -> torch.Tensor:
     """The mean over (H, W) of an NCHW map of which x is this rank's block,
     (N, C, 1, 1) in x's dtype: f32 sums added over the spatial group, over
     the global count."""
-    count = part.height(x.shape[-1]) * x.shape[-1]
+    count = part.height(x) * x.shape[-1]
     s = AllReduceSum.apply(x.float().sum(dim=(2, 3), keepdim=True), part.group)
     return (s / count).to(x.dtype)
 

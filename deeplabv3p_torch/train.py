@@ -79,7 +79,7 @@ from deeplabv3p_torch.parallel.mesh import (
     set_batchnorm_group,
     spawn,
 )
-from deeplabv3p_torch.parallel.spatial import own_rows, partitioned
+from deeplabv3p_torch.parallel.spatial import height_of, own_rows, partitioned
 from deeplabv3p_torch.utils.checkpoint import check_weights_path
 from deeplabv3p_torch.utils.weights import to_jax_variables
 
@@ -176,10 +176,15 @@ def make_train_step(
         sw = weights if use_sample_weights else None
         if split:
             b, h, w = labels.shape
+            hw = images.shape[1:3]
             images, labels = own_rows(images, mesh), own_rows(labels, mesh)
             sw = None if sw is None else own_rows(sw, mesh)
-            with partitioned(mesh, (h, w)):
-                logits = model(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            with partitioned(mesh, hw):
+                logits = model(images.permute(0, 3, 1, 2))
+                h_out = height_of(logits)
+            if (h_out, logits.shape[-1]) != (h, w):  # one process raises too (the metric)
+                raise ValueError(f"logits {h_out}x{logits.shape[-1]} for labels {h}x{w}")
+            logits = logits.permute(0, 2, 3, 1)
             loss = losses_lib.reduce_loss(loss_fn(labels, logits), sw, count=b * h * w)
             if l2_factor:
                 loss = loss + losses_lib.l2_penalty(model, l2_factor) / mesh.spatial
@@ -277,7 +282,7 @@ def make_eval_step(model, num_classes: int, mesh: Optional[Mesh] = None):
     @torch.no_grad()
     def step_fn(images_u8, labels_u8):
         images, labels = preprocess_eval_batch(images_u8, labels_u8, num_classes=num_classes)
-        hw = tuple(labels.shape[1:3])
+        hw = tuple(images.shape[1:3])
         if split:
             images, labels = own_rows(images, mesh), own_rows(labels, mesh)
         with partitioned(mesh, hw):

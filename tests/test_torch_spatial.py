@@ -9,7 +9,9 @@ At 64 px over 4 ranks the OS16 map has one row a rank, thinner than ASPP's
 halo of 18; at 32 px over 4 ranks two ranks' OS16 blocks are empty (JAX's
 own case, 64 px over 8, spawns twice the ranks for the same property), and
 at 12 px one rank's block of the decoder's skip map too. The kernels' wrappers run their plain versions here (fused
-ASPP, decoder and inverted residual on the blocks' slabs).
+ASPP, decoder and inverted residual on the blocks' slabs). `unet_simple` at
+68x64 gives maps of one width two heights and logits 80 rows high,
+gathered at that height.
 
 Bounds: f32 logits at rtol/atol 1e-4 of one process and of JAX, as
 tests/test_parallel.py:250 holds JAX's own; the decoder's row-block form
@@ -30,7 +32,7 @@ from deeplabv3p_torch.ops.kernels.decoder import fused_decoder_frontend
 from deeplabv3p_torch.ops.resize import source_rows
 from deeplabv3p_torch.parallel import Mesh, local_rows, spawn
 from deeplabv3p_torch.parallel.mesh import auto_shape
-from deeplabv3p_torch.parallel.spatial import block
+from deeplabv3p_torch.parallel.spatial import Partition, block
 from deeplabv3p_torch.utils.weights import save_npz
 from test_torch_model import one_torch_thread, random_variables  # noqa: F401 (a fixture)
 from torch_parallel_workers import spatial_forwards, spatial_model, spatial_serving
@@ -47,14 +49,14 @@ FAMILIES = ["mobilenetv3large", "mobilenetv3small_lite", "xception", "resnet50",
             "mobilevit_xxs_lite"]
 
 
-def jax_variables(model_type, px, seed):
+def jax_variables(model_type, px, seed, w=None):
     model = jax_build(model_type, C, output_stride=16)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, px, px, 3)))
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, px, w or px, 3)))
     return random_variables(shapes, seed=seed)
 
 
-def image(px, n=1, seed=0):
-    return np.random.RandomState(seed).uniform(-1, 1, (n, px, px, 3)).astype(np.float32)
+def image(px, n=1, seed=0, w=None):
+    return np.random.RandomState(seed).uniform(-1, 1, (n, px, w or px, 3)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -72,6 +74,12 @@ def cases():
         # 12 px: the skip map's 3 rows leave rank 3's decoder block empty
         "full12_empty_fused": dict(full, images=image(12, seed=3), fused=True),
         "full64_block_clamp": dict(full, mutation="block_clamp"),
+        # 68x64: the encoder's SAME pools round 68 -> 34 -> 17 -> 9 -> 5, the
+        # decoder doubles 5 -> 10 -> 20 -> 40 -> 80, so widths 8-64 each
+        # have two heights and the logits are 80 rows high
+        "unet_simple68": dict(model_type="unet_simple", num_classes=C,
+                              images=image(68, seed=31, w=64),
+                              variables=jax_variables("unet_simple", 68, 31, w=64)),
     }
     for i, name in enumerate(FAMILIES):
         x = image(32, seed=10 + i)
@@ -116,7 +124,7 @@ def jax_on_mesh(case, shape):
 @pytest.mark.parametrize("name", ["lite64", "full64", "full64_fused_head", "full64_fused",
                                   "full32_empty", "full32_empty_fused", "full12_empty_fused",
                                   *FAMILIES,
-                                  "unet_standard"])
+                                  "unet_standard", "unet_simple68"])
 def test_four_ranks_equal_one_process(four, cases, name):
     """With the inverted-residual kernel's plain version on, 2e-3: it rounds
     its expanded maps to bf16 (as the kernel does), and its f32 products on
@@ -127,7 +135,7 @@ def test_four_ranks_equal_one_process(four, cases, name):
     np.testing.assert_allclose(four[name], one_process(cases[name]), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("name", ["full64", "full32_empty"])
+@pytest.mark.parametrize("name", ["full64", "full32_empty", "unet_simple68"])
 def test_four_ranks_equal_jax_on_a_spatial_mesh(four, cases, name):
     np.testing.assert_allclose(four[name], jax_on_mesh(cases[name], (1, 4)), rtol=1e-4,
                                atol=1e-4)
@@ -160,6 +168,30 @@ def test_deeplab_rejects_a_mesh_without_a_spatial_axis():
     with pytest.raises(ValueError, match="spatial"):
         DeepLab(device="cpu", class_names=["a", "b"], model_input_shape=(64, 64),
                 mesh=Mesh(0, 2))
+
+
+@pytest.mark.parametrize("index,rows", [(0, 3), (2, 3), (3, 1)])
+def test_a_map_is_read_at_the_latest_height_of_its_width(index, rows):
+    """Maps 8 wide 9 rows high, then 10 (`unet_simple` at 68 px over 4
+    ranks): a map is read at the latest height of its width."""
+    part = Partition(4, index, None, {})
+    part.record(8, 9)
+    part.record(8, 10)
+    assert part.height(torch.zeros((1, 2, rows, 8))) == 10
+
+
+def test_a_map_read_at_a_wrong_height_raises():
+    """Rank 3's block of a 9-row map is empty, of a 10-row one a row: read
+    at the latest height, 10, the empty block raises, as does a width no
+    map has. (Ranks 0-2 hold 3 rows of either; every wrong height differs
+    in some rank's block, so it fails on a rank.)"""
+    part = Partition(4, 3, None, {})
+    part.record(8, 9)
+    part.record(8, 10)
+    with pytest.raises(ValueError, match="no block"):
+        part.height(torch.zeros((1, 2, 0, 8)))
+    with pytest.raises(ValueError, match="no map 16 wide"):
+        part.height(torch.zeros((1, 2, 1, 16)))
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8, 12])

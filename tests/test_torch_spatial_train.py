@@ -6,8 +6,8 @@
 process on the global batch and against JAX `Trainer(mesh=make_mesh(4,
 ('data', 'spatial'), (2, 2)))`.
 
-`mobilenetv2_lite`, `mobilenetv2`, `mobilevit_xxs`, `unet_simple` (32x32)
-and `fast_scnn` (32x64), 5 classes, SGD, L2 2e-5,
+`mobilenetv2_lite`, `mobilenetv2`, `mobilevit_xxs`, `unet_simple` (32x32,
+and 68x64 with its 80-row logits) and `fast_scnn` (32x64), 5 classes, SGD, L2 2e-5,
 per-pixel sample weights, an ignore band, dropout off; f32 parameters and
 f64 activations, as tests/test_torch_parallel.py. Bounds as there: against
 one process the loss and jaccard at rtol 1e-5, every variable at rtol 1e-4
@@ -69,6 +69,9 @@ def cases():
     val = (np.random.RandomState(9).randint(0, 256, (8, PX, PX, 3)).astype(np.uint8),
            np.random.RandomState(8).randint(0, C, (8, PX, PX)).astype(np.uint8))
     b4, b2 = batch(4, 0), batch(2, 1)
+    b68 = batch(2, 11, (80, 64))
+    unet68 = dict(batch(2, 10, (68, 64)), model_type="unet_simple",
+                  variables=jax_variables("unet_simple", 12, (68, 64)))
     return {
         "lite": dict(b4, model_type="mobilenetv2_lite", variables=lite, val=val, val_batch=4),
         "lite_no_halo_backward": dict(b4, model_type="mobilenetv2_lite", variables=lite,
@@ -82,6 +85,11 @@ def cases():
                                 variables=jax_variables("unet_simple", 6)),
         "fast_scnn_1x2": dict(batch(2, 2, (PX, 2 * PX)), model_type="fast_scnn",
                               variables=jax_variables("fast_scnn", 7, (PX, 2 * PX))),
+        # 68x64 images, logits 80 rows high (its SAME pools round up, its
+        # decoder doubles): labels at the logits' height train as in one
+        # process; labels at the image's height raise, as in one process
+        "unet_simple68_1x2": dict(unet68, labels=b68["labels"], sw=b68["sw"]),
+        "unet_simple68_labels68_1x2": dict(unet68, raises=True),
     }
 
 
@@ -109,7 +117,7 @@ def ranks(cases, tmp_path_factory):
 def one_process(cases, tmp_path_factory):
     log_dir = str(tmp_path_factory.mktemp("one"))
     return {n: spatial_train(Mesh(), [case], log_dir)[0] for n, case in cases.items()
-            if "mutation" not in case}
+            if "mutation" not in case and "raises" not in case}
 
 
 def mismatches(got: dict, want: dict, rtol=1e-4, atol=1e-5) -> list:
@@ -118,7 +126,7 @@ def mismatches(got: dict, want: dict, rtol=1e-4, atol=1e-5) -> list:
 
 
 @pytest.mark.parametrize("name", ["lite", "full_1x2", "mobilevit_xxs_1x2", "unet_simple_1x2",
-                                  "fast_scnn_1x2"])
+                                  "fast_scnn_1x2", "unet_simple68_1x2"])
 def test_spatial_ranks_equal_one_process(ranks, one_process, name):
     got, want = ranks[name], one_process[name]
     a = got[0]
@@ -129,6 +137,16 @@ def test_spatial_ranks_equal_one_process(ranks, one_process, name):
     np.testing.assert_allclose(a["loss"], want["loss"], rtol=1e-5)
     np.testing.assert_allclose(a["jaccard"], want["jaccard"], rtol=1e-5)
     assert mismatches(a["variables"], want["variables"]) == []
+
+
+def test_labels_of_another_height_than_the_logits_raise(ranks, cases, tmp_path):
+    """`unet_simple`'s 80-row logits of 68-row images against 68-row
+    labels: one process fails in the metric, every rank of the mesh before
+    its loss."""
+    for got in ranks["unet_simple68_labels68_1x2"]:
+        assert got == {"error": "logits 80x64 for labels 68x64"}
+    with pytest.raises(RuntimeError, match="4352"):
+        spatial_train(Mesh(), [cases["unet_simple68_labels68_1x2"]], str(tmp_path))
 
 
 def test_a_halo_exchange_without_its_backward_fails_the_check(ranks, one_process):

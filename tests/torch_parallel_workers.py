@@ -167,7 +167,7 @@ def spatial_forwards(mesh: Mesh, cases: list) -> list:
     gathered: what every rank holds after the forward."""
     from contextlib import nullcontext
 
-    from deeplabv3p_torch.parallel.spatial import gather_rows, own_rows, partitioned
+    from deeplabv3p_torch.parallel.spatial import gather_rows, height_of, own_rows, partitioned
 
     torch.set_num_threads(1)
     out = []
@@ -179,7 +179,8 @@ def spatial_forwards(mesh: Mesh, cases: list) -> list:
                                else nullcontext()):
             with partitioned(mesh, (h, w)) as part:
                 y = model(own_rows(x, mesh).permute(0, 3, 1, 2)).float()
-            out.append(gather_rows(y.contiguous(), h, part, dim=2).numpy())
+                h_out = height_of(y)  # UNet's own off multiples of 16
+            out.append(gather_rows(y.contiguous(), h_out, part, dim=2).numpy())
     return out
 
 
@@ -203,6 +204,12 @@ def spatial_train(mesh: Mesh, cases: list, log_dir: str) -> list:
         step = trainer.make_train_step(stage)
         images, labels, sw = (torch.from_numpy(data_rows(a, mesh))
                               for a in (case["images"], case["labels"], case["sw"]))
+        if case.get("raises"):  # each rank raises at the same check, after the forward
+            try:
+                step(state, images, labels, sw)
+            except ValueError as e:
+                results.append({"error": str(e)})
+                continue
         with _Mutated(case["mutation"]) if "mutation" in case else nullcontext():
             m = step(state, images, labels, sw)
         out = {"loss": m["loss"].item(), "jaccard": m["jaccard"].item(),
