@@ -8,6 +8,7 @@
     python3 chip_smoke.py --parallel  # steps 1-2 and the data-parallel phase (15c) alone
     python3 chip_smoke.py --spatial   # steps 1-2 and the spatial phase (15d) alone
     python3 chip_smoke.py --tools     # steps 1-2 and the tools phase (15e) alone
+    python3 chip_smoke.py --diagnostics  # steps 1-2 and the diagnostics phase (15f) alone
 
 1. prints the card (`nvidia-smi` name and power limit) and the versions;
 2. builds the CUDA kernels from deeplabv3p_torch/ops/kernels/csrc with nvcc;
@@ -189,6 +190,14 @@
    `onboard_segment_eval` on the card (its matrix equal to np.bincount over
    the same PNGs), `model_statistics` of mobilenetv2 at 512 on the card
    (FLOPs >= the convolutions'), every dataset tool's --help in one process;
+15f. the profiler and the diagnostics tools (`diagnostics_phase`):
+   train_phase_profile on mobilenetv2_lite and mobilenetv2 b16 at 512x512
+   (six phases each: ms, TFLOP/s, GB/s, shares of the card's peaks; both
+   JSON records printed with the card), `utils.profiler.trace` + `annotate`
+   around two served mobilenetv2 requests (the trace holds the annotation
+   and the ASPP and decoder kernels), featuremap_check, convkernel_check and
+   export_native_bench_model on the card against the CPU, augment_test on
+   the card, the five tools' --help with no JAX;
 16. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
@@ -258,10 +267,6 @@ PROFILED_SERVING = ("mobilenetv3large", "xception", "resnet50", "mobilevit_s")
 # (tests/test_torch_ghostnet.py). Its bf16 agreement is printed, not held to
 # 0.98; its kernels are held in f32 at 0.999, as every full head's are
 BF16_FLOOR_NOT_HELD = ("ghostnet",)
-# published peaks of one H100 SXM: device memory rate, f32 FMA rate outside
-# the tensor cores, dense bf16 rate of the tensor cores (the inverted
-# residual's two products; every other kernel multiplies by f32 weights in f32)
-HBM_BYTES_PER_S, F32_FLOPS, BF16_TENSOR_FLOPS = 3.35e12, 67e12, 989e12
 # UNet x3 served at 512x512 with 21 classes; Fast-SCNN served, trained and
 # evaluated at Cityscapes' 1024x2048 with its 19 classes (Poudel et al., 2019),
 # its requests of original sizes around the Cityscapes frame; unet_standard and
@@ -353,6 +358,28 @@ print(len(names), "modules,", len(ran), "tools")
 print(" ".join(ran))
 """
 EVAL_TOOLS = ("onboard_png_convert", "onboard_segment_eval", "model_statistics")
+# the diagnostics tools (15f), their --help run the same way
+DIAGNOSTICS_TOOLS = ("featuremap_check", "convkernel_check", "augment_test",
+                     "export_native_bench_model", "train_phase_profile")
+# (15f) the phase profiler's cases at its defaults (512x512, 21 classes, 8 timed
+# calls), the trace's requests, the convolution kernels' ascent, the augmented
+# samples and the file the native engine's benchmark reads
+DIAG_PROFILED = (("mobilenetv2_lite", 16), ("mobilenetv2", 16))
+DIAG_PHASES = ["backbone_fwd", "forward", "forward+loss", "grad (fwd+bwd)", "train_step",
+               "loss_only"]
+DIAG_TRACED_REQUESTS = 2
+# the profiler's events where the host waits for the card: a tensor's value
+# read on the host (`.item()`, as CUDA's bincount reads its input's max) and
+# the copy and synchronisation under it
+DIAG_HOST_WAITS = ("aten::item", "aten::_local_scalar_dense", "aten::bincount",
+                   "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
+DIAG_ANNOTATION = "chip_smoke_diagnostics_requests"
+DIAG_KERNEL_NAMES = ("multirate_dw_kernel", "decoder_frontend_kernel")  # csrc aspp.cu, decoder.cu
+DIAG_MAP_RTOL = 1e-3  # of max|map|, the card's f32 maps against the CPU's
+DIAG_KERNEL_ARGS = ["--layer", "Conv", "--num_filters", "4", "--image_size", "128",
+                    "--steps", "5"]
+DIAG_AUGMENT_COUNT = 4
+DIAG_ONNX_ATOL = 1e-4
 # (logits shape, logits dtype name, labels dtype name): the eval slice's call first
 CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
                    ((8, 512, 512, 21), "bfloat16", "uint8"),
@@ -486,6 +513,8 @@ def bound(n_bytes: float, flops: float) -> tuple[float, str]:
     """(least ms the card could take, which of the two sets it): the bytes
     (each input read once, each output written once) over the memory rate,
     or the f32 operations over the f32 FMA rate, whichever is larger."""
+    from deeplabv3p_torch.utils.card import F32_FLOPS, HBM_BYTES_PER_S
+
     by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -715,6 +744,7 @@ def main() -> None:
         from deeplabv3p_torch.postprocess import mask_argmax
         from deeplabv3p_torch.train import main as train_main
         from deeplabv3p_torch.train import parse_args as train_args
+        from deeplabv3p_torch.utils.card import BF16_TENSOR_FLOPS
     except ImportError as e:
         die(f"cannot import deeplabv3p_torch ({e}): run from a checkout of the repository")
     classes_path = os.path.join(REPO, "configs", "voc_classes.txt")
@@ -788,6 +818,14 @@ def main() -> None:
     if "--tools" in sys.argv[1:]:  # the dataset and evaluation tools alone
         launches = tools_phase(torch, kernels, train_main, train_args)
         print(json.dumps({"tools_launches": launches}))
+        if failures:
+            die(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
+    if "--diagnostics" in sys.argv[1:]:  # the profiler and the diagnostics tools alone
+        launches = diagnostics_phase(torch, kernels, classes_path)
+        print(json.dumps({"diagnostics_launches": launches}))
         if failures:
             die(f"{len(failures)} check(s) failed: {failures}")
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1047,6 +1085,7 @@ def main() -> None:
     parallel_launches = parallel_phase(torch)
     spatial_launches = spatial_phase(torch, kaspp, kdec, kmb, kconf)
     tools_launches = tools_phase(torch, kernels, train_main, train_args)
+    diagnostics_launches = diagnostics_phase(torch, kernels, classes_path)
 
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
@@ -1165,8 +1204,9 @@ def main() -> None:
             row["also_on"][f"mobilenetv2 eval --do_crf b{EVAL_BATCH}"] = \
                 crf_eval_launches[row["name"]]
     for path, counts in {**export_launches, **onnx_launches, **parallel_launches,
-                         **spatial_launches, **tools_launches}.items():  # .pt2, ONNX,
-        # data-parallel, spatial, the tools' flow
+                         **spatial_launches, **tools_launches,
+                         **diagnostics_launches}.items():  # .pt2, ONNX, data-parallel,
+        # spatial, the tools' flow, the traced requests
         for row in kernels:
             if counts[row["name"]]:
                 row.setdefault("also_on", {})[path] = counts[row["name"]]
@@ -2701,6 +2741,7 @@ def family_serving(torch, kernels, runs) -> None:
     turns; for unet_standard one request profiled, its convolutions' device
     time against their bound (`conv_flops` over the dense bf16 rate)."""
     from deeplabv3p_torch.inference import DeepLab
+    from deeplabv3p_torch.utils.card import BF16_TENSOR_FLOPS
 
     card = card_line()
     for model_type, classes, input_hw, reqs in runs:
@@ -4626,11 +4667,216 @@ def tools_phase(torch, kernels, train_main, train_args) -> dict:
     return {f"tools: the toy set's masks served, {len(ids)} requests": serve_counts}
 
 
+def phase_profile_checks(record: dict, card: str) -> None:
+    """A train_phase_profile record on the card: every phase, in the JAX
+    tool's order, a positive time, the step no faster than its gradient, and
+    shares of the card's peaks in (0, 100] (FlopCounterMode counts no
+    element-wise work, so loss_only has no FLOPs and no MFU)."""
+    rows = {r["phase"]: r for r in record["phases"]}
+    name = f"{record['model_type']} b{record['batch']} {record['input']}px"
+    check([r["phase"] for r in record["phases"]] == DIAG_PHASES,
+          f"train_phase_profile {name}: the six phases {list(rows)}")
+    check(all(r["ms"] > 0 for r in rows.values())
+          and rows["train_step"]["ms"] >= rows["grad (fwd+bwd)"]["ms"],
+          f"train_phase_profile {name}: every ms > 0, train_step "
+          f"{rows['train_step']['ms']} >= grad {rows['grad (fwd+bwd)']['ms']}  [{card}]")
+    shares = [(r["phase"], r["mfu_pct"], r["hbm_pct"]) for r in rows.values()]
+    check(all(h is not None and 0 < h <= 100 for _, _, h in shares)
+          and all(m is not None and 0 < m <= 100 for p, m, _ in shares if p != "loss_only")
+          and rows["loss_only"]["mfu_pct"] == 0,
+          f"train_phase_profile {name}: mfu_pct and hbm_pct in (0, 100] (loss_only's MFU 0): "
+          f"{shares}")
+
+
+def diagnostics_phase(torch, kernels, classes_path) -> dict:
+    """(15f) the profiler and the diagnostics tools on the card: the phase
+    profiler (train_phase_profile) on mobilenetv2_lite and mobilenetv2 b16 at
+    512x512, its two JSON records printed, and one train_step of the second
+    traced (busy share, top kernels, the host's waits); `utils.profiler.trace` and
+    `annotate` around DIAG_TRACED_REQUESTS served mobilenetv2 requests (bf16,
+    the ASPP and decoder kernels), the trace holding the annotation and both
+    kernels; featuremap_check of mobilenetv2 at 512 on an example/ image on
+    the card and on the CPU (seeded weights, the same on both): the same
+    files, every map within DIAG_MAP_RTOL of max|map|; convkernel_check
+    (--layer Conv, 4 filters, 128 px, 5 steps) on the card and on the CPU:
+    the same layer, the PNG; augment_test, 4 samples at 512: 4 JPEGs whose
+    labels are drawn in the colour map's colours; export_native_bench_model
+    (mobilenetv2_lite, 512) on the card and on the CPU: the files byte-equal,
+    the port's executor on the card within DIAG_ONNX_ATOL of the eager f32
+    model; and the five tools' --help in the no-JAX process. Returns the
+    traced requests' launch counts for the kernels' record."""
+    import contextlib
+    import glob
+    import io
+    import shutil
+
+    from deeplabv3p_torch.export.onnx import OnnxProgram, load_onnx
+    from deeplabv3p_torch.inference import DeepLab, preprocess_image
+    from deeplabv3p_torch.losses import get_loss_fn
+    from deeplabv3p_torch.tools import (
+        augment_test,
+        convkernel_check,
+        export_native_bench_model,
+        featuremap_check,
+        train_phase_profile,
+    )
+    from deeplabv3p_torch.utils.profiler import annotate, trace
+    from deeplabv3p_torch.utils.visualize import create_pascal_label_colormap
+
+    t0 = time.perf_counter()
+    card = card_line()
+    root = os.path.join(OUT_DIR, "diagnostics")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    image_file = os.path.join(REPO, "example", "2007_000039.jpg")
+    label_file = os.path.join(REPO, "example", "2007_000039.png")
+
+    # the phase profiler at its defaults, b16
+    for model_type, batch in DIAG_PROFILED:
+        out, err = io.StringIO(), io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = train_phase_profile.main(["--model_type", model_type, "--batch", f"{batch}"])
+        print(f"train_phase_profile --model_type {model_type} --batch {batch} (512x512, 21 "
+              f"classes, bf16; {time.perf_counter() - t:.1f} s with its counts)  [{card}]:")
+        for line in err.getvalue().splitlines():
+            print(f"  {line}")
+        last = out.getvalue().strip().splitlines()[-1]
+        print(last)
+        check(rc == 0, f"train_phase_profile {model_type}: exit code {rc}")
+        if rc == 0:
+            phase_profile_checks(json.loads(last), card)
+
+    # one traced train_step of the last profiled model: the card's busy share
+    # and the host's waits on the card inside the step
+    model_type, batch = DIAG_PROFILED[-1]
+    dev = torch.device("cuda")
+    model = train_phase_profile.build_phase_model(model_type, 21, dev)
+    x, labels, weights = train_phase_profile.phase_batch(batch, INPUT[0], 21, dev)
+    state, step = train_phase_profile.phase_train_step(
+        model, 21, get_loss_fn("crossentropy"), dev, os.path.join(root, "phase_train_step"))
+    prof = profile_one(torch, lambda: step(state, x, labels, weights, 1.0),
+                       f"one train_phase_profile train_step ({model_type} b{batch})",
+                       "profile_phase_train_step.txt")
+    if prof is not None:
+        waits = {e.key: e.count for e in prof[0] if e.key in DIAG_HOST_WAITS}
+        print(f"  the host's waits in that step: {waits}  [{card}]")
+    del model, state, step
+
+    # trace + annotate around served requests with both kernels
+    served = DeepLab(model_type="mobilenetv2", classes_path=classes_path, model_input_shape=INPUT,
+                     fused_decoder=True, device="cuda")
+    requests = make_requests(preprocess_image)[:DIAG_TRACED_REQUESTS]
+    served.predict(*requests[0])
+    log_dir = os.path.join(root, "trace")
+    kernels.reset_launch_counts()                    # the traced requests start here
+    with trace(log_dir):
+        with annotate(DIAG_ANNOTATION):
+            for data, hw in requests:
+                served.predict(data, hw)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()                 # ... and end here
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    text = ""
+    if files:
+        with open(files[0]) as f:
+            text = f.read()
+    found = {n: n in text for n in (DIAG_ANNOTATION, *DIAG_KERNEL_NAMES)}
+    check(len(files) == 1 and all(found.values())
+          and counts == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": DIAG_TRACED_REQUESTS,
+                         "fused_decoder_frontend": DIAG_TRACED_REQUESTS},
+          f"trace + annotate: {len(files)} trace file(s) of {len(text)} bytes, found {found}; "
+          f"launches {counts}")
+
+    # featuremap_check on the card and on the CPU, seeded weights
+    dirs = {}
+    for device in ("cuda", "cpu"):
+        dirs[device] = os.path.join(root, f"featuremaps_{device}")
+        t = time.perf_counter()
+        names, _ = quiet(featuremap_check.main, ["--model_type", "mobilenetv2", "--image_file",
+                                                 image_file, "--output_path", dirs[device],
+                                                 "--device", device])
+        print(f"  featuremap_check mobilenetv2 512x512 --device {device}: {len(names)} maps, "
+              f"{time.perf_counter() - t:.1f} s")
+    files = {d: sorted(os.listdir(dirs[d])) for d in dirs}
+    worst, bad = 0.0, []
+    for n in files["cpu"]:
+        if n.endswith(".npy") and n in files["cuda"]:
+            got, want = (np.load(os.path.join(dirs[d], n)) for d in ("cuda", "cpu"))
+            err = float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
+            worst = max(worst, err)
+            if got.shape != want.shape or not err <= DIAG_MAP_RTOL:
+                bad.append(n)
+    check(files["cuda"] == files["cpu"] and not bad,
+          f"featuremap_check on the card against the CPU: {len(files['cuda'])} files each, the "
+          f"same names {files['cuda'] == files['cpu']}; worst max|d| / max|map| {worst:.3g} <= "
+          f"{DIAG_MAP_RTOL} (TF32 off); over it: {bad[:5]}")
+
+    # convkernel_check on the card and on the CPU
+    chosen = {}
+    for device in ("cuda", "cpu"):
+        png = os.path.join(root, f"kernel_viz_{device}.png")
+        t = time.perf_counter()
+        (layer, _), _ = quiet(convkernel_check.main, [*DIAG_KERNEL_ARGS, "--output", png,
+                                                      "--device", device])
+        chosen[device] = (layer, os.path.getsize(png) if os.path.exists(png) else 0)
+        print(f"  convkernel_check --device {device}: {time.perf_counter() - t:.1f} s")
+    check(chosen["cuda"][0] == chosen["cpu"][0] and chosen["cuda"][1] > 0,
+          f"convkernel_check {' '.join(DIAG_KERNEL_ARGS)}: layer {chosen['cuda'][0]!r} on the "
+          f"card, {chosen['cpu'][0]!r} on the CPU; PNG of {chosen['cuda'][1]} bytes")
+
+    # augment_test on the card
+    aug_dir = os.path.join(root, "augment")
+    t = time.perf_counter()
+    sides, _ = quiet(augment_test.main, ["--image_file", image_file, "--label_file", label_file,
+                                         "--output_path", aug_dir, "--count",
+                                         f"{DIAG_AUGMENT_COUNT}"])
+    aug_s = time.perf_counter() - t
+    colours = {tuple(v) for v in create_pascal_label_colormap()[:22]}
+    drawn = set().union(*({tuple(v) for v in s[:, INPUT[1]:].reshape(-1, 3)} for s in sides))
+    jpgs = sorted(os.listdir(aug_dir))
+    check(jpgs == [f"augment_{i}.jpg" for i in range(DIAG_AUGMENT_COUNT)] and drawn <= colours,
+          f"augment_test on the card: {jpgs} in {aug_s:.1f} s, the labels in {len(drawn)} of "
+          f"the colour map's colours")
+
+    # export_native_bench_model on the card and on the CPU
+    onnx_files = {d: os.path.join(root, f"native_bench_{d}.onnx") for d in ("cuda", "cpu")}
+    for device, path in onnx_files.items():
+        t = time.perf_counter()
+        quiet(export_native_bench_model.main, [path, "--device", device])
+        print(f"  export_native_bench_model --device {device}: {time.perf_counter() - t:.1f} s")
+    with open(onnx_files["cuda"], "rb") as f, open(onnx_files["cpu"], "rb") as g:
+        same = f.read() == g.read()
+    program = OnnxProgram(load_onnx(onnx_files["cuda"]), "cuda")
+    model = export_native_bench_model.build_model("mobilenetv2_lite", torch.device("cuda"))
+    x = torch.from_numpy(requests[0][0]).cuda()
+    with torch.inference_mode():
+        want = torch.softmax(model(x.permute(0, 3, 1, 2)), dim=1).permute(0, 2, 3, 1)
+        got = program({program.inputs[0]: x})[program.outputs[0]]
+    err = (got - want).abs().max().item()
+    check(same and err <= DIAG_ONNX_ATOL,
+          f"export_native_bench_model mobilenetv2_lite 512: the card's file byte-equal to the "
+          f"CPU's {same} ({os.path.getsize(onnx_files['cuda'])} bytes, IO {program.inputs} -> "
+          f"{program.outputs}); the executor on the card against the eager f32 model: max|d| "
+          f"{err:.3g} <= {DIAG_ONNX_ATOL}")
+
+    # the five tools' --help with no JAX
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", TOOLS_HELP, *DIAGNOSTICS_TOOLS], env=env, cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    ran = r.stdout.splitlines()[-1].split() if r.returncode == 0 and r.stdout else []
+    check(r.returncode == 0 and {f"deeplabv3p_torch.tools.{n}" for n in DIAGNOSTICS_TOOLS}
+          <= set(ran), f"the diagnostics tools' --help with no JAX: "
+                       f"{r.stdout.splitlines()[0] if r.stdout else r.stderr[-500:]}")
+    print(f"the diagnostics phase took {time.perf_counter() - t0:.1f} s")
+    return {f"diagnostics: mobilenetv2 served under trace + annotate, {DIAG_TRACED_REQUESTS} "
+            "requests": counts}
+
+
 def card_line() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    from deeplabv3p_torch.utils.card import card_text
+
+    return card_text(0)
 
 
 def confusion_times(torch, kconf, rec, launches) -> dict:
@@ -4668,7 +4914,11 @@ def mbconv_bound(shape, n_bytes: float) -> tuple[float, str]:
     """(least ms, which limit): the two 1x1 products, counted once (not per
     weight part, not per halo recompute), at the tensor cores' dense bf16
     rate plus the 3x3 depthwise stencil at the f32 FMA rate, or the bytes
-    over the memory rate, whichever is larger."""
+    over the memory rate, whichever is larger. The inverted residual's two
+    products are the only bf16 tensor-core work of the six kernels; every
+    other kernel multiplies by f32 weights in f32."""
+    from deeplabv3p_torch.utils.card import BF16_TENSOR_FLOPS, F32_FLOPS, HBM_BYTES_PER_S
+
     n, h, w, cin, cexp, cout = shape[:6]
     by_ops = (2 * n * h * w * (cin * cexp + cexp * cout) / BF16_TENSOR_FLOPS
               + 2 * 9 * n * h * w * cexp / F32_FLOPS) * 1e3

@@ -382,8 +382,12 @@ def _reduce(cv, node, x, dims=None, keepdim=False, dtype=None):
 def _batch_norm(cv, node, x, weight, bias, mean, var, momentum, eps):
     if any(isinstance(t, _Sym) for t in (weight, bias, mean, var)):
         raise NotImplementedError("ONNX export: batch norm with computed statistics")
-    scale = torch.rsqrt(var.float() + eps) * (1.0 if weight is None else weight.float())
-    shift = (0.0 if bias is None else bias.float()) - mean.float() * scale
+    # folded on the CPU: the card's rsqrt is an ulp off the CPU's, and the file
+    # is the same wherever the model ran
+    weight, bias, mean, var = (None if t is None else t.float().cpu()
+                               for t in (weight, bias, mean, var))
+    scale = torch.rsqrt(var + eps) * (1.0 if weight is None else weight)
+    shift = (0.0 if bias is None else bias) - mean * scale
     shape = (1, -1, *([1] * (len(x.shape) - 2)))  # (1, C, 1, 1): the engine folds it into a Conv
     y = cv.b.node("Mul", [x.name, cv.b.constant(scale.reshape(shape), "bn_scale")], x)
     y = cv.b.node("Add", [y.name, cv.b.constant(shift.reshape(shape), "bn_shift")], x)

@@ -486,21 +486,23 @@ def test_uncompressed_rle_decode_polygon_and_bbox(cm):
 def test_every_port_tool_runs_its_help_without_jax_or_the_root_tools(tmp_path):
     """One subprocess with a `jax`, a `deeplabv3p_tpu` and a `tools` package
     that raise when imported first on its path: every module of
-    deeplabv3p_torch/tools/dataset_converter and the three evaluation tools
-    import, and each with a `main` prints its `--help`."""
+    deeplabv3p_torch/tools/dataset_converter, the three evaluation tools and
+    the five diagnostics tools import, and each with a `main` prints its
+    `--help`."""
     guard = tmp_path / "guard"
     for name in ("jax", "deeplabv3p_tpu", "tools"):
         (guard / name).mkdir(parents=True)
         (guard / name / "__init__.py").write_text(f"raise RuntimeError('imported {name}')\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(guard), REPO]))
-    r = subprocess.run([sys.executable, "-c", chip_smoke.TOOLS_HELP, *chip_smoke.EVAL_TOOLS],
+    named = (*chip_smoke.EVAL_TOOLS, *chip_smoke.DIAGNOSTICS_TOOLS)
+    r = subprocess.run([sys.executable, "-c", chip_smoke.TOOLS_HELP, *named],
                        env=env, cwd=str(tmp_path), capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     counts, ran = r.stdout.splitlines()
     tools = {f"{CONVERTER}{c[2]}" for c in CASES} | {
         CONVERTER + "pack_dataset", CONVERTER + "mscoco2017",
-        *(f"deeplabv3p_torch.tools.{t}" for t in chip_smoke.EVAL_TOOLS)}
-    assert set(ran.split()) == tools
+        *(f"deeplabv3p_torch.tools.{t}" for t in named)}
+    assert set(ran.split()) == tools and len(named) == 8
     # and four modules without a main: label_utils, coco_mask, _viz, instance_segment
     assert counts == f"{len(tools) + 4} modules, {len(tools)} tools"
 
