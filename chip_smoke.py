@@ -5,6 +5,7 @@
     python3 chip_smoke.py --aspp   # steps 1-2 and the ASPP kernel alone
     python3 chip_smoke.py --export # steps 1-2 and the export phase (15) alone
     python3 chip_smoke.py --onnx   # steps 1-2, the learning proof and the ONNX phase (15b)
+    python3 chip_smoke.py --tf     # steps 1-2, the learning proof and the TF graph phase (15g)
     python3 chip_smoke.py --parallel  # steps 1-2 and the data-parallel phase (15c) alone
     python3 chip_smoke.py --spatial   # steps 1-2 and the spatial phase (15d) alone
     python3 chip_smoke.py --tools     # steps 1-2 and the tools phase (15e) alone
@@ -198,6 +199,19 @@
    and the ASPP and decoder kernels), featuremap_check, convkernel_check and
    export_native_bench_model on the card against the CPU, augment_test on
    the card, the five tools' --help with no JAX;
+15g. the frozen TF graph (`tf_phase`; no tensorflow on the card machine or
+   anywhere on the path): `tools/export_model.py --format pb --device cuda`
+   on mobilenetv2 (f32, 512x512, OS16, 21 classes, seeded weights as an
+   .npz): nodes, op types, bytes, seconds, the ASPP and decoder kernels
+   launched once each by the export's warm-up forward; `FrozenGraphRunner`
+   on the card against the eager f32 model on 4 requests (TF32 off; max
+   |dprob|, mask agreement >= 0.999), timed in turns with the eager model
+   and the .onnx executor on the same weights, each profiled once; the eval
+   CLI on the learning proof's trained weights as a .pb against the .npz
+   (mIoU within 1e-3, the confusion kernel once a batch) and the f32 model's
+   matrix (<= 1e-4 of pixels elsewhere); validate_deeplab
+   on the .npz and the .pb; unet_standard at 512x512 and fast_scnn at
+   1024x2048 with 19 classes exported and run against their eager models;
 16. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
@@ -799,6 +813,18 @@ def main() -> None:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return
+    if "--tf" in sys.argv[1:]:  # the frozen TF graph phase alone, on the learning proof's weights
+        requests = make_requests(preprocess_image)
+        learn = learning_proof(torch, kernels, train_main, train_args)
+        launches = tf_phase(torch, kernels, classes_path, requests, learn)
+        leaked = [m for m in ("jax", "flax", "deeplabv3p_tpu") if m in sys.modules]
+        check(not leaked, f"no JAX module imported ({leaked or 'none'})")
+        print(json.dumps({"tf_launches": launches}))
+        if failures:
+            die(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
     if "--parallel" in sys.argv[1:]:  # the data-parallel phase alone
         launches = parallel_phase(torch)
         print(json.dumps({"parallel_launches": launches}))
@@ -1080,6 +1106,10 @@ def main() -> None:
     onnx_launches = onnx_phase(torch, kernels, classes_path, requests, learn)
     print(f"the ONNX phase took {time.perf_counter() - t0:.1f} s")
 
+    # -- 5q'. the frozen TF graph: the export tool on the card, the port's executor
+    # against the eager model and the .onnx executor, eval and validate_deeplab on .pb
+    tf_launches = tf_phase(torch, kernels, classes_path, requests, learn)
+
     # -- 5r. data parallelism: one process, two gloo ranks on the card, a
     # one-rank NCCL group, the same weights and global batches ---------------------
     parallel_launches = parallel_phase(torch)
@@ -1203,9 +1233,9 @@ def main() -> None:
         if row["name"] in ("multirate_atrous_depthwise", "confusion_matrix_fused"):
             row["also_on"][f"mobilenetv2 eval --do_crf b{EVAL_BATCH}"] = \
                 crf_eval_launches[row["name"]]
-    for path, counts in {**export_launches, **onnx_launches, **parallel_launches,
-                         **spatial_launches, **tools_launches,
-                         **diagnostics_launches}.items():  # .pt2, ONNX, data-parallel,
+    for path, counts in {**export_launches, **onnx_launches, **tf_launches,
+                         **parallel_launches, **spatial_launches, **tools_launches,
+                         **diagnostics_launches}.items():  # .pt2, ONNX, .pb, data-parallel,
         # spatial, the tools' flow, the traced requests
         for row in kernels:
             if counts[row["name"]]:
@@ -2825,14 +2855,80 @@ def nearest_resize_on_card(torch) -> None:
               f"nearest resize x{k} of {shape} on the card equals the CPU's")
 
 
+def half_ulp_toward(torch, value, update):
+    """Half the f32 spacing from `value` toward `value - update`: an update
+    no larger than it rounds away (to the nearest even at a tie)."""
+    toward = torch.where(update > 0, -torch.inf, torch.inf).to(value.dtype)
+    return (torch.nextafter(value, toward) - value).abs() / 2
+
+
+class StageOneUpdates:
+    """What the first optimizer stepped inside this scope (a train CLI's
+    stage 1) did to each of its parameters, read through torch's global
+    optimizer step hook: SGD's update is lr x its momentum buffer. `held`
+    maps each parameter of its groups to [some step's update was nonzero,
+    every step's update was at most half an f32 ulp of the value it met]; a
+    parameter outside its groups has no entry."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.optimizer = None
+        self.held: dict = {}
+
+    def __enter__(self):
+        from torch.optim.optimizer import register_optimizer_step_post_hook
+
+        self.handle = register_optimizer_step_post_hook(self._after_step)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+    def _after_step(self, optimizer, args, kwargs) -> None:
+        if self.optimizer is None:
+            self.optimizer = optimizer
+        if optimizer is not self.optimizer:
+            return
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                held = self.held.setdefault(p, [False, True])
+                buf = optimizer.state.get(p, {}).get("momentum_buffer")
+                if buf is None:  # no gradient yet: no update
+                    continue
+                update = group["lr"] * buf.float()
+                value = p.detach().float()
+                held[0] = held[0] or bool((update != 0).any())
+                held[1] = held[1] and bool(
+                    (update.abs() <= half_ulp_toward(self.torch, value, update)).all())
+
+
+def unmoved_faults(record: StageOneUpdates, params: dict, unmoved) -> list[str]:
+    """The parameters of `unmoved` (names of `params` whose values did not
+    change) that the optimizer did not update: outside its groups (frozen),
+    with no nonzero update (a zero gradient), or with an update above half
+    an ulp, which rounding cannot swallow; each as "name: reason"."""
+    faults = []
+    for name in unmoved:
+        held = record.held.get(params[name])
+        if held is None:
+            faults.append(f"{name}: outside the optimizer's groups")
+        elif not held[0]:
+            faults.append(f"{name}: no nonzero update")
+        elif not held[1]:
+            faults.append(f"{name}: an update above half an ulp, yet unmoved")
+    return faults
+
+
 def family_training_path(torch, kernels, train_main, train_args, classes_path, root,
                          model_type, input_hw, images: int = FAMILY_TRAIN_IMAGES) -> None:
     """`python -m deeplabv3p_torch.train --model_type <model_type>` b8 bf16
     at `input_hw`, --no_augment, the CLI's own freeze level (1) and SGD
     1e-2, 1 + 1 epochs on the first `images` pairs of `root`: no kernel on
-    the path, finite losses, and stage 1 moved every parameter (no
-    parameter is under `backbone`, as JAX's mask has it), against the
-    seeded init; the peak memory of the run."""
+    the path, finite losses, and stage 1 updated every parameter (no
+    parameter is under `backbone`, as JAX's mask has it): each moved from
+    the seeded init, or the stage's SGD gave it nonzero updates that were
+    each under half an f32 ulp of its value, which rounding swallows
+    (`StageOneUpdates`); the peak memory of the run."""
     import shutil
 
     from deeplabv3p_torch.models.factory import build_segmentation_model, trainable_parameters
@@ -2853,7 +2949,8 @@ def family_training_path(torch, kernels, train_main, train_args, classes_path, r
             "--classes_path", classes_path, "--log_dir", log_dir, "--device", "cuda"]
     print("  python -m deeplabv3p_torch.train " + " ".join(argv))
     torch.cuda.reset_peak_memory_stats()
-    trainer, wall, launches, _ = run_cli(torch, kernels, train_main, train_args(argv))
+    with StageOneUpdates(torch) as record:
+        trainer, wall, launches, _ = run_cli(torch, kernels, train_main, train_args(argv))
     steps = 2 * (images // MODEL_TRAIN_BATCH)
     losses = [r["loss"] for r in trainer.history]
     print(f"  {model_type}: {steps} steps in {wall:.1f} s wall (set-up and first-call cuDNN "
@@ -2879,10 +2976,15 @@ def family_training_path(torch, kernels, train_main, train_args, classes_path, r
           f"{model_type} at the CLI's --freeze_level 1: the optimizer's group holds every "
           f"parameter ({len(group)}/{len(start)}), {len(exempt)} biases straight into a "
           "training-mode BN among them, as JAX's mask trains all with no backbone")
-    check(set(unmoved) <= exempt,
-          f"{model_type} stage 1 at the CLI's --freeze_level 1 moved every parameter but "
-          f"biases straight into a training-mode BN ({len(start) - len(unmoved)}/"
-          f"{len(start)} moved; unmoved: {unmoved or 'none'})")
+    params = dict(trainer.model.named_parameters())
+    still = [k for k in unmoved if k not in exempt]
+    faults = unmoved_faults(record, params, still)
+    check(isinstance(record.optimizer, torch.optim.SGD) and not faults,
+          f"{model_type} stage 1 at the CLI's --freeze_level 1 updated every parameter but "
+          f"biases straight into a training-mode BN: {len(start) - len(unmoved)}/{len(start)} "
+          f"moved, {len(still) - len(faults)} more took only updates under half an f32 ulp "
+          f"({sorted(set(still) - {f.split(':')[0] for f in faults}) or 'none'}); "
+          f"not updated: {faults or 'none'}")
     del trainer
     torch.cuda.empty_cache()
 
@@ -3674,6 +3776,189 @@ def onnx_phase(torch, kernels, classes_path, requests, learn) -> dict:
     launches["tools/export_onnx.py unet_standard"] = counts
     agreement("unet_standard", OnnxProgram(onnx_model, "cuda"),
               Inference(model, with_softmax=True, with_argmax=False), xs)
+    return launches
+
+
+def tf_phase(torch, kernels, classes_path, requests, learn) -> dict:
+    """The frozen TF graph on the card, with no tensorflow anywhere:
+    `tools/export_model.py --format pb --device cuda` on mobilenetv2 (f32,
+    512x512, OS16, 21 classes, seeded weights written as an .npz), in
+    process: its node count, op types, bytes and seconds, the ASPP and decoder
+    kernels launched once each by the export's warm-up forward;
+    `FrozenGraphRunner` on the card against the eager f32 model on the same
+    requests (TF32 off for both; max |dprob| printed, mask agreement >=
+    0.999), timed in turns with the eager model and with `export.onnx.interp`
+    on the same weights' .onnx, each profiled once; the eval CLI on the
+    learning proof's trained weights (`learn`) as a .pb against the .npz
+    (mIoU within 1e-3, the confusion kernel once a batch) and against
+    `eval_miou` of the f32 model on the same weights (<= 1e-4 of the pixels
+    counted elsewhere: the .npz's CLI model is bf16); `validate_deeplab`
+    on the .npz and the .pb; unet_standard at 512x512 (Conv2DBackpropInput,
+    MaxPool) and fast_scnn at 1024x2048 with 19 classes (AvgPool, the
+    nearest GatherV2) exported by the tool and run against their eager
+    models. Returns {path: launch counts} for the kernels line."""
+    from collections import Counter
+
+    from deeplabv3p_torch import eval as eval_cli
+    from deeplabv3p_torch.export.onnx import OnnxProgram, export_onnx
+    from deeplabv3p_torch.export.pt2 import Inference
+    from deeplabv3p_torch.export.tf_export import FrozenGraphRunner, load_graph
+    from deeplabv3p_torch.inference import preprocess_image
+    from deeplabv3p_torch.models.factory import build_segmentation_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.tools import export_model as tool
+    from deeplabv3p_torch.tools import validate_deeplab
+    from deeplabv3p_torch.utils.weights import save_npz, to_jax_variables
+
+    card = card_line()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t_phase = time.perf_counter()
+    launches = {}
+    print(f"frozen TF graph: tools/export_model.py --format pb --device cuda, f32 {INPUT} OS16, "
+          f"seeded weights; FrozenGraphRunner on the card, {EXPORT_REQUESTS} requests:")
+
+    def export(model_type, num_classes, hw, seed, weights=None, name=None):
+        """The tool on the card from seeded weights (or `weights`): the
+        eager f32 model of the same weights, the weights' and the .pb's
+        paths, the tool's launch counts."""
+        model = build_segmentation_model(model_type, num_classes, output_stride=16,
+                                         fused_aspp=True, fused_decoder=True, device="cuda")
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        if weights is None:
+            weights = os.path.join(OUT_DIR, f"smoke_pb_{model_type}.npz")
+            save_npz(weights, to_jax_variables(model))
+        else:
+            from deeplabv3p_torch.utils.checkpoint import load_weights
+
+            load_weights(weights, model)
+        path = os.path.join(OUT_DIR, f"smoke_{name or model_type}.pb")
+        _, s, counts, text = run_cli(torch, kernels, tool.main, tool.parse_args(
+            ["--model_path", weights, "--model_type", model_type, "--num_classes",
+             str(num_classes), "--model_input_shape", f"{hw[0]}x{hw[1]}", "--format", "pb",
+             "--output", path, "--device", "cuda"]))
+        graph = load_graph(path)
+        ops = Counter(n.op for n in graph.node)
+        print(f"  {model_type} .pb: {len(graph.node)} nodes, {os.path.getsize(path)} bytes, "
+              f"exported in {s:.2f} s; {text.strip()}; op types {dict(ops.most_common())}  "
+              f"[{card}]")
+        return model.eval(), weights, path, counts
+
+    def agreement(name, runner, eager, inputs, floor=0.999):
+        outs = [torch.from_numpy(runner(x.cpu().numpy())).cuda() for x in inputs]
+        with torch.no_grad():
+            refs = [eager(x) for x in inputs]
+        err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+        agree = min((o.argmax(-1) == r.argmax(-1)).float().mean().item()
+                    for o, r in zip(outs, refs))
+        ok = all(o.shape == r.shape and torch.isfinite(o).all() for o, r in zip(outs, refs))
+        check(ok and agree >= floor,
+              f"{name}: FrozenGraphRunner on the card against the eager f32 model (TF32 off): "
+              f"max|dprob| {err:.3g}, mask agreement min {agree:.6f} >= {floor}  [{card}]")
+
+    model, weights, path, counts = export("mobilenetv2", 21, INPUT, 0)
+    launches["tools/export_model.py --format pb mobilenetv2 (warm-up)"] = counts
+    check(counts == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": 1,
+                     "fused_decoder_frontend": 1},
+          f"export_model --format pb: the warm-up forward launched the ASPP and decoder kernels "
+          f"once each and no other: {counts}")
+    t0 = time.perf_counter()
+    runner = FrozenGraphRunner(path)  # the card by default
+    program = runner.program
+    print(f"  FrozenGraphRunner on {program.device} in {time.perf_counter() - t0:.2f} s: "
+          f"{len(program.steps)} operations a call, input {program.input_name} "
+          f"{program.input_shape}, output {program.output_name}")
+    check(program.device.type == "cuda", "FrozenGraphRunner runs on the card by default")
+    xs = [torch.from_numpy(data).cuda() for data, _ in requests[:EXPORT_REQUESTS]]
+    eager = Inference(model, with_softmax=True, with_argmax=False)
+    agreement("mobilenetv2", runner, eager, xs)
+    onnx = OnnxProgram(export_onnx(model, INPUT), "cuda")
+    fns = {"eager": lambda: eager(xs[0]), "pb": lambda: program(xs[0]),
+           "onnx": lambda: onnx({"input_0": xs[0]})}
+    ms = {k: [] for k in fns}
+    med = {k: [] for k in fns}
+    with torch.no_grad():
+        for k in ("eager", "pb", "onnx", "onnx", "pb", "eager"):
+            ms[k].append(event_ms(fns[k], EXPORT_ITERS))
+            med[k].append(synced_ms(torch, fns[k], EXPORT_ITERS))
+        print(f"  latency b1 (CUDA events, mean of {EXPORT_ITERS} calls a turn, in turns E P O O "
+              f"P E; then medians of calls synchronized one by one): "
+              + "; ".join(f"{k} {ms[k][0]:.3f}/{ms[k][1]:.3f} ms, median {med[k][0]:.3f}/"
+                          f"{med[k][1]:.3f}" for k in fns) + f"  [{card}]")
+        for what, fn in fns.items():
+            profile_one(torch, fn, f"one call, mobilenetv2 f32, {what}",
+                        f"profile_one_tf_{what}.txt", top=6)
+    del onnx
+
+    # the eval CLI on the trained weights, as a .pb and as the .npz
+    root, list_path = learn["root"], learn["list"]
+    toy_classes = os.path.join(root, "classes.txt")
+    _, _, trained, _ = export("mobilenetv2", 4, (LEARN_HW, LEARN_HW), 0, learn["weights"],
+                              "learn")
+    batch = LEARN_BATCH // 2
+    metrics = {}
+    for name in (trained, learn["weights"]):
+        args = eval_cli.parse_args(
+            ["--model_type", "mobilenetv2", "--model_path", name, "--model_input_shape",
+             str(LEARN_HW), "--batch_size", str(batch), "--dataset_path", root,
+             "--dataset_file", list_path, "--classes_path", toy_classes,
+             "--out_dir", os.path.join(OUT_DIR, "smoke_pb_eval")])
+        m, eval_s, counts, _ = run_cli(torch, kernels, eval_cli.main, args)
+        metrics[name] = m
+        launches[f"eval --model_path {os.path.basename(name)} b{batch}"] = counts
+        print(f"  eval CLI on {os.path.basename(name)} (the toy set, {LEARN_HW}x{LEARN_HW}, "
+              f"b{batch}): mIoU {m.miou:.6f} in {eval_s:.2f} s, launches {counts}")
+    m_pb, m_npz = metrics[trained], metrics[learn["weights"]]
+    batches = -(-8 // batch)
+    pb_counts = launches[f"eval --model_path {os.path.basename(trained)} b{batch}"]
+    check(abs(m_pb.miou - m_npz.miou) <= 1e-3
+          and pb_counts == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches},
+          f"eval --model_path x.pb (f32, graph batch 1 run in chunks): mIoU {m_pb.miou:.6f} "
+          f"against the .npz's {m_npz.miou:.6f} (bf16), |d| {abs(m_pb.miou - m_npz.miou):.2e} "
+          f"<= 1e-3; the confusion kernel once a batch ({batches}): {pb_counts}")
+    # the .npz's CLI model is bf16; the graph computes the f32 model's matrix
+    from deeplabv3p_torch.utils.checkpoint import load_weights
+    from deeplabv3p_torch.utils.config import get_classes, get_data_list
+
+    f32 = build_segmentation_model("mobilenetv2", 4, output_stride=16, fused_aspp=True,
+                                   fused_decoder=True, device="cuda")
+    load_weights(learn["weights"], f32)
+    ref, _ = quiet(lambda: eval_cli.eval_miou(
+        f32.eval(), root, get_data_list(list_path, shuffle=False), get_classes(toy_classes),
+        model_input_shape=(LEARN_HW, LEARN_HW), batch_size=batch))
+    flips = int(np.abs(m_pb.confusion - ref.confusion).sum()) // 2
+    check(flips <= 1e-4 * ref.confusion.sum(),
+          f"eval --model_path x.pb against eval_miou of the f32 model on the .npz's weights: "
+          f"{flips} of {int(ref.confusion.sum())} pixels counted elsewhere (<= 1e-4 of them), "
+          f"mIoU {m_pb.miou:.6f} against {ref.miou:.6f}")
+
+    results, _, _, text = run_cli(torch, kernels, validate_deeplab.main,
+                                  validate_deeplab.parse_args(
+        ["--model_path", f"{weights},{path}", "--model_type", "mobilenetv2",
+         "--image_file", os.path.join(REPO, "example", "dog.jpg"), "--classes_path",
+         classes_path, "--model_input_shape", str(INPUT[0]), "--output_path", OUT_DIR]))
+    print("  validate_deeplab --model_path x.npz,x.pb on the card:")
+    for line in text.strip().splitlines():
+        print("    " + line)
+    (p_npz, m_npz), (p_pb, m_pb) = results[weights], results[path]
+    agree = float((m_pb == m_npz).mean())
+    check(len(results) == 2 and agree >= 0.999,
+          f"validate_deeplab: .pb against the .npz, max|dprob| "
+          f"{float(np.abs(p_pb - p_npz).max()):.3g}, mask agreement {agree:.6f} >= 0.999")
+
+    # unet_standard (Conv2DBackpropInput, MaxPool) and fast_scnn at 1024x2048
+    model, _, path, counts = export("unet_standard", 21, INPUT, 1)
+    launches["tools/export_model.py --format pb unet_standard"] = counts
+    agreement("unet_standard", FrozenGraphRunner(path), Inference(model, True, False), xs[:2])
+    city = make_requests(preprocess_image, CITYSCAPES_REQUEST_SHAPES[:2], CITYSCAPES_HW)
+    model, _, path, counts = export("fast_scnn", 19, CITYSCAPES_HW, 2)
+    launches["tools/export_model.py --format pb fast_scnn"] = counts
+    graph_ops = {n.op for n in load_graph(path).node}
+    check({"AvgPool", "GatherV2"} <= graph_ops, "fast_scnn .pb holds AvgPool and GatherV2")
+    agreement("fast_scnn 1024x2048", FrozenGraphRunner(path), Inference(model, True, False),
+              [torch.from_numpy(data).cuda() for data, _ in city])
+    leaked = [m for m in ("tensorflow", "google.protobuf") if m in sys.modules]
+    check(not leaked, f"no tensorflow or protobuf module imported ({leaked or 'none'})")
+    print(f"the TF phase took {time.perf_counter() - t_phase:.1f} s  [{card}]")
     return launches
 
 

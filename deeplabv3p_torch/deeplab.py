@@ -75,10 +75,11 @@ def main(args):
         elif suffix in (".npz", ".ckpt"):
             save = save_npz if suffix == ".npz" else save_variables
             save(path, to_jax_variables(deeplab.model))
-        elif suffix == ".onnx":
+        elif suffix in (".onnx", ".pb"):
+            tool = "export_onnx" if suffix == ".onnx" else "export_model --format pb"
             raise SystemExit(
-                "the JAX package's deeplab --dump_model writes no .onnx either (it writes .shlo "
-                "or .ckpt); write one with deeplabv3p_torch.tools.export_onnx")
+                f"the JAX package's deeplab --dump_model writes no {suffix} program either (it "
+                f"writes .shlo or .ckpt); write one with deeplabv3p_torch.tools.{tool}")
         else:
             raise SystemExit(
                 f"the port dumps a .pt2 program or .npz / .ckpt weights; {suffix or path} "

@@ -31,8 +31,12 @@ the program's static batch, and it runs on the device it was exported
 on), or an `.onnx` file (`OnnxModel`, the root eval.py:66-90: the file runs
 in `export.onnx.interp` on `--device`, its probabilities, NHWC or NCHW,
 take the logits' place as a `.pt2`'s do, and `--batch_size` is the file's
-static batch); the JAX package's other exported formats raise, naming their
-ROADMAP item.
+static batch), or a frozen `.pb` (`FrozenGraphModel`, the root
+eval.py:91-121: the graph runs in `export.tf_export`'s executor on
+`--device`, in chunks of its static batch as the reference runner does,
+from `--pb_input_node` to `--pb_output_node`, each found by the reference's
+rule when not given; its probabilities take the logits' place); the JAX
+package's other exported formats raise, naming their ROADMAP item.
 matplotlib is imported inside the plot functions only, and the metrics are
 printed before any plot is tried.
 """
@@ -301,6 +305,38 @@ def load_onnx_model(path: str, device: torch.device, batch_size: int) -> OnnxMod
     return OnnxModel(OnnxProgram(onnx_model, device), *dims)
 
 
+class FrozenGraphModel(torch.nn.Module):
+    """A frozen `.pb` run by `export.tf.interp.GraphProgram` (NHWC images in,
+    NHWC probabilities out) in the interface `eval_miou` calls a model by, as
+    `OnnxModel`; any batch runs, in chunks of the graph's static batch."""
+
+    def __init__(self, program):
+        super().__init__()
+        self.program = program
+        for i, t in enumerate(program.consts.values()):  # those on the device (cuda:0 too)
+            if t.device.type == program.device.type:
+                self.register_buffer(f"constant_{i}", t, persistent=False)
+        self.training = False
+
+    def train(self, mode: bool = True):
+        if mode:
+            raise ValueError("a frozen graph runs in inference mode only")
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.program.run_batched(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def load_pb_model(path: str, device: torch.device, input_name=None,
+                  output_name=None) -> FrozenGraphModel:
+    """`FrozenGraphModel` of the `.pb` at `path` on `device`, between the
+    named tensors (None: the reference runner's rules)."""
+    from deeplabv3p_torch.export.tf.interp import GraphProgram
+    from deeplabv3p_torch.export.tf_export import load_graph
+
+    return FrozenGraphModel(GraphProgram(load_graph(path), input_name, output_name, device))
+
+
 def resolve_device(name: str) -> torch.device:
     """auto and cuda mean the card, and raise without one; cpu is by request."""
     if name == "cpu":
@@ -320,12 +356,15 @@ def main(args) -> metrics_lib.SegmentMetrics:
 
     exported = args.model_path.endswith(".pt2")
     onnx = args.model_path.endswith(".onnx")
-    if not (exported or onnx):
+    frozen = args.model_path.endswith(".pb")
+    if not (exported or onnx or frozen):
         check_weights_path(args.model_path)  # the JAX formats raise, naming their item
     device = resolve_device(args.device)
     class_names = get_classes(args.classes_path)
     if onnx:
         model = load_onnx_model(args.model_path, device, args.batch_size)
+    elif frozen:
+        model = load_pb_model(args.model_path, device, args.pb_input_node, args.pb_output_node)
     elif exported:
         from deeplabv3p_torch.export.pt2 import load_exported
 
@@ -355,7 +394,8 @@ def parse_args(argv=None):
     p.add_argument("--model_path", required=True,
                    help="weights: an .npz of the JAX variables tree, the JAX package's "
                         ".ckpt or a Keras .h5 (needs h5py); or a .pt2 program "
-                        "(export/pt2.py) or an .onnx file (either exporter's); the JAX "
+                        "(export/pt2.py), an .onnx file (either exporter's) or a frozen .pb "
+                        "of plain TF ops (the port's export_model --format pb); the JAX "
                         "package's other exported formats are not ported")
     p.add_argument("--model_type", default="mobilenetv3large_lite",
                    help=ported_models_text())
@@ -366,8 +406,11 @@ def parse_args(argv=None):
     p.add_argument("--dataset_file", default="VOC2012/val.txt")
     p.add_argument("--classes_path", default="configs/voc_classes.txt")
     p.add_argument("--batch_size", type=int, default=8)
-    p.add_argument("--pb_input_node", default=None, help="for .pb graphs: not ported")
-    p.add_argument("--pb_output_node", default=None, help="for .pb graphs: not ported")
+    p.add_argument("--pb_input_node", default=None,
+                   help="for .pb graphs: the input tensor (default image_input:0, else the "
+                        "unique Placeholder)")
+    p.add_argument("--pb_output_node", default=None,
+                   help="for .pb graphs: the output tensor (default the terminal node)")
     p.add_argument("--do_crf", action="store_true",
                    help="refine each mask with the dense CRF before it is counted")
     p.add_argument("--save_result", action="store_true")

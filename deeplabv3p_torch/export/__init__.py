@@ -1,8 +1,10 @@
 """Model export and int8 post-training quantization
 (deeplabv3p_tpu/export/): `torch.export` artifacts (`.pt2`, the port's
 counterpart of the StableHLO artifact), ONNX files (`onnx/`: the converter,
-the protobuf codec and a torch executor) and per-channel int8 weights with
-calibrated int8 x int8 -> int32 pointwise convolutions.
+the protobuf codec and a torch executor), frozen TensorFlow graphs of plain
+TF ops (`tf_export.py`, `tf/`: written and run with no tensorflow) and
+per-channel int8 weights with calibrated int8 x int8 -> int32 pointwise
+convolutions.
 """
 
 from deeplabv3p_torch.export.onnx import (  # noqa: F401
@@ -18,3 +20,7 @@ from deeplabv3p_torch.export.pt2 import (  # noqa: F401
     save_exported,
 )
 from deeplabv3p_torch.export.quantize import post_train_quantize  # noqa: F401
+from deeplabv3p_torch.export.tf_export import (  # noqa: F401
+    FrozenGraphRunner,
+    export_frozen_pb,
+)

@@ -14,224 +14,18 @@ occurs twice, skips the fields it does not know and raises `DecodeError` on
 input that is not a message of the schema (a truncated field, a wire type
 that does not fit the field).
 
-No `protobuf` package is needed: a deployment box need not have one.
+The wire layer is `export/protowire.py`, shared with the TensorFlow
+GraphDef messages. No `protobuf` package is needed: a deployment box need
+not have one.
 """
 
 from __future__ import annotations
 
-import struct
 from dataclasses import dataclass, field
 from typing import Optional
 
-_VARINT, _I64, _LEN, _I32 = 0, 1, 2, 5
-# field kind -> wire type of one element
-_WIRE = {"int64": _VARINT, "int32": _VARINT, "uint64": _VARINT, "enum": _VARINT,
-         "float": _I32, "double": _I64, "string": _LEN, "bytes": _LEN}
-_PACKED = ("int64", "int32", "uint64", "enum", "float", "double")
-_FIXED = {"float": "f", "double": "d"}
-
-
-class DecodeError(ValueError):
-    """The bytes are not an ONNX message of the schema this module reads."""
-
-
-# -- the wire format ----------------------------------------------------------
-
-
-def _varint(n: int) -> bytes:
-    if n < 0:  # int32 and int64 go out as 64-bit two's complement
-        n += 1 << 64
-    out = bytearray()
-    while n > 0x7F:
-        out.append((n & 0x7F) | 0x80)
-        n >>= 7
-    out.append(n)
-    return bytes(out)
-
-
-def _read_varint(buf: memoryview, pos: int, end: int) -> tuple[int, int]:
-    result = shift = 0
-    while True:
-        if pos >= end:
-            raise DecodeError(f"truncated varint at offset {pos}")
-        b = buf[pos]
-        pos += 1
-        result |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return result, pos
-        shift += 7
-        if shift >= 70:
-            raise DecodeError(f"varint over 10 bytes at offset {pos}")
-
-
-def _signed(kind: str, n: int) -> int:
-    if kind == "uint64":
-        return n
-    n &= (1 << 64) - 1
-    if n >= 1 << 63:
-        n -= 1 << 64
-    if kind in ("int32", "enum"):  # a 64-bit varint whose low 32 bits hold the value
-        n = (n + (1 << 31)) % (1 << 32) - (1 << 31)
-    return n
-
-
-def _take(buf: memoryview, pos: int, end: int, n: int) -> tuple[int, int]:
-    if pos + n > end:
-        raise DecodeError(f"truncated field: {n} bytes wanted at offset {pos}, {end - pos} left")
-    return pos, pos + n
-
-
-def _skip(buf: memoryview, pos: int, end: int, wire: int) -> int:
-    if wire == _VARINT:
-        return _read_varint(buf, pos, end)[1]
-    if wire == _I64:
-        return _take(buf, pos, end, 8)[1]
-    if wire == _I32:
-        return _take(buf, pos, end, 4)[1]
-    if wire == _LEN:
-        n, pos = _read_varint(buf, pos, end)
-        return _take(buf, pos, end, n)[1]
-    raise DecodeError(f"wire type {wire} at offset {pos} (groups are not read)")
-
-
-def _is_default(kind: str, v) -> bool:
-    if kind in _FIXED:  # by the bits, as protobuf: -0.0 is written
-        return struct.pack("<" + _FIXED[kind], v) == bytes(struct.calcsize(_FIXED[kind]))
-    return not v
-
-
-def _scalar(kind: str, v) -> bytes:
-    if kind in _FIXED:
-        return struct.pack("<" + _FIXED[kind], v)
-    if kind == "string":
-        v = v.encode()
-    if kind in ("string", "bytes"):
-        return _varint(len(v)) + bytes(v)
-    return _varint(int(v))
-
-
-# -- messages -------------------------------------------------------------------
-
-
-class _Message:
-    """Codec shared by the message dataclasses. `_FIELDS` holds
-    (number, name, kind, label): kind a scalar kind or a message class, label
-    'one' (a proto3 scalar), 'opt' (a singular message or a oneof member:
-    None when unset) or 'rep'. `_ONEOF` lists groups of fields of one oneof."""
-
-    _FIELDS: tuple = ()
-    _ONEOF: tuple = ()
-
-    def encode(self) -> bytes:
-        out = []
-        for num, name, kind, label in self._FIELDS:
-            v = getattr(self, name)
-            msg = not isinstance(kind, str)
-            if label == "rep":
-                if not v:
-                    continue
-                if kind in _PACKED:
-                    if kind in _FIXED:
-                        payload = struct.pack(f"<{len(v)}{_FIXED[kind]}", *v)
-                    else:
-                        payload = b"".join(_varint(int(x)) for x in v)
-                    out.append(_varint(num << 3 | _LEN) + _varint(len(payload)) + payload)
-                    continue
-                tag = _varint(num << 3 | (_LEN if msg else _WIRE[kind]))
-                for x in v:
-                    body = x.encode() if msg else _scalar(kind, x)
-                    out.append(tag + (_varint(len(body)) + body if msg else body))
-                continue
-            if v is None or (label == "one" and _is_default(kind, v)):
-                continue
-            if msg:
-                body = v.encode()
-                out.append(_varint(num << 3 | _LEN) + _varint(len(body)) + body)
-            else:
-                out.append(_varint(num << 3 | _WIRE[kind]) + _scalar(kind, v))
-        return b"".join(out)
-
-    @classmethod
-    def decode(cls, data):
-        buf = memoryview(data)
-        if buf.ndim != 1 or buf.itemsize != 1:
-            buf = buf.cast("B")
-        return cls()._merge(buf, 0, len(buf))
-
-    def _set(self, name: str, value) -> None:
-        for group in self._ONEOF:
-            if name in group:
-                for other in group:
-                    setattr(self, other, None)
-        setattr(self, name, value)
-
-    def _merge(self, buf: memoryview, pos: int, end: int):
-        by_num = type(self)._by_num()
-        while pos < end:
-            key, pos = _read_varint(buf, pos, end)
-            num, wire = key >> 3, key & 7
-            spec = by_num.get(num)
-            if spec is None:
-                pos = _skip(buf, pos, end, wire)
-                continue
-            name, kind, label = spec
-            msg = not isinstance(kind, str)
-            if label == "rep" and kind in _PACKED and wire == _LEN:
-                n, pos = _read_varint(buf, pos, end)
-                start, pos = _take(buf, pos, end, n)
-                getattr(self, name).extend(_unpack(kind, buf, start, pos))
-                continue
-            want = _LEN if msg else _WIRE[kind]
-            if wire != want:
-                raise DecodeError(f"{type(self).__name__}.{name}: wire type {wire}, "
-                                  f"expected {want}")
-            if msg:
-                n, pos = _read_varint(buf, pos, end)
-                start, pos = _take(buf, pos, end, n)
-                held = None if label == "rep" else getattr(self, name)
-                value = (held if held is not None else kind())._merge(buf, start, pos)
-            elif kind in _FIXED:
-                size = struct.calcsize(_FIXED[kind])
-                start, pos = _take(buf, pos, end, size)
-                value = struct.unpack_from("<" + _FIXED[kind], buf, start)[0]
-            elif kind in ("string", "bytes"):
-                n, pos = _read_varint(buf, pos, end)
-                start, pos = _take(buf, pos, end, n)
-                value = bytes(buf[start:pos])
-                if kind == "string":
-                    try:
-                        value = value.decode()
-                    except UnicodeDecodeError as e:
-                        raise DecodeError(f"{type(self).__name__}.{name}: not UTF-8") from e
-            else:
-                raw, pos = _read_varint(buf, pos, end)
-                value = _signed(kind, raw)
-            if label == "rep":
-                getattr(self, name).append(value)
-            else:
-                self._set(name, value)
-        return self
-
-    @classmethod
-    def _by_num(cls) -> dict:
-        cache = cls.__dict__.get("_by_num_cache")
-        if cache is None:
-            cache = {num: (name, kind, label) for num, name, kind, label in cls._FIELDS}
-            cls._by_num_cache = cache
-        return cache
-
-
-def _unpack(kind: str, buf: memoryview, start: int, end: int) -> list:
-    if kind in _FIXED:
-        size = struct.calcsize(_FIXED[kind])
-        if (end - start) % size:
-            raise DecodeError(f"packed {kind}s: {end - start} bytes")
-        return list(struct.unpack_from(f"<{(end - start) // size}{_FIXED[kind]}", buf, start))
-    out, pos = [], start
-    while pos < end:
-        raw, pos = _read_varint(buf, pos, end)
-        out.append(_signed(kind, raw))
-    return out
+from deeplabv3p_torch.export.protowire import DecodeError, _varint  # noqa: F401 (re-exported)
+from deeplabv3p_torch.export.protowire import Message as _Message
 
 
 @dataclass

@@ -12,9 +12,16 @@ Loads weights (an `.npz` of the JAX variables tree, the JAX package's
   `{quantized_params, batch_stats[, activation_ranges]}` as a `.ckpt`
   (`export.quantize`), calibrated on `--calib_batches` images of
   `--dataset_path` / `--dataset_file` when both are given;
-* `--format ckpt`: the weights re-saved as a `.ckpt` (e.g. after `.h5`).
+* `--format ckpt`: the weights re-saved as a `.ckpt` (e.g. after `.h5`);
+* `--format pb`: a frozen TensorFlow GraphDef of plain TF ops, written with
+  no tensorflow (`export.tf_export.export_frozen_pb`: f32 normalized NHWC
+  images in, softmax probabilities out, weights as constants), from the
+  model built on `--device` with the fused ASPP and decoder kernels, which
+  the export's eager warm-up forward launches there; the input and output
+  tensor names are printed as the JAX tool prints them.
 
-`shlo` (a JAX artifact) and the TensorFlow formats are refused.
+`shlo` (a JAX artifact) and the other TensorFlow formats (`tflite*`,
+`saved_model`, which need tensorflow) are refused.
 
     python -m deeplabv3p_torch.tools.export_model --model_path trained_final.npz \\
         --model_type mobilenetv2_lite --num_classes 21 --model_input_shape 512 \\
@@ -30,7 +37,7 @@ import torch
 
 FORMATS = ["pt2", "int8", "ckpt", "shlo", "tflite", "tflite_int8", "tflite_f16",
            "saved_model", "pb"]
-TF_FORMATS = ("tflite", "tflite_int8", "tflite_f16", "saved_model", "pb")
+TF_FORMATS = ("tflite", "tflite_int8", "tflite_f16", "saved_model")
 
 
 def calibration_batches(args, shape, device) -> list[torch.Tensor]:
@@ -58,24 +65,32 @@ def main(args) -> None:
                          "the port exports --format pt2")
     if args.format in TF_FORMATS:
         raise SystemExit(f"--format {args.format} needs tensorflow, which the card machine "
-                         "lacks; not ported (ROADMAP Queue A item 12)")
+                         "lacks; not ported (ROADMAP Queue A item 12b); --format pb writes "
+                         "a frozen graph without it")
     from deeplabv3p_torch.eval import resolve_device
     from deeplabv3p_torch.models.factory import build_segmentation_model
     from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.train import parse_input_shape
     from deeplabv3p_torch.utils.checkpoint import load_weights, save_variables
     from deeplabv3p_torch.utils.weights import to_jax_variables
 
     device = resolve_device(args.device)
-    shape = (args.model_input_shape, args.model_input_shape)
+    shape = parse_input_shape(args.model_input_shape)
     model = build_segmentation_model(
         args.model_type, args.num_classes, output_stride=args.output_stride,
-        fused_aspp=True, device=device)
+        fused_aspp=True, fused_decoder=args.format == "pb", device=device)
     # an .h5 loads by layer name: what it lacks keeps this init, as the JAX
     # tool's keeps model.init's
     init_parameters(model, torch.Generator().manual_seed(0), bn_identity=True)
     load_weights(args.model_path, model)
     model.eval()
 
+    if args.format == "pb":
+        from deeplabv3p_torch.export.tf_export import export_frozen_pb
+
+        in_name, out_name = export_frozen_pb(model, shape, args.output)
+        print(f"exported frozen pb to {args.output} (input={in_name}, output={out_name})")
+        return
     if args.format == "pt2":
         from deeplabv3p_torch.export.pt2 import export_model, save_exported
 
@@ -109,10 +124,11 @@ def parse_args(argv=None):
     p.add_argument("--model_path", required=True, help=".npz, .ckpt or Keras .h5")
     p.add_argument("--model_type", default="mobilenetv2_lite", help=ported_models_text())
     p.add_argument("--num_classes", type=int, default=21)
-    p.add_argument("--model_input_shape", type=int, default=512)
+    p.add_argument("--model_input_shape", default="512",
+                   help="a single int, as the JAX tool takes, or HxW (e.g. 1024x2048)")
     p.add_argument("--output_stride", type=int, default=16)
     p.add_argument("--format", default="pt2", choices=FORMATS,
-                   help="pt2/int8/ckpt; shlo and the TensorFlow formats are refused")
+                   help="pt2/int8/ckpt/pb; shlo, tflite* and saved_model are refused")
     p.add_argument("--output", required=True)
     p.add_argument("--with_argmax", action="store_true",
                    help="end the exported program at the int32 mask")

@@ -229,14 +229,15 @@ def test_cli_runs_with_its_default_model(toy, tmp_path, capsys):
 
 @pytest.mark.parametrize("suffix,item", [
     (".shlo", "Queue A item 12"),
-    # ported since (tests/test_torch_onnx.py); the case keeps its name
+    # ported since (tests/test_torch_onnx.py, tests/test_torch_tf_export.py); the
+    # cases keep their names
     pytest.param(".onnx", None, id=".onnx-Queue A item 12"),
-    (".tflite", "Queue A item 12"), (".pb", "Queue A item 12"),
+    (".tflite", "Queue A item 12"), pytest.param(".pb", None, id=".pb-Queue A item 12"),
 ])
 def test_unported_model_formats_raise(suffix, item):
     args = teval.parse_args(["--model_path", "model" + suffix, "--device", "cpu"])
     if item is None:  # read, not refused: a missing file is an OSError
-        with pytest.raises(FileNotFoundError, match="model.onnx"):
+        with pytest.raises(FileNotFoundError, match="model" + suffix):
             teval.main(args)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -281,6 +281,12 @@ def test_export_tool_refuses_other_formats(weights_ckpt, tmp_path):
               "--device", "cpu", "--output", str(tmp_path / "x")]
     with pytest.raises(SystemExit, match="pt2"):
         _tool(*common, "--format", "shlo")
-    for fmt in ("tflite", "tflite_int8", "tflite_f16", "saved_model", "pb"):
-        with pytest.raises(SystemExit, match="item 12"):
+    for fmt in ("tflite", "tflite_int8", "tflite_f16", "saved_model"):
+        with pytest.raises(SystemExit, match="item 12b"):
             _tool(*common, "--format", fmt)
+    # --format pb is ported since (tests/test_torch_tf_export.py holds its file)
+    _tool(*common, "--format", "pb")
+    from deeplabv3p_torch.export.tf_export import load_graph
+
+    graph = load_graph(str(tmp_path / "x"))
+    assert graph.node[0].op == "Placeholder" and graph.node[-1].op == "Identity"
