@@ -6,6 +6,8 @@
     python3 chip_smoke.py --export # steps 1-2 and the export phase (15) alone
     python3 chip_smoke.py --onnx   # steps 1-2, the learning proof and the ONNX phase (15b)
     python3 chip_smoke.py --tf     # steps 1-2, the learning proof and the TF graph phase (15g)
+    python3 chip_smoke.py --tflite # steps 1-2, the learning proof, the TF graph phase (which
+                                   # times the .tflite executor too) and the .tflite phase (15h)
     python3 chip_smoke.py --parallel  # steps 1-2 and the data-parallel phase (15c) alone
     python3 chip_smoke.py --spatial   # steps 1-2 and the spatial phase (15d) alone
     python3 chip_smoke.py --tools     # steps 1-2 and the tools phase (15e) alone
@@ -205,13 +207,28 @@
    .npz): nodes, op types, bytes, seconds, the ASPP and decoder kernels
    launched once each by the export's warm-up forward; `FrozenGraphRunner`
    on the card against the eager f32 model on 4 requests (TF32 off; max
-   |dprob|, mask agreement >= 0.999), timed in turns with the eager model
-   and the .onnx executor on the same weights, each profiled once; the eval
-   CLI on the learning proof's trained weights as a .pb against the .npz
-   (mIoU within 1e-3, the confusion kernel once a batch) and the f32 model's
-   matrix (<= 1e-4 of pixels elsewhere); validate_deeplab
-   on the .npz and the .pb; unet_standard at 512x512 and fast_scnn at
-   1024x2048 with 19 classes exported and run against their eager models;
+   |dprob| <= 1e-5, mask agreement >= 0.999), timed in turns with the eager
+   model, the .onnx executor on the same weights and the .tflite executor
+   on this graph's .tflite, each profiled once; the eval CLI on the
+   learning proof's trained weights as a .pb against the .npz (mIoU within
+   1e-3, the confusion kernel once a batch) and the f32 model's matrix (<=
+   1e-4 of pixels elsewhere); validate_deeplab on the .npz and the .pb
+   (<= 1e-5); unet_standard at 512x512 and fast_scnn at 1024x2048 with 19
+   classes exported and run against their eager models (<= 1e-5);
+15h. `.tflite` and the SavedModel (`tflite_phase`; no tensorflow anywhere):
+   `tools/export_model.py --format tflite`, `tflite_f16`, `pb` and
+   `saved_model --device cuda` on mobilenetv2 (f32, 512x512, OS16, 21
+   classes, seeded weights as an .npz): bytes, builtin counts, seconds, the
+   ASPP and decoder kernels once each in each warm-up; `TFLiteRunner` on the
+   card against the eager f32 model on 4 requests (fp32 within 1e-5, masks
+   >= 0.999; the float16 file within 1e-3, masks >= 0.99); the CPU's
+   .tflite of the same .npz equal to the card's, byte for byte; the
+   SavedModel's GraphDef, decoded by the port's codec, bit-equal to the .pb's
+   through `GraphProgram`; the eval CLI on a .tflite of the learning proof's
+   weights against the .npz (mIoU within 1e-3, the confusion kernel once a
+   batch) and the f32 model's matrix; validate_deeplab on the .npz and the
+   .tflite (<= 1e-5); unet_standard at 512x512 and fast_scnn at 1024x2048
+   with 19 classes as .tflite against their eager models (<= 1e-5);
 16. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
@@ -825,6 +842,20 @@ def main() -> None:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return
+    if "--tflite" in sys.argv[1:]:  # the TF graph and .tflite / SavedModel phases, on the
+        # learning proof's weights
+        requests = make_requests(preprocess_image)
+        learn = learning_proof(torch, kernels, train_main, train_args)
+        launches = {**tf_phase(torch, kernels, classes_path, requests, learn),
+                    **tflite_phase(torch, kernels, classes_path, requests, learn)}
+        leaked = [m for m in ("jax", "flax", "deeplabv3p_tpu") if m in sys.modules]
+        check(not leaked, f"no JAX module imported ({leaked or 'none'})")
+        print(json.dumps({"tflite_launches": launches}))
+        if failures:
+            die(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
     if "--parallel" in sys.argv[1:]:  # the data-parallel phase alone
         launches = parallel_phase(torch)
         print(json.dumps({"parallel_launches": launches}))
@@ -1109,6 +1140,10 @@ def main() -> None:
     # -- 5q'. the frozen TF graph: the export tool on the card, the port's executor
     # against the eager model and the .onnx executor, eval and validate_deeplab on .pb
     tf_launches = tf_phase(torch, kernels, classes_path, requests, learn)
+    # -- 5q''. .tflite (fp32, float16) and the SavedModel: the tool on the card,
+    # the .tflite executor against the eager model and the .pb's, eval and
+    # validate_deeplab on .tflite
+    tflite_launches = tflite_phase(torch, kernels, classes_path, requests, learn)
 
     # -- 5r. data parallelism: one process, two gloo ranks on the card, a
     # one-rank NCCL group, the same weights and global batches ---------------------
@@ -1234,9 +1269,9 @@ def main() -> None:
             row["also_on"][f"mobilenetv2 eval --do_crf b{EVAL_BATCH}"] = \
                 crf_eval_launches[row["name"]]
     for path, counts in {**export_launches, **onnx_launches, **tf_launches,
-                         **parallel_launches, **spatial_launches, **tools_launches,
-                         **diagnostics_launches}.items():  # .pt2, ONNX, .pb, data-parallel,
-        # spatial, the tools' flow, the traced requests
+                         **tflite_launches, **parallel_launches, **spatial_launches,
+                         **tools_launches, **diagnostics_launches}.items():  # .pt2, ONNX,
+        # .pb, .tflite, data-parallel, spatial, the tools' flow, the traced requests
         for row in kernels:
             if counts[row["name"]]:
                 row.setdefault("also_on", {})[path] = counts[row["name"]]
@@ -3786,23 +3821,27 @@ def tf_phase(torch, kernels, classes_path, requests, learn) -> dict:
     process: its node count, op types, bytes and seconds, the ASPP and decoder
     kernels launched once each by the export's warm-up forward;
     `FrozenGraphRunner` on the card against the eager f32 model on the same
-    requests (TF32 off for both; max |dprob| printed, mask agreement >=
-    0.999), timed in turns with the eager model and with `export.onnx.interp`
-    on the same weights' .onnx, each profiled once; the eval CLI on the
-    learning proof's trained weights (`learn`) as a .pb against the .npz
-    (mIoU within 1e-3, the confusion kernel once a batch) and against
+    requests (TF32 off for both; max |dprob| <= 1e-5, mask agreement >=
+    0.999), timed in turns with the eager model, with `export.onnx.interp`
+    on the same weights' .onnx and with `TFLiteRunner` on the .tflite that
+    `export_tflite` writes from this graph, each profiled once; the eval CLI
+    on the learning proof's trained weights (`learn`) as a .pb against the
+    .npz (mIoU within 1e-3, the confusion kernel once a batch) and against
     `eval_miou` of the f32 model on the same weights (<= 1e-4 of the pixels
-    counted elsewhere: the .npz's CLI model is bf16); `validate_deeplab`
-    on the .npz and the .pb; unet_standard at 512x512 (Conv2DBackpropInput,
-    MaxPool) and fast_scnn at 1024x2048 with 19 classes (AvgPool, the
-    nearest GatherV2) exported by the tool and run against their eager
-    models. Returns {path: launch counts} for the kernels line."""
+    counted elsewhere: the .npz's CLI model is bf16); `validate_deeplab` on
+    the .npz and the .pb (max |dprob| <= 1e-5); unet_standard at 512x512
+    (Conv2DBackpropInput, MaxPool) and fast_scnn at 1024x2048 with 19 classes
+    (AvgPool, the nearest GatherV2) exported by the tool and run against
+    their eager models within 1e-5. Returns {path: launch counts} for the
+    kernels line."""
     from collections import Counter
 
     from deeplabv3p_torch import eval as eval_cli
     from deeplabv3p_torch.export.onnx import OnnxProgram, export_onnx
     from deeplabv3p_torch.export.pt2 import Inference
-    from deeplabv3p_torch.export.tf_export import FrozenGraphRunner, load_graph
+    from deeplabv3p_torch.export.tf_export import FrozenGraphRunner, TFLiteRunner, load_graph
+    from deeplabv3p_torch.export.tflite import lower as tflite_lower
+    from deeplabv3p_torch.export.tflite import schema
     from deeplabv3p_torch.inference import preprocess_image
     from deeplabv3p_torch.models.factory import build_segmentation_model
     from deeplabv3p_torch.models.layers import init_parameters
@@ -3843,7 +3882,7 @@ def tf_phase(torch, kernels, classes_path, requests, learn) -> dict:
               f"[{card}]")
         return model.eval(), weights, path, counts
 
-    def agreement(name, runner, eager, inputs, floor=0.999):
+    def agreement(name, runner, eager, inputs, floor=0.999, bound=1e-5):
         outs = [torch.from_numpy(runner(x.cpu().numpy())).cuda() for x in inputs]
         with torch.no_grad():
             refs = [eager(x) for x in inputs]
@@ -3851,9 +3890,10 @@ def tf_phase(torch, kernels, classes_path, requests, learn) -> dict:
         agree = min((o.argmax(-1) == r.argmax(-1)).float().mean().item()
                     for o, r in zip(outs, refs))
         ok = all(o.shape == r.shape and torch.isfinite(o).all() for o, r in zip(outs, refs))
-        check(ok and agree >= floor,
+        check(ok and agree >= floor and err <= bound,
               f"{name}: FrozenGraphRunner on the card against the eager f32 model (TF32 off): "
-              f"max|dprob| {err:.3g}, mask agreement min {agree:.6f} >= {floor}  [{card}]")
+              f"max|dprob| {err:.3g} <= {bound}, mask agreement min {agree:.6f} >= {floor}  "
+              f"[{card}]")
 
     model, weights, path, counts = export("mobilenetv2", 21, INPUT, 0)
     launches["tools/export_model.py --format pb mobilenetv2 (warm-up)"] = counts
@@ -3872,22 +3912,24 @@ def tf_phase(torch, kernels, classes_path, requests, learn) -> dict:
     eager = Inference(model, with_softmax=True, with_argmax=False)
     agreement("mobilenetv2", runner, eager, xs)
     onnx = OnnxProgram(export_onnx(model, INPUT), "cuda")
+    # the file export_tflite writes for these weights: this graph, lowered
+    tflite = TFLiteRunner(schema.encode_model(tflite_lower.lower(load_graph(path)))).program
     fns = {"eager": lambda: eager(xs[0]), "pb": lambda: program(xs[0]),
-           "onnx": lambda: onnx({"input_0": xs[0]})}
+           "onnx": lambda: onnx({"input_0": xs[0]}), "tflite": lambda: tflite(xs[0])}
     ms = {k: [] for k in fns}
     med = {k: [] for k in fns}
     with torch.no_grad():
-        for k in ("eager", "pb", "onnx", "onnx", "pb", "eager"):
+        for k in ("eager", "pb", "onnx", "tflite", "tflite", "onnx", "pb", "eager"):
             ms[k].append(event_ms(fns[k], EXPORT_ITERS))
             med[k].append(synced_ms(torch, fns[k], EXPORT_ITERS))
-        print(f"  latency b1 (CUDA events, mean of {EXPORT_ITERS} calls a turn, in turns E P O O "
-              f"P E; then medians of calls synchronized one by one): "
+        print(f"  latency b1 (CUDA events, mean of {EXPORT_ITERS} calls a turn, in turns E P O T "
+              f"T O P E; then medians of calls synchronized one by one): "
               + "; ".join(f"{k} {ms[k][0]:.3f}/{ms[k][1]:.3f} ms, median {med[k][0]:.3f}/"
                           f"{med[k][1]:.3f}" for k in fns) + f"  [{card}]")
         for what, fn in fns.items():
             profile_one(torch, fn, f"one call, mobilenetv2 f32, {what}",
                         f"profile_one_tf_{what}.txt", top=6)
-    del onnx
+    del onnx, tflite
 
     # the eval CLI on the trained weights, as a .pb and as the .npz
     root, list_path = learn["root"], learn["list"]
@@ -3940,10 +3982,10 @@ def tf_phase(torch, kernels, classes_path, requests, learn) -> dict:
     for line in text.strip().splitlines():
         print("    " + line)
     (p_npz, m_npz), (p_pb, m_pb) = results[weights], results[path]
-    agree = float((m_pb == m_npz).mean())
-    check(len(results) == 2 and agree >= 0.999,
-          f"validate_deeplab: .pb against the .npz, max|dprob| "
-          f"{float(np.abs(p_pb - p_npz).max()):.3g}, mask agreement {agree:.6f} >= 0.999")
+    agree, err = float((m_pb == m_npz).mean()), float(np.abs(p_pb - p_npz).max())
+    check(len(results) == 2 and agree >= 0.999 and err <= 1e-5,
+          f"validate_deeplab: .pb against the .npz, max|dprob| {err:.3g} <= 1e-5, mask "
+          f"agreement {agree:.6f} >= 0.999")
 
     # unet_standard (Conv2DBackpropInput, MaxPool) and fast_scnn at 1024x2048
     model, _, path, counts = export("unet_standard", 21, INPUT, 1)
@@ -3959,6 +4001,258 @@ def tf_phase(torch, kernels, classes_path, requests, learn) -> dict:
     leaked = [m for m in ("tensorflow", "google.protobuf") if m in sys.modules]
     check(not leaked, f"no tensorflow or protobuf module imported ({leaked or 'none'})")
     print(f"the TF phase took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches
+
+
+
+def tflite_ops(path: str) -> dict:
+    """{builtin: count} of a .tflite, most frequent first."""
+    from collections import Counter
+
+    from deeplabv3p_torch.export.tflite import schema
+
+    with open(path, "rb") as f:
+        model = schema.decode_model(f.read())
+    names = [schema.BUILTIN_NAMES.get(schema.builtin_of(model.operator_codes[op.opcode_index]))
+             for op in model.subgraphs[0].operators]
+    return dict(Counter(names).most_common())
+
+
+def tflite_buffer_diff(a: bytes, b: bytes) -> str:
+    """Which constant buffers of two .tflite files differ, by tensor name and
+    max |d| (the files' structure taken as equal)."""
+    from deeplabv3p_torch.export.tflite import schema
+
+    ma, mb = schema.decode_model(a), schema.decode_model(b)
+    ta, tb = ma.subgraphs[0].tensors, mb.subgraphs[0].tensors
+    if len(ta) != len(tb) or [t.shape for t in ta] != [t.shape for t in tb]:
+        return f"the structure differs ({len(ta)} against {len(tb)} tensors)"
+    diffs = []
+    for x, y in zip(ta, tb):
+        da, db = ma.buffers[x.buffer].data, mb.buffers[y.buffer].data
+        if da is None or db is None or da.tobytes() == db.tobytes():
+            continue
+        dt = schema.NP_OF_TYPE[x.type]
+        d = np.abs(np.frombuffer(da.tobytes(), dt).astype(np.float64)
+                   - np.frombuffer(db.tobytes(), dt).astype(np.float64)).max()
+        diffs.append(f"{x.name} {list(x.shape)} max|d| {d:.3g}")
+    return f"{len(diffs)} buffers differ: " + "; ".join(diffs[:8]) if diffs else \
+        "the buffers are equal (only the layout differs)"
+
+
+def tflite_phase(torch, kernels, classes_path, requests, learn) -> dict:
+    """`.tflite` (fp32 and float16) and the SavedModel on the card, with no
+    tensorflow anywhere: `tools/export_model.py --format tflite --device cuda`
+    and `--format tflite_f16` on mobilenetv2 (f32, 512x512, OS16, 21 classes,
+    seeded weights written as an .npz), in process: bytes, builtin counts,
+    seconds, the ASPP and decoder kernels launched once each by each export's
+    warm-up forward; `TFLiteRunner` on the card against the eager f32 model on
+    the same requests (TF32 off; fp32 within 1e-5, masks agreeing on >= 0.999
+    of pixels; the float16 file held to tests/test_torch_tflite_tf.py's
+    bound, 1e-3 and 0.99); the .tflite the CPU writes from the same .npz
+    equal to the card's, byte for byte; `--format pb` and `--format
+    saved_model` of the same weights, the SavedModel's GraphDef decoded by
+    the port's codec and run by `GraphProgram` bit-equal to the .pb's (the
+    .tflite executor is timed and profiled in `tf_phase`'s turns); the eval
+    CLI on a .tflite of the learning proof's trained weights (`learn`)
+    against the .npz (mIoU within 1e-3, the confusion kernel once a batch)
+    and against `eval_miou` of the f32 model (<= 1e-4 of the pixels counted
+    elsewhere); `validate_deeplab` on the .npz and the .tflite (max |dprob|
+    <= 1e-5); unet_standard at 512x512 (TRANSPOSE_CONV, MAX_POOL_2D) and
+    fast_scnn at 1024x2048 with 19 classes (AVERAGE_POOL_2D, GATHER)
+    exported by the tool and run against their eager models within 1e-5.
+    Returns {path: launch counts} for the kernels line."""
+    from deeplabv3p_torch import eval as eval_cli
+    from deeplabv3p_torch.export.pt2 import Inference
+    from deeplabv3p_torch.export.tf import saved_model
+    from deeplabv3p_torch.export.tf.interp import GraphProgram
+    from deeplabv3p_torch.export.tf_export import TFLiteRunner, load_graph
+    from deeplabv3p_torch.inference import preprocess_image
+    from deeplabv3p_torch.models.factory import build_segmentation_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.tools import export_model as tool
+    from deeplabv3p_torch.tools import validate_deeplab
+    from deeplabv3p_torch.utils.checkpoint import load_weights
+    from deeplabv3p_torch.utils.config import get_classes, get_data_list
+    from deeplabv3p_torch.utils.weights import save_npz, to_jax_variables
+
+    card = card_line()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t_phase = time.perf_counter()
+    launches = {}
+    print(f".tflite and SavedModel: tools/export_model.py --format tflite / tflite_f16 / pb / "
+          f"saved_model --device cuda, f32 {INPUT} OS16, seeded weights; TFLiteRunner on the "
+          f"card, {EXPORT_REQUESTS} requests:")
+
+    def model_of(model_type, num_classes, seed, weights=None):
+        model = build_segmentation_model(model_type, num_classes, output_stride=16,
+                                         fused_aspp=True, fused_decoder=True, device="cuda")
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        if weights is None:
+            weights = os.path.join(OUT_DIR, f"smoke_tflite_{model_type}.npz")
+            save_npz(weights, to_jax_variables(model))
+        else:
+            load_weights(weights, model)
+        return model.eval(), weights
+
+    def export(model_type, num_classes, hw, weights, fmt, name, device="cuda"):
+        """The tool on `device`: the output's path, the seconds, the launch
+        counts; prints what it wrote."""
+        suffix = {"tflite": ".tflite", "tflite_f16": ".tflite", "pb": ".pb",
+                  "saved_model": ""}[fmt]
+        path = os.path.join(OUT_DIR, f"smoke_{name}{suffix}")
+        _, s, counts, text = run_cli(torch, kernels, tool.main, tool.parse_args(
+            ["--model_path", weights, "--model_type", model_type, "--num_classes",
+             str(num_classes), "--model_input_shape", f"{hw[0]}x{hw[1]}", "--format", fmt,
+             "--output", path, "--device", device]))
+        what = f"{tflite_ops(path)}" if suffix == ".tflite" else ""
+        print(f"  {model_type} --format {fmt} on {device}: exported in {s:.2f} s; "
+              f"{text.strip()}; {what}  [{card}]")
+        return path, s, counts
+
+    def agreement(name, runner, eager, inputs, floor=0.999, bound=1e-5):
+        outs = [torch.from_numpy(runner(x.cpu().numpy())).cuda() for x in inputs]
+        with torch.no_grad():
+            refs = [eager(x) for x in inputs]
+        err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+        agree = min((o.argmax(-1) == r.argmax(-1)).float().mean().item()
+                    for o, r in zip(outs, refs))
+        ok = all(o.shape == r.shape and torch.isfinite(o).all() for o, r in zip(outs, refs))
+        check(ok and agree >= floor and err <= bound,
+              f"{name}: TFLiteRunner on the card against the eager f32 model (TF32 off): "
+              f"max|dprob| {err:.3g} <= {bound}, mask agreement min {agree:.6f} >= {floor}  "
+              f"[{card}]")
+
+    model, weights = model_of("mobilenetv2", 21, 0)
+    counts_of = {}
+    for fmt in ("tflite", "tflite_f16", "pb", "saved_model"):
+        path, _, counts = export("mobilenetv2", 21, INPUT, weights, fmt, f"mobilenetv2_{fmt}")
+        counts_of[fmt] = (path, counts)
+        launches[f"tools/export_model.py --format {fmt} mobilenetv2 (warm-up, .tflite phase)"] = \
+            counts
+        check(counts == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": 1,
+                         "fused_decoder_frontend": 1},
+              f"export_model --format {fmt}: the warm-up forward launched the ASPP and decoder "
+              f"kernels once each and no other: {counts}")
+    fp32_path, f16_path = counts_of["tflite"][0], counts_of["tflite_f16"][0]
+    print(f"  bytes: tflite {os.path.getsize(fp32_path)}, tflite_f16 "
+          f"{os.path.getsize(f16_path)}, pb {os.path.getsize(counts_of['pb'][0])}, "
+          f"saved_model.pb "
+          f"{os.path.getsize(os.path.join(counts_of['saved_model'][0], 'saved_model.pb'))}")
+
+    t0 = time.perf_counter()
+    runner = TFLiteRunner(fp32_path)  # the card by default
+    program = runner.program
+    print(f"  TFLiteRunner on {program.device} in {time.perf_counter() - t0:.2f} s: "
+          f"{len(program.steps)} operators a call, input {program.input_name} "
+          f"{program.input_shape}, output {program.output_name}")
+    check(program.device.type == "cuda", "TFLiteRunner runs on the card by default")
+    xs = [torch.from_numpy(data).cuda() for data, _ in requests[:EXPORT_REQUESTS]]
+    eager = Inference(model, with_softmax=True, with_argmax=False)
+    agreement("mobilenetv2 tflite", runner, eager, xs)
+    f16 = TFLiteRunner(f16_path)
+    agreement("mobilenetv2 tflite_f16", f16, eager, xs, floor=0.99, bound=1e-3)
+
+    # the CPU's file from the same .npz
+    cpu_path, cpu_s, _ = export("mobilenetv2", 21, INPUT, weights, "tflite", "mobilenetv2_cpu",
+                                device="cpu")
+    with open(fp32_path, "rb") as f:
+        card_bytes = f.read()
+    with open(cpu_path, "rb") as f:
+        cpu_bytes = f.read()
+    same = card_bytes == cpu_bytes
+    check(same, f"the .tflite written on the card is byte-equal to the CPU's from the same .npz "
+                f"({len(card_bytes)} and {len(cpu_bytes)} bytes; the CPU's export "
+                f"{cpu_s:.2f} s)"
+                + ("" if same else f": {tflite_buffer_diff(card_bytes, cpu_bytes)}"))
+
+    # the SavedModel's graph, decoded by the port's codec, against the .pb's
+    pb_program = GraphProgram(load_graph(counts_of["pb"][0]), device="cuda")
+    sm = saved_model.load(counts_of["saved_model"][0])
+    sig = sm.meta_graphs[0].signature_def["serving_default"]
+    sm_program = GraphProgram(sm.meta_graphs[0].graph_def, sig.inputs["image_input"].name,
+                              sig.outputs["output_0"].name, "cuda")
+    with torch.no_grad():
+        same_out = all(torch.equal(sm_program(x), pb_program(x)) for x in xs)
+    check(same_out and sm.meta_graphs[0].meta_info_def.tags == ["serve"],
+          f"saved_model: the port's codec decodes saved_model.pb (tags "
+          f"{sm.meta_graphs[0].meta_info_def.tags}, signature {sig.inputs['image_input'].name} "
+          f"-> {sig.outputs['output_0'].name}) and its GraphDef runs through GraphProgram "
+          f"bit-equal to the .pb's on {len(xs)} requests")
+    del sm_program, pb_program
+
+    # the eval CLI on the trained weights, as a .tflite and as the .npz
+    root, list_path = learn["root"], learn["list"]
+    toy_classes = os.path.join(root, "classes.txt")
+    trained, _, _ = export("mobilenetv2", 4, (LEARN_HW, LEARN_HW), learn["weights"], "tflite",
+                           "learn")
+    batch = LEARN_BATCH // 2
+    metrics = {}
+    for name in (trained, learn["weights"]):
+        args = eval_cli.parse_args(
+            ["--model_type", "mobilenetv2", "--model_path", name, "--model_input_shape",
+             str(LEARN_HW), "--batch_size", str(batch), "--dataset_path", root,
+             "--dataset_file", list_path, "--classes_path", toy_classes,
+             "--out_dir", os.path.join(OUT_DIR, "smoke_tflite_eval")])
+        m, eval_s, counts, _ = run_cli(torch, kernels, eval_cli.main, args)
+        metrics[name] = m
+        launches[f"eval --model_path {os.path.basename(name)} b{batch} (.tflite phase)"] = \
+            counts
+        print(f"  eval CLI on {os.path.basename(name)} (the toy set, {LEARN_HW}x{LEARN_HW}, "
+              f"b{batch}): mIoU {m.miou:.6f} in {eval_s:.2f} s, launches {counts}")
+    m_tfl, m_npz = metrics[trained], metrics[learn["weights"]]
+    batches = -(-8 // batch)
+    tfl_counts = launches[f"eval --model_path {os.path.basename(trained)} b{batch} (.tflite phase)"]
+    check(abs(m_tfl.miou - m_npz.miou) <= 1e-3
+          and tfl_counts == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches},
+          f"eval --model_path x.tflite (f32, file batch 1 run in chunks): mIoU {m_tfl.miou:.6f} "
+          f"against the .npz's {m_npz.miou:.6f} (bf16), |d| {abs(m_tfl.miou - m_npz.miou):.2e} "
+          f"<= 1e-3; the confusion kernel once a batch ({batches}): {tfl_counts}")
+    f32 = build_segmentation_model("mobilenetv2", 4, output_stride=16, fused_aspp=True,
+                                   fused_decoder=True, device="cuda")
+    load_weights(learn["weights"], f32)
+    ref, _ = quiet(lambda: eval_cli.eval_miou(
+        f32.eval(), root, get_data_list(list_path, shuffle=False), get_classes(toy_classes),
+        model_input_shape=(LEARN_HW, LEARN_HW), batch_size=batch))
+    flips = int(np.abs(m_tfl.confusion - ref.confusion).sum()) // 2
+    check(flips <= 1e-4 * ref.confusion.sum(),
+          f"eval --model_path x.tflite against eval_miou of the f32 model on the .npz's "
+          f"weights: {flips} of {int(ref.confusion.sum())} pixels counted elsewhere (<= 1e-4 "
+          f"of them), mIoU {m_tfl.miou:.6f} against {ref.miou:.6f}")
+
+    results, _, _, text = run_cli(torch, kernels, validate_deeplab.main,
+                                  validate_deeplab.parse_args(
+        ["--model_path", f"{weights},{fp32_path}", "--model_type", "mobilenetv2",
+         "--image_file", os.path.join(REPO, "example", "dog.jpg"), "--classes_path",
+         classes_path, "--model_input_shape", str(INPUT[0]), "--output_path", OUT_DIR]))
+    print("  validate_deeplab --model_path x.npz,x.tflite on the card:")
+    for line in text.strip().splitlines():
+        print("    " + line)
+    (p_npz, m_npz), (p_tfl, m_tfl) = results[weights], results[fp32_path]
+    agree, err = float((m_tfl == m_npz).mean()), float(np.abs(p_tfl - p_npz).max())
+    check(len(results) == 2 and agree >= 0.999 and err <= 1e-5,
+          f"validate_deeplab: .tflite against the .npz, max|dprob| {err:.3g} <= 1e-5, mask "
+          f"agreement {agree:.6f} >= 0.999")
+
+    # unet_standard (TRANSPOSE_CONV, MAX_POOL_2D) and fast_scnn at 1024x2048
+    model, weights = model_of("unet_standard", 21, 1)
+    path, _, counts = export("unet_standard", 21, INPUT, weights, "tflite", "unet_standard")
+    launches["tools/export_model.py --format tflite unet_standard"] = counts
+    check({"TRANSPOSE_CONV", "MAX_POOL_2D"} <= set(tflite_ops(path)),
+          "unet_standard .tflite holds TRANSPOSE_CONV and MAX_POOL_2D")
+    agreement("unet_standard", TFLiteRunner(path), Inference(model, True, False), xs[:2])
+    city = make_requests(preprocess_image, CITYSCAPES_REQUEST_SHAPES[:2], CITYSCAPES_HW)
+    model, weights = model_of("fast_scnn", 19, 2)
+    path, _, counts = export("fast_scnn", 19, CITYSCAPES_HW, weights, "tflite", "fast_scnn")
+    launches["tools/export_model.py --format tflite fast_scnn"] = counts
+    check({"AVERAGE_POOL_2D", "GATHER"} <= set(tflite_ops(path)),
+          "fast_scnn .tflite holds AVERAGE_POOL_2D and GATHER")
+    agreement("fast_scnn 1024x2048", TFLiteRunner(path), Inference(model, True, False),
+              [torch.from_numpy(data).cuda() for data, _ in city])
+    leaked = [m for m in ("tensorflow", "google.protobuf", "flatbuffers") if m in sys.modules]
+    check(not leaked, f"no tensorflow, protobuf or flatbuffers module imported "
+                      f"({leaked or 'none'})")
+    print(f"the .tflite phase took {time.perf_counter() - t_phase:.1f} s  [{card}]")
     return launches
 
 

@@ -75,8 +75,8 @@ def main(args):
         elif suffix in (".npz", ".ckpt"):
             save = save_npz if suffix == ".npz" else save_variables
             save(path, to_jax_variables(deeplab.model))
-        elif suffix in (".onnx", ".pb"):
-            tool = "export_onnx" if suffix == ".onnx" else "export_model --format pb"
+        elif suffix in (".onnx", ".pb", ".tflite"):
+            tool = "export_onnx" if suffix == ".onnx" else f"export_model --format {suffix[1:]}"
             raise SystemExit(
                 f"the JAX package's deeplab --dump_model writes no {suffix} program either (it "
                 f"writes .shlo or .ckpt); write one with deeplabv3p_torch.tools.{tool}")

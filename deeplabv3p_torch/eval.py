@@ -35,8 +35,11 @@ static batch), or a frozen `.pb` (`FrozenGraphModel`, the root
 eval.py:91-121: the graph runs in `export.tf_export`'s executor on
 `--device`, in chunks of its static batch as the reference runner does,
 from `--pb_input_node` to `--pb_output_node`, each found by the reference's
-rule when not given; its probabilities take the logits' place); the JAX
-package's other exported formats raise, naming their ROADMAP item.
+rule when not given; its probabilities take the logits' place), or a
+`.tflite` (`FrozenGraphModel` too, the root eval.py:84-113: the file runs in
+`export.tflite.interp` on `--device`, in chunks of its static batch, its
+probabilities taking the logits' place); the JAX package's `.shlo` raises,
+naming its ROADMAP item.
 matplotlib is imported inside the plot functions only, and the metrics are
 printed before any plot is tried.
 """
@@ -306,21 +309,22 @@ def load_onnx_model(path: str, device: torch.device, batch_size: int) -> OnnxMod
 
 
 class FrozenGraphModel(torch.nn.Module):
-    """A frozen `.pb` run by `export.tf.interp.GraphProgram` (NHWC images in,
-    NHWC probabilities out) in the interface `eval_miou` calls a model by, as
-    `OnnxModel`; any batch runs, in chunks of the graph's static batch."""
+    """A frozen `.pb` run by `export.tf.interp.GraphProgram`, or a `.tflite`
+    run by `export.tflite.interp.TFLiteProgram` (NHWC images in, NHWC
+    probabilities out), in the interface `eval_miou` calls a model by, as
+    `OnnxModel`; any batch runs, in chunks of the file's static batch."""
 
     def __init__(self, program):
         super().__init__()
         self.program = program
         for i, t in enumerate(program.consts.values()):  # those on the device (cuda:0 too)
-            if t.device.type == program.device.type:
+            if isinstance(t, torch.Tensor) and t.device.type == program.device.type:
                 self.register_buffer(f"constant_{i}", t, persistent=False)
         self.training = False
 
     def train(self, mode: bool = True):
         if mode:
-            raise ValueError("a frozen graph runs in inference mode only")
+            raise ValueError("a frozen graph or a .tflite runs in inference mode only")
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -335,6 +339,13 @@ def load_pb_model(path: str, device: torch.device, input_name=None,
     from deeplabv3p_torch.export.tf_export import load_graph
 
     return FrozenGraphModel(GraphProgram(load_graph(path), input_name, output_name, device))
+
+
+def load_tflite_model(path: str, device: torch.device) -> FrozenGraphModel:
+    from deeplabv3p_torch.export.tflite.interp import TFLiteProgram
+
+    with open(path, "rb") as f:
+        return FrozenGraphModel(TFLiteProgram(f.read(), device))
 
 
 def resolve_device(name: str) -> torch.device:
@@ -357,7 +368,8 @@ def main(args) -> metrics_lib.SegmentMetrics:
     exported = args.model_path.endswith(".pt2")
     onnx = args.model_path.endswith(".onnx")
     frozen = args.model_path.endswith(".pb")
-    if not (exported or onnx or frozen):
+    tflite = args.model_path.endswith(".tflite")
+    if not (exported or onnx or frozen or tflite):
         check_weights_path(args.model_path)  # the JAX formats raise, naming their item
     device = resolve_device(args.device)
     class_names = get_classes(args.classes_path)
@@ -365,6 +377,8 @@ def main(args) -> metrics_lib.SegmentMetrics:
         model = load_onnx_model(args.model_path, device, args.batch_size)
     elif frozen:
         model = load_pb_model(args.model_path, device, args.pb_input_node, args.pb_output_node)
+    elif tflite:
+        model = load_tflite_model(args.model_path, device)
     elif exported:
         from deeplabv3p_torch.export.pt2 import load_exported
 
@@ -394,9 +408,9 @@ def parse_args(argv=None):
     p.add_argument("--model_path", required=True,
                    help="weights: an .npz of the JAX variables tree, the JAX package's "
                         ".ckpt or a Keras .h5 (needs h5py); or a .pt2 program "
-                        "(export/pt2.py), an .onnx file (either exporter's) or a frozen .pb "
-                        "of plain TF ops (the port's export_model --format pb); the JAX "
-                        "package's other exported formats are not ported")
+                        "(export/pt2.py), an .onnx file (either exporter's), a frozen .pb "
+                        "of plain TF ops (the port's export_model --format pb) or a float "
+                        ".tflite (either exporter's); the JAX package's .shlo is not ported")
     p.add_argument("--model_type", default="mobilenetv3large_lite",
                    help=ported_models_text())
     p.add_argument("--model_input_shape", default="512x512",

@@ -14,9 +14,9 @@ deployment boxes are assumed to have, so the port converts the program that
    versions, the operators' CPU implementations: ONNX has no such op, and no
    `deeplabv3p` node reaches the file;
 3. each node whose inputs are all constants, parameters or buffers is
-   evaluated and becomes an initializer (the JAX design point: BN folds,
-   weight casts, the kernels' prepared arguments and index arithmetic fold
-   away);
+   evaluated on the CPU and becomes an initializer (the JAX design point: BN
+   folds, weight casts, the kernels' prepared arguments and index arithmetic
+   fold away), so a file written on the card is the CPU's, byte for byte;
 4. the rest becomes opset-13 nodes of the op types in `ENGINE_OPS`, the table
    of the native engine (`inference/onnx_engine.cc`), which both Python
    executors also run. Softmax is ReduceMax, Sub, Exp, ReduceSum, Div; ReLU
@@ -46,6 +46,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils import _pytree as pytree
 
 from deeplabv3p_torch.export.onnx import proto
 
@@ -249,9 +250,9 @@ class _Converter:
             if spec.kind == torch.export.graph_signature.InputKind.USER_INPUT:
                 env[spec.arg.name] = _Sym(next(inputs), *_meta(placeholders[spec.arg.name]))
             elif spec.target in ep.state_dict:
-                env[spec.arg.name] = ep.state_dict[spec.target]
+                env[spec.arg.name] = ep.state_dict[spec.target].cpu()
             else:
-                env[spec.arg.name] = ep.constants[spec.target]
+                env[spec.arg.name] = _on_cpu(ep.constants[spec.target])
         outputs = None
         with torch.no_grad(), _full_f32():
             for node in ep.graph.nodes:
@@ -270,13 +271,26 @@ class _Converter:
     def call(self, node, args, kwargs, symbolic: bool):
         if node.target is operator.getitem:  # of a multi-output node's tuple
             return args[0][args[1]]
-        if not symbolic:  # constant folding
+        if not symbolic:  # constant folding, on the CPU (`_on_cpu`)
+            args, kwargs = _on_cpu((args, kwargs))
             return node.target(*args, **kwargs)
         handler = _HANDLERS.get(node.target)
         if handler is None:
             raise NotImplementedError(f"ONNX export: no lowering for {node.target} "
                                       f"(node {node.name})")
         return handler(self, node, *args, **kwargs)
+
+
+def _on_cpu(tree):
+    """`tree` with its tensors and devices on the CPU: the graph's constants
+    are folded there, since the card's rsqrt is an ulp off the CPU's and the
+    file is the same wherever the model ran."""
+    def cpu(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        return torch.device("cpu") if isinstance(v, torch.device) else v
+
+    return pytree.tree_map(cpu, tree)
 
 
 _HANDLERS: dict = {}
@@ -382,9 +396,8 @@ def _reduce(cv, node, x, dims=None, keepdim=False, dtype=None):
 def _batch_norm(cv, node, x, weight, bias, mean, var, momentum, eps):
     if any(isinstance(t, _Sym) for t in (weight, bias, mean, var)):
         raise NotImplementedError("ONNX export: batch norm with computed statistics")
-    # folded on the CPU: the card's rsqrt is an ulp off the CPU's, and the file
-    # is the same wherever the model ran
-    weight, bias, mean, var = (None if t is None else t.float().cpu()
+    # folded on the CPU, as every constant is (`_on_cpu`)
+    weight, bias, mean, var = (None if t is None else t.float()
                                for t in (weight, bias, mean, var))
     scale = torch.rsqrt(var + eps) * (1.0 if weight is None else weight)
     shift = (0.0 if bias is None else bias) - mean * scale

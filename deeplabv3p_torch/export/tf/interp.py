@@ -237,7 +237,8 @@ class GraphProgram:
         from deeplabv3p_torch.eval import resolve_device
 
         self.device = torch.device(device)
-        resolve_device(self.device.type)  # a cuda device without a card raises
+        if self.device.type != "meta":  # the meta device only traces shapes (`value_types`)
+            resolve_device(self.device.type)  # a cuda device without a card raises
         self.input_name = input_name or input_tensor_name(graph)
         self.output_name = output_name or output_tensor_name(graph)
         by_name = {n.name: n for n in graph.node}
@@ -346,6 +347,21 @@ class GraphProgram:
                 for name in frees:
                     del env[name]
         return env[self.output]
+
+    def value_types(self) -> dict[str, tuple[tuple, torch.dtype]]:
+        """Each computed node's static shape and dtype, from one run on the
+        meta device (the program built with `device="meta"`: no data is
+        read or written)."""
+        if self.device.type != "meta" or not self.input_shape:
+            raise ValueError("value_types needs a program on the meta device and a static input")
+        env = dict(self.consts)
+        env[self.input] = torch.empty(self.input_shape, device="meta")
+        out = {self.input: (tuple(self.input_shape), torch.float32)}
+        with torch.no_grad():
+            for node, fn, ins, attrs in self.steps:
+                y = env[node.name] = fn(*[env[n] for n in ins], attrs)
+                out[node.name] = (tuple(y.shape), y.dtype)
+        return out
 
     def run_batched(self, images: torch.Tensor) -> torch.Tensor:
         """`images` of any batch through the graph's static batch: chunks of

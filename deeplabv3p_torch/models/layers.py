@@ -121,10 +121,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features, device=device))
         self.group = None
 
-    def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(scale, bias) with BN(x) == x * scale + bias, in f32."""
-        inv = self.weight * torch.rsqrt(self.running_var + self.epsilon)
-        return inv, self.bias - self.running_mean * inv
+    def folded(self, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(scale, bias) with BN(x) == x * scale + bias, in f32, computed on
+        `device` (by default the weights')."""
+        weight, bias, mean, var = (t.to(device) for t in (
+            self.weight, self.bias, self.running_mean, self.running_var))
+        inv = weight * torch.rsqrt(var + self.epsilon)
+        return inv, bias - mean * inv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
@@ -561,9 +564,11 @@ class ASPP(KeepsPrepared):
         tensor (its `_version` moves)."""
         def make():
             branches = self._branches()
-            # plain tensors even under inference_mode: the cache outlives it
+            # plain tensors even under inference_mode: the cache outlives it;
+            # the folds on the CPU, since an exported file holds these tensors
+            # and the card's rsqrt is an ulp off the CPU's
             with torch.inference_mode(False), torch.no_grad():
-                folds = [br.depthwise_BN.folded() for br in branches]
+                folds = [br.depthwise_BN.folded("cpu") for br in branches]
                 args = (torch.stack([_dw_kernel(br) for br in branches]),
                         torch.stack([s for s, _ in folds]),
                         torch.stack([b for _, b in folds]))

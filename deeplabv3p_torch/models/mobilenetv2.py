@@ -98,14 +98,16 @@ class InvertedResBlock(KeepsPrepared):
     def kernel_args(self) -> tuple[torch.Tensor, ...]:
         """(we, se, be, wd, sd, bd, wp, sp, bp) of `fused_inverted_residual`
         from this block's parameters: the 1x1 kernels as (Cin, Cout)
-        matrices, the depthwise kernel as (3, 3, C), each BN folded, all
-        f32 and contiguous."""
+        matrices, the depthwise kernel as (3, 3, C), each BN folded (on the
+        CPU: an exported file holds them, and the card's rsqrt is an ulp off
+        the CPU's), all f32 and contiguous on the weights' device."""
         we = self._sub("expand").weight[:, :, 0, 0].t()
         wd = self._sub("depthwise").weight[:, 0].permute(1, 2, 0)
         wp = self._sub("project").weight[:, :, 0, 0].t()
-        folds = [self._sub(name + "_BN").folded() for name in ("expand", "depthwise", "project")]
+        folds = [self._sub(name + "_BN").folded("cpu")
+                 for name in ("expand", "depthwise", "project")]
         args = (we, *folds[0], wd, *folds[1], wp, *folds[2])
-        return tuple(t.detach().float().contiguous() for t in args)
+        return tuple(t.detach().to(we.device, torch.float32).contiguous() for t in args)
 
     # -- the kernel's prepared arguments, built once for inference ---------------
 

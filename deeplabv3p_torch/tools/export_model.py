@@ -18,10 +18,17 @@ Loads weights (an `.npz` of the JAX variables tree, the JAX package's
   images in, softmax probabilities out, weights as constants), from the
   model built on `--device` with the fused ASPP and decoder kernels, which
   the export's eager warm-up forward launches there; the input and output
-  tensor names are printed as the JAX tool prints them.
+  tensor names are printed as the JAX tool prints them;
+* `--format tflite` / `tflite_f16`: the same graph as TFLite builtins
+  (`export.tf_export.export_tflite`; `tflite_f16` stores the conv, matmul
+  and GATHER weights as float16 behind DEQUANTIZE), with `--with_argmax`
+  ending at the int32 mask;
+* `--format saved_model`: a SavedModel directory of the frozen graph
+  (`export.tf_export.export_saved_model`: `saved_model.pb` with a
+  `serving_default` signature, an empty `variables/`).
 
-`shlo` (a JAX artifact) and the other TensorFlow formats (`tflite*`,
-`saved_model`, which need tensorflow) are refused.
+`shlo` (a JAX artifact) is refused, and so is `tflite_int8` (ROADMAP Queue A
+item 12c: a full-integer quantizer and an integer executor).
 
     python -m deeplabv3p_torch.tools.export_model --model_path trained_final.npz \\
         --model_type mobilenetv2_lite --num_classes 21 --model_input_shape 512 \\
@@ -37,7 +44,7 @@ import torch
 
 FORMATS = ["pt2", "int8", "ckpt", "shlo", "tflite", "tflite_int8", "tflite_f16",
            "saved_model", "pb"]
-TF_FORMATS = ("tflite", "tflite_int8", "tflite_f16", "saved_model")
+TF_FORMATS = ("tflite", "tflite_f16", "saved_model", "pb")  # the frozen graph's forms
 
 
 def calibration_batches(args, shape, device) -> list[torch.Tensor]:
@@ -63,10 +70,11 @@ def main(args) -> None:
     if args.format == "shlo":
         raise SystemExit("--format shlo is a JAX artifact, which needs JAX to run; "
                          "the port exports --format pt2")
-    if args.format in TF_FORMATS:
-        raise SystemExit(f"--format {args.format} needs tensorflow, which the card machine "
-                         "lacks; not ported (ROADMAP Queue A item 12b); --format pb writes "
-                         "a frozen graph without it")
+    if args.format == "tflite_int8":
+        raise SystemExit("--format tflite_int8 is not ported yet (ROADMAP Queue A item 12c: a "
+                         "full-integer quantizer and an integer executor); --format tflite "
+                         "and tflite_f16 write float files, --format int8 the port's int8 "
+                         "payload")
     from deeplabv3p_torch.eval import resolve_device
     from deeplabv3p_torch.models.factory import build_segmentation_model
     from deeplabv3p_torch.models.layers import init_parameters
@@ -78,7 +86,7 @@ def main(args) -> None:
     shape = parse_input_shape(args.model_input_shape)
     model = build_segmentation_model(
         args.model_type, args.num_classes, output_stride=args.output_stride,
-        fused_aspp=True, fused_decoder=args.format == "pb", device=device)
+        fused_aspp=True, fused_decoder=args.format in TF_FORMATS, device=device)
     # an .h5 loads by layer name: what it lacks keeps this init, as the JAX
     # tool's keeps model.init's
     init_parameters(model, torch.Generator().manual_seed(0), bn_identity=True)
@@ -90,6 +98,20 @@ def main(args) -> None:
 
         in_name, out_name = export_frozen_pb(model, shape, args.output)
         print(f"exported frozen pb to {args.output} (input={in_name}, output={out_name})")
+        return
+    if args.format in ("tflite", "tflite_f16"):
+        from deeplabv3p_torch.export.tf_export import export_tflite, save_tflite
+
+        content = export_tflite(model, shape, with_argmax=args.with_argmax,
+                                quantize="float16" if args.format == "tflite_f16" else None)
+        save_tflite(content, args.output)
+        print(f"exported {args.format} model ({len(content)} bytes) to {args.output}")
+        return
+    if args.format == "saved_model":
+        from deeplabv3p_torch.export.tf_export import export_saved_model
+
+        export_saved_model(model, shape, args.output)
+        print(f"exported SavedModel to {args.output}")
         return
     if args.format == "pt2":
         from deeplabv3p_torch.export.pt2 import export_model, save_exported
@@ -128,10 +150,11 @@ def parse_args(argv=None):
                    help="a single int, as the JAX tool takes, or HxW (e.g. 1024x2048)")
     p.add_argument("--output_stride", type=int, default=16)
     p.add_argument("--format", default="pt2", choices=FORMATS,
-                   help="pt2/int8/ckpt/pb; shlo, tflite* and saved_model are refused")
+                   help="pt2/int8/ckpt/pb/tflite/tflite_f16/saved_model; shlo and "
+                        "tflite_int8 are refused")
     p.add_argument("--output", required=True)
     p.add_argument("--with_argmax", action="store_true",
-                   help="end the exported program at the int32 mask")
+                   help="end the exported program (pt2, tflite*) at the int32 mask")
     p.add_argument("--dataset_path", default=None,
                    help="representative dataset root for int8 calibration")
     p.add_argument("--dataset_file", default=None)

@@ -10,6 +10,8 @@ engine:
   .onnx                `export.onnx.interp`, on --device
   .pb                  a frozen graph through `export.tf_export.FrozenGraphRunner`
                        (the port's executor, no tensorflow), on --device
+  .tflite              a float TFLite file through `export.tf_export.TFLiteRunner`
+                       (the port's executor, no tensorflow), on --device
   native:<file.onnx>   the C++ `deeplabSegment` binary's ONNX engine
                        (`--engine onnx`), fed the exact preprocessed tensor
                        through --input_raw / --dump_raw, so the diff is the
@@ -17,8 +19,7 @@ engine:
 
 The binary's other engine embeds the JAX package's runtime
 (inference/deeplabSegment.cpp:268), so `native:` takes an `.onnx` only; the
-JAX package's `.shlo` and `.tflite` are refused as the port's CLIs refuse
-them. With several files the tool prints each engine's probability
+JAX package's `.shlo` is refused as the port's CLIs refuse it. With several files the tool prints each engine's probability
 and argmax diffs against the FIRST one, and each engine's mIOU when a label
 is given (reference handle_prediction :322-352).
 
@@ -107,6 +108,10 @@ def make_engine(model_path: str, model_type: str, num_classes: int, input_shape,
         from deeplabv3p_torch.export.tf_export import FrozenGraphRunner
 
         return FrozenGraphRunner(model_path, device=dev.type)
+    if model_path.endswith(".tflite"):
+        from deeplabv3p_torch.export.tf_export import TFLiteRunner
+
+        return TFLiteRunner(model_path, device=dev.type)
 
     from deeplabv3p_torch.export.pt2 import Inference
     from deeplabv3p_torch.models.factory import build_segmentation_model
@@ -117,7 +122,7 @@ def make_engine(model_path: str, model_type: str, num_classes: int, input_shape,
                                      fused_aspp=True, device=dev)
     # an .h5 loads by layer name: what it lacks keeps this init
     init_parameters(model, torch.Generator().manual_seed(0), bn_identity=True)
-    load_weights(model_path, model)  # .shlo and .tflite raise here
+    load_weights(model_path, model)  # .shlo raises here
     forward = Inference(model.eval(), with_softmax=True, with_argmax=False)
 
     def fn_weights(x):
@@ -201,8 +206,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model_path", required=True,
-                   help="one model file, or a comma-separated list (.npz/.ckpt/.h5/.pt2/.onnx/.pb, "
-                        "or native:<file.onnx> for the C++ binary) for a cross-engine diff")
+                   help="one model file, or a comma-separated list (.npz/.ckpt/.h5/.pt2/.onnx/.pb/"
+                        ".tflite, or native:<file.onnx> for the C++ binary) for a cross-engine "
+                        "diff")
     p.add_argument("--model_type", default="mobilenetv2_lite", help=ported_models_text())
     p.add_argument("--image_file", required=True)
     p.add_argument("--label_file", default=None)
@@ -212,7 +218,8 @@ def parse_args(argv=None):
     p.add_argument("--loop_count", type=int, default=1)
     p.add_argument("--output_path", default=".")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the port's forward and the ONNX and .pb executors run")
+                   help="where the port's forward and the ONNX, .pb and .tflite executors "
+                        "run")
     return p.parse_args(argv)
 
 

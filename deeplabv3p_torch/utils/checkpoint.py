@@ -40,16 +40,16 @@ WEIGHT_SUFFIXES = (".npz", ".ckpt", ".h5")
 # exported program is a `.pt2`, `export/pt2.py`)
 UNPORTED_SUFFIXES = {
     ".shlo": "Queue A item 12: a StableHLO artifact needs JAX to run; the port's is .pt2",
-    ".tflite": "Queue A item 12b",
 }
-# an `.onnx` or a frozen `.pb` is a program with its weights inside: where
-# the JAX package takes none (DeepLab, the deeplab CLI, Runner, train's
-# --weights_path), neither does the port
+# an `.onnx`, a frozen `.pb` or a `.tflite` is a program with its weights
+# inside: where the JAX package takes none (DeepLab, the deeplab CLI, Runner,
+# train's --weights_path), neither does the port
 _PROGRAM_REFUSAL = ("{} is an exported program, not weights, and the JAX package's DeepLab, "
                     "deeplab CLI, Runner and train take none either; run it with "
                     "deeplabv3p_torch.eval or deeplabv3p_torch.tools.validate_deeplab")
 ONNX_REFUSAL = _PROGRAM_REFUSAL.format("an ONNX file")
-PROGRAM_REFUSALS = {".onnx": ONNX_REFUSAL, ".pb": _PROGRAM_REFUSAL.format("a frozen .pb")}
+PROGRAM_REFUSALS = {".onnx": ONNX_REFUSAL, ".pb": _PROGRAM_REFUSAL.format("a frozen .pb"),
+                    ".tflite": _PROGRAM_REFUSAL.format("a .tflite")}
 
 
 def _sorted_keys(tree: Any) -> Any:

@@ -77,7 +77,7 @@ def test_repeated_forward_casts_nothing_and_prepares_nothing(monkeypatch):
     model, aspp = _aspp()
     real_fold = type(aspp.aspp1.depthwise_BN).folded
     monkeypatch.setattr(type(aspp.aspp1.depthwise_BN), "folded",
-                        lambda bn: folds.append(bn) or real_fold(bn))
+                        lambda bn, *a: folds.append(bn) or real_fold(bn, *a))
     x = _feature(128)
     with torch.inference_mode():
         first = aspp(x)

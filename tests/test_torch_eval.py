@@ -229,10 +229,11 @@ def test_cli_runs_with_its_default_model(toy, tmp_path, capsys):
 
 @pytest.mark.parametrize("suffix,item", [
     (".shlo", "Queue A item 12"),
-    # ported since (tests/test_torch_onnx.py, tests/test_torch_tf_export.py); the
-    # cases keep their names
+    # ported since (tests/test_torch_onnx.py, tests/test_torch_tf_export.py,
+    # tests/test_torch_tflite.py); the cases keep their names
     pytest.param(".onnx", None, id=".onnx-Queue A item 12"),
-    (".tflite", "Queue A item 12"), pytest.param(".pb", None, id=".pb-Queue A item 12"),
+    pytest.param(".tflite", None, id=".tflite-Queue A item 12"),
+    pytest.param(".pb", None, id=".pb-Queue A item 12"),
 ])
 def test_unported_model_formats_raise(suffix, item):
     args = teval.parse_args(["--model_path", "model" + suffix, "--device", "cpu"])

@@ -218,10 +218,10 @@ def test_dump_model_pt2_then_eval_gives_the_npz_metrics(toy, tmp_path):
 
 @pytest.mark.parametrize("suffix", [".shlo", ".onnx", ".tflite", ".pb"])
 def test_jax_formats_still_refused(suffix, tmp_path):
-    # the JAX package's deeplab and Runner take no .onnx or .pb program either:
-    # the reason says so (the port's .onnx runs in tests/test_torch_onnx.py, its
-    # .pb in tests/test_torch_tf_export.py)
-    match = "the JAX package's" if suffix in (".onnx", ".pb") else "item 12"
+    # the JAX package's deeplab and Runner take no .onnx, .pb or .tflite program
+    # either: the reason says so (the port's .onnx runs in tests/test_torch_onnx.py,
+    # its .pb in tests/test_torch_tf_export.py, its .tflite in tests/test_torch_tflite.py)
+    match = "item 12" if suffix == ".shlo" else "the JAX package's"
     with pytest.raises(SystemExit, match=match):
         deeplab_cli.main(deeplab_cli.parse_args([
             "--device", "cpu", "--model_input_shape", "32", "--dump_model",
