@@ -7,7 +7,8 @@
     python3 chip_smoke.py --onnx   # steps 1-2, the learning proof and the ONNX phase (15b)
     python3 chip_smoke.py --tf     # steps 1-2, the learning proof and the TF graph phase (15g)
     python3 chip_smoke.py --tflite # steps 1-2, the learning proof, the TF graph phase (which
-                                   # times the .tflite executor too) and the .tflite phase (15h)
+                                   # times the fp32 and int8 .tflite executors too) and the
+                                   # .tflite phase (15h, int8 included)
     python3 chip_smoke.py --parallel  # steps 1-2 and the data-parallel phase (15c) alone
     python3 chip_smoke.py --spatial   # steps 1-2 and the spatial phase (15d) alone
     python3 chip_smoke.py --tools     # steps 1-2 and the tools phase (15e) alone
@@ -228,7 +229,13 @@
    weights against the .npz (mIoU within 1e-3, the confusion kernel once a
    batch) and the f32 model's matrix; validate_deeplab on the .npz and the
    .tflite (<= 1e-5); unet_standard at 512x512 and fast_scnn at 1024x2048
-   with 19 classes as .tflite against their eager models (<= 1e-5);
+   with 19 classes as .tflite against their eager models (<= 1e-5); the
+   int8 .tflite (`--format tflite_int8`, calibrated on 4 synthetic images):
+   under half the fp32 file, the card's byte-equal to the CPU's, the card's
+   executor within 1 LSB of the CPU's and to the JAX package's int8
+   criteria against eager f32, the eval CLI on an int8 file of the trained
+   weights (masks >= 0.98 of the f32 model's); the int8 executor timed in
+   15g's turns;
 16. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
@@ -312,9 +319,15 @@ FAMILY_REQUESTS, FAMILY_TRAIN_IMAGES, CITYSCAPES_SEED = 4, 16, 7
 # eval --do_crf on the first 16 synthetic pairs (2 batches of b8)
 CRF_PAIRS = ("2007_000039", "2007_000346")
 CRF_REQUESTS, CRF_LABEL_COUNTS, CRF_EVAL_IMAGES = 4, (2, 5, 21), 16
-# export and int8: 4 calls of each loaded .pt2, 30-call turns of the A/Bs, the
+# export and int8: 4 calls of each loaded .pt2, 20-call turns of the A/Bs, the
 # int8 calibration batches' seed
-EXPORT_REQUESTS, EXPORT_ITERS, INT8_SEED = 4, 30, 11
+EXPORT_REQUESTS, EXPORT_ITERS, INT8_SEED = 4, 20, 11
+# the int8 .tflite: calibrated on 4 images (the export tool's default) of a
+# synthetic 512x512 set for mobilenetv2, on the toy set's for the trained
+# weights; its masks against the f32 model's on the trained weights held to
+# the bf16 floor (PERF.md section 2), its output against eager f32 to the JAX
+# package's int8 criteria (tests/test_tf_export.py:69-99)
+INT8_CALIB, INT8_MASK_FLOOR, INT8_CORRELATION, INT8_MEAN_DPROB = 4, 0.98, 0.9, 0.1
 # data parallelism: 2 steps on global batches of TRAIN_BATCH, an eval pass over
 # 32 images in batches of 8 a rank, the data's and the weights' seeds, in bf16 (the
 # train CLI's) and f32. (b) and (c) against (a) in f32: the loss within 1e-4
@@ -3823,9 +3836,10 @@ def tf_phase(torch, kernels, classes_path, requests, learn) -> dict:
     `FrozenGraphRunner` on the card against the eager f32 model on the same
     requests (TF32 off for both; max |dprob| <= 1e-5, mask agreement >=
     0.999), timed in turns with the eager model, with `export.onnx.interp`
-    on the same weights' .onnx and with `TFLiteRunner` on the .tflite that
-    `export_tflite` writes from this graph, each profiled once; the eval CLI
-    on the learning proof's trained weights (`learn`) as a .pb against the
+    on the same weights' .onnx and with `TFLiteRunner` on the fp32 and the
+    int8 .tflite that `export_tflite` writes from this graph (the int8 one
+    calibrated on the export tool's seeded batches), each profiled once; the
+    eval CLI on the learning proof's trained weights (`learn`) as a .pb against the
     .npz (mIoU within 1e-3, the confusion kernel once a batch) and against
     `eval_miou` of the f32 model on the same weights (<= 1e-4 of the pixels
     counted elsewhere: the .npz's CLI model is bf16); `validate_deeplab` on
@@ -3840,7 +3854,10 @@ def tf_phase(torch, kernels, classes_path, requests, learn) -> dict:
     from deeplabv3p_torch.export.onnx import OnnxProgram, export_onnx
     from deeplabv3p_torch.export.pt2 import Inference
     from deeplabv3p_torch.export.tf_export import FrozenGraphRunner, TFLiteRunner, load_graph
+    from types import SimpleNamespace
+
     from deeplabv3p_torch.export.tflite import lower as tflite_lower
+    from deeplabv3p_torch.export.tflite import quantize as int8_quantize
     from deeplabv3p_torch.export.tflite import schema
     from deeplabv3p_torch.inference import preprocess_image
     from deeplabv3p_torch.models.factory import build_segmentation_model
@@ -3912,24 +3929,37 @@ def tf_phase(torch, kernels, classes_path, requests, learn) -> dict:
     eager = Inference(model, with_softmax=True, with_argmax=False)
     agreement("mobilenetv2", runner, eager, xs)
     onnx = OnnxProgram(export_onnx(model, INPUT), "cuda")
-    # the file export_tflite writes for these weights: this graph, lowered
-    tflite = TFLiteRunner(schema.encode_model(tflite_lower.lower(load_graph(path)))).program
+    # the files export_tflite writes for these weights: this graph, lowered, and
+    # its int8 form, calibrated on the export tool's seeded batches (no dataset)
+    lowered = tflite_lower.lower(load_graph(path))
+    tflite = TFLiteRunner(schema.encode_model(lowered)).program
+    t0 = time.perf_counter()
+    rep = tool.representative_batches(SimpleNamespace(
+        dataset_path=None, dataset_file=None, calib_batches=INT8_CALIB), INPUT)
+    int8_bytes = schema.encode_model(int8_quantize.quantize(lowered, rep))
+    int8 = TFLiteRunner(int8_bytes).program
+    print(f"  int8 .tflite of this graph: quantized in {time.perf_counter() - t0:.2f} s "
+          f"(calibrated on the CPU on {INT8_CALIB} seeded batches), {len(int8_bytes)} bytes, "
+          f"{len(int8.steps)} operators a call  [{card}]")
     fns = {"eager": lambda: eager(xs[0]), "pb": lambda: program(xs[0]),
-           "onnx": lambda: onnx({"input_0": xs[0]}), "tflite": lambda: tflite(xs[0])}
+           "onnx": lambda: onnx({"input_0": xs[0]}), "tflite": lambda: tflite(xs[0]),
+           "int8": lambda: int8(xs[0])}
     ms = {k: [] for k in fns}
     med = {k: [] for k in fns}
+    turns = ("eager", "pb", "onnx", "tflite", "int8", "int8", "tflite", "onnx", "pb", "eager")
     with torch.no_grad():
-        for k in ("eager", "pb", "onnx", "tflite", "tflite", "onnx", "pb", "eager"):
+        for k in turns:
             ms[k].append(event_ms(fns[k], EXPORT_ITERS))
             med[k].append(synced_ms(torch, fns[k], EXPORT_ITERS))
-        print(f"  latency b1 (CUDA events, mean of {EXPORT_ITERS} calls a turn, in turns E P O T "
-              f"T O P E; then medians of calls synchronized one by one): "
+        print(f"  latency b1 (CUDA events, mean of {EXPORT_ITERS} calls a turn, in turns "
+              f"{' '.join(k[0].upper() for k in turns)}; then medians of calls synchronized one "
+              f"by one): "
               + "; ".join(f"{k} {ms[k][0]:.3f}/{ms[k][1]:.3f} ms, median {med[k][0]:.3f}/"
                           f"{med[k][1]:.3f}" for k in fns) + f"  [{card}]")
         for what, fn in fns.items():
             profile_one(torch, fn, f"one call, mobilenetv2 f32, {what}",
                         f"profile_one_tf_{what}.txt", top=6)
-    del onnx, tflite
+    del onnx, tflite, int8
 
     # the eval CLI on the trained weights, as a .pb and as the .npz
     root, list_path = learn["root"], learn["list"]
@@ -4040,6 +4070,14 @@ def tflite_buffer_diff(a: bytes, b: bytes) -> str:
         "the buffers are equal (only the layout differs)"
 
 
+def int8_criteria(got: np.ndarray, want: np.ndarray) -> tuple[float, float]:
+    """The JAX package's int8 criteria (tests/test_tf_export.py:88-99): the
+    centred log-prob correlation and the mean |dprob| of two softmaxes."""
+    gl, wl = np.log(np.clip(got, 1e-8, 1.0)), np.log(np.clip(want, 1e-8, 1.0))
+    gl, wl = gl - gl.mean(-1, keepdims=True), wl - wl.mean(-1, keepdims=True)
+    return float(np.corrcoef(gl.ravel(), wl.ravel())[0, 1]), float(np.abs(got - want).mean())
+
+
 def tflite_phase(torch, kernels, classes_path, requests, learn) -> dict:
     """`.tflite` (fp32 and float16) and the SavedModel on the card, with no
     tensorflow anywhere: `tools/export_model.py --format tflite --device cuda`
@@ -4061,12 +4099,28 @@ def tflite_phase(torch, kernels, classes_path, requests, learn) -> dict:
     <= 1e-5); unet_standard at 512x512 (TRANSPOSE_CONV, MAX_POOL_2D) and
     fast_scnn at 1024x2048 with 19 classes (AVERAGE_POOL_2D, GATHER)
     exported by the tool and run against their eager models within 1e-5.
+    int8: `--format tflite_int8 --device cuda` on the same .npz, calibrated on
+    4 images of a synthetic 512x512 set (bytes, builtin counts, under half
+    the fp32 file, the conv counts of the fp32 file, no MAXIMUM or MINIMUM),
+    byte-equal to the CPU's (the CPU's fp32 export of the same .npz, quantized
+    on the same batches); `TFLiteRunner` on the card against the same file
+    on the CPU (within 1 LSB of the softmax's 1/256) and against the eager f32
+    model (the JAX package's criteria: correlation > 0.9, mean |dprob| <
+    0.1); the eval CLI on an int8 .tflite of the trained weights (their fp32
+    .tflite quantized, calibrated on the toy set's images; the confusion
+    kernel once a batch, |d mIoU| printed), its
+    masks agreeing with the f32 model's on >= 0.98 of the toy set's pixels
+    (the int8 executor is timed and profiled in `tf_phase`'s turns).
     Returns {path: launch counts} for the kernels line."""
+    from types import SimpleNamespace
+
     from deeplabv3p_torch import eval as eval_cli
     from deeplabv3p_torch.export.pt2 import Inference
     from deeplabv3p_torch.export.tf import saved_model
     from deeplabv3p_torch.export.tf.interp import GraphProgram
     from deeplabv3p_torch.export.tf_export import TFLiteRunner, load_graph
+    from deeplabv3p_torch.export.tflite import quantize as int8_quantize
+    from deeplabv3p_torch.export.tflite import schema
     from deeplabv3p_torch.inference import preprocess_image
     from deeplabv3p_torch.models.factory import build_segmentation_model
     from deeplabv3p_torch.models.layers import init_parameters
@@ -4095,16 +4149,16 @@ def tflite_phase(torch, kernels, classes_path, requests, learn) -> dict:
             load_weights(weights, model)
         return model.eval(), weights
 
-    def export(model_type, num_classes, hw, weights, fmt, name, device="cuda"):
+    def export(model_type, num_classes, hw, weights, fmt, name, device="cuda", extra=()):
         """The tool on `device`: the output's path, the seconds, the launch
         counts; prints what it wrote."""
-        suffix = {"tflite": ".tflite", "tflite_f16": ".tflite", "pb": ".pb",
-                  "saved_model": ""}[fmt]
+        suffix = {"tflite": ".tflite", "tflite_f16": ".tflite", "tflite_int8": ".tflite",
+                  "pb": ".pb", "saved_model": ""}[fmt]
         path = os.path.join(OUT_DIR, f"smoke_{name}{suffix}")
         _, s, counts, text = run_cli(torch, kernels, tool.main, tool.parse_args(
             ["--model_path", weights, "--model_type", model_type, "--num_classes",
              str(num_classes), "--model_input_shape", f"{hw[0]}x{hw[1]}", "--format", fmt,
-             "--output", path, "--device", device]))
+             "--output", path, "--device", device, *extra]))
         what = f"{tflite_ops(path)}" if suffix == ".tflite" else ""
         print(f"  {model_type} --format {fmt} on {device}: exported in {s:.2f} s; "
               f"{text.strip()}; {what}  [{card}]")
@@ -4166,6 +4220,72 @@ def tflite_phase(torch, kernels, classes_path, requests, learn) -> dict:
                 f"{cpu_s:.2f} s)"
                 + ("" if same else f": {tflite_buffer_diff(card_bytes, cpu_bytes)}"))
 
+    # int8: the tool on the card, calibrated on INT8_CALIB images of a synthetic
+    # 512x512 set
+    calib_root = os.path.join(OUT_DIR, "smoke_tflite_calib")
+    calib = ["--dataset_path", calib_root, "--dataset_file",
+             write_train_dataset(calib_root, [INPUT] * INT8_CALIB, 21, TRAIN_SEED),
+             "--calib_batches", str(INT8_CALIB)]
+    int8_path, _, counts = export("mobilenetv2", 21, INPUT, weights, "tflite_int8",
+                                  "mobilenetv2_int8", extra=calib)
+    launches["tools/export_model.py --format tflite_int8 mobilenetv2 (warm-up, .tflite phase)"] = \
+        counts
+    check(counts == {**ZERO_LAUNCHES, "multirate_atrous_depthwise": 1,
+                     "fused_decoder_frontend": 1},
+          f"export_model --format tflite_int8: the warm-up forward launched the ASPP and "
+          f"decoder kernels once each and no other: {counts}")
+    ops8, ops32 = tflite_ops(int8_path), tflite_ops(fp32_path)
+    size8, size32 = os.path.getsize(int8_path), os.path.getsize(fp32_path)
+    convs = ("CONV_2D", "DEPTHWISE_CONV_2D")
+    check(size8 < 0.5 * size32 and all(ops8.get(c) == ops32.get(c) for c in convs)
+          and not ops8.get("MAXIMUM") and not ops8.get("MINIMUM"),
+          f"int8 .tflite: {size8} bytes, {size8 / size32:.4f} of the fp32 file's (< 0.5); "
+          f"CONV_2D {ops8.get('CONV_2D')} and DEPTHWISE_CONV_2D {ops8.get('DEPTHWISE_CONV_2D')} "
+          f"as the fp32 file's; no MAXIMUM or MINIMUM left  [{card}]")
+    # the CPU's: its fp32 export of the same .npz (above; the tool's int8 export is that
+    # file, quantized on the CPU), quantized on the same batches
+    t0 = time.perf_counter()
+    calib_batches = tool.representative_batches(tool.parse_args(
+        ["--model_path", weights, "--output", "-", "--num_classes", "21", *calib]), INPUT)
+    with open(cpu_path, "rb") as f:
+        cpu8_bytes = schema.encode_model(int8_quantize.quantize(schema.decode_model(f.read()),
+                                                                calib_batches))
+    cpu8_s = time.perf_counter() - t0
+    with open(int8_path, "rb") as f:
+        card8_bytes = f.read()
+    same = card8_bytes == cpu8_bytes
+    diff = "" if same else f": {tflite_buffer_diff(card8_bytes, cpu8_bytes)}"
+    check(same, f"the int8 .tflite written on the card is byte-equal to the CPU's from the same "
+                f".npz (the CPU's fp32 export quantized in {cpu8_s:.2f} s; {len(card8_bytes)} "
+                f"and {len(cpu8_bytes)} bytes){diff}")
+    card8 = TFLiteRunner(int8_path)  # the card by default
+    check(card8.program.device.type == "cuda", "TFLiteRunner runs an int8 file on the card")
+    t0 = time.perf_counter()
+    on_card = [card8(x.cpu().numpy()) for x in xs]
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = [TFLiteRunner(int8_path, device="cpu")(x.cpu().numpy()) for x in xs]
+    t_cpu = time.perf_counter() - t0
+    lsb = 1 / 256  # the SOFTMAX's fixed output scale
+    d = max(float(np.abs(a - b).max()) for a, b in zip(on_card, on_cpu))
+    differ = sum(int((a != b).sum()) for a, b in zip(on_card, on_cpu))
+    check(all(np.isfinite(a).all() and a.shape == b.shape for a, b in zip(on_card, on_cpu))
+          and d <= lsb * 1.001,
+          f"int8 TFLiteRunner on the card against the same file on the CPU, {len(xs)} "
+          f"requests: max|d| {d:.3g} ({d / lsb:.2f} LSB of 1/256; the convs' sums are exact, "
+          f"the SOFTMAX is f32), {differ} of {sum(a.size for a in on_card)} values differ; "
+          f"{t_card:.2f} s on the card, {t_cpu:.2f} s on the CPU  [{card}]")
+    with torch.no_grad():
+        refs = [eager(x).cpu().numpy() for x in xs]
+    corr, mean = int8_criteria(np.stack(on_card), np.stack(refs))
+    agree = float(np.mean([(a.argmax(-1) == r.argmax(-1)).mean() for a, r in zip(on_card, refs)]))
+    check(corr > INT8_CORRELATION and mean < INT8_MEAN_DPROB,
+          f"int8 .tflite on the card against the eager f32 model (tests/test_tf_export.py's "
+          f"criteria): centred log-prob correlation {corr:.4f} > {INT8_CORRELATION}, mean "
+          f"|dprob| {mean:.4f} < {INT8_MEAN_DPROB} (masks agree on {agree:.4f} of pixels, "
+          f"seeded weights)")
+    del card8
+
     # the SavedModel's graph, decoded by the port's codec, against the .pb's
     pb_program = GraphProgram(load_graph(counts_of["pb"][0]), device="cuda")
     sm = saved_model.load(counts_of["saved_model"][0])
@@ -4219,6 +4339,41 @@ def tflite_phase(torch, kernels, classes_path, requests, learn) -> dict:
           f"eval --model_path x.tflite against eval_miou of the f32 model on the .npz's "
           f"weights: {flips} of {int(ref.confusion.sum())} pixels counted elsewhere (<= 1e-4 "
           f"of them), mIoU {m_tfl.miou:.6f} against {ref.miou:.6f}")
+
+    # the eval CLI on an int8 .tflite of the trained weights: their fp32 .tflite (above),
+    # quantized as the tool's tflite_int8 would, calibrated on the toy set's images (on
+    # its first 4 alone, the masks agreed on 0.985 of the f32 model's pixels)
+    toy_set = ["--dataset_path", root, "--dataset_file", list_path]
+    images = tool.dataset_batches(SimpleNamespace(
+        dataset_path=root, dataset_file=list_path, num_classes=4, calib_batches=1 << 20),
+        (LEARN_HW, LEARN_HW))
+    trained8 = os.path.join(OUT_DIR, "smoke_learn_int8.tflite")
+    with open(trained, "rb") as f:
+        content = schema.encode_model(int8_quantize.quantize(schema.decode_model(f.read()),
+                                                             images))
+    with open(trained8, "wb") as f:
+        f.write(content)
+    args = eval_cli.parse_args(
+        ["--model_type", "mobilenetv2", "--model_path", trained8, "--model_input_shape",
+         str(LEARN_HW), "--batch_size", str(batch), *toy_set, "--classes_path", toy_classes,
+         "--out_dir", os.path.join(OUT_DIR, "smoke_tflite_eval")])
+    m8, eval_s, counts, _ = run_cli(torch, kernels, eval_cli.main, args)
+    launches[f"eval --model_path {os.path.basename(trained8)} b{batch} (.tflite phase)"] = \
+        counts
+    runner8, eager32 = TFLiteRunner(trained8), Inference(f32.eval(), True, False)
+    with torch.no_grad():
+        agree = float(np.mean([
+            (runner8(x).argmax(-1) == eager32(torch.from_numpy(x).cuda()).argmax(-1).cpu()
+             .numpy()).mean() for x in images]))
+    check(counts == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches}
+          and agree >= INT8_MASK_FLOOR,
+          f"eval --model_path x.tflite (int8, the trained weights, {len(content)} bytes, "
+          f"calibrated on the {len(images)} toy images): mIoU {m8.miou:.6f} in {eval_s:.2f} s, |d mIoU| "
+          f"{abs(m8.miou - m_npz.miou):.2e} against the .npz's (bf16) and "
+          f"{abs(m8.miou - ref.miou):.2e} against the f32 model's; its masks agree with the f32 "
+          f"model's on {agree:.6f} of the {len(images)} images' pixels (>= {INT8_MASK_FLOOR}); "
+          f"the confusion kernel once a batch ({batches}): {counts}  [{card}]")
+    del runner8, eager32
 
     results, _, _, text = run_cli(torch, kernels, validate_deeplab.main,
                                   validate_deeplab.parse_args(

@@ -36,9 +36,9 @@ eval.py:91-121: the graph runs in `export.tf_export`'s executor on
 `--device`, in chunks of its static batch as the reference runner does,
 from `--pb_input_node` to `--pb_output_node`, each found by the reference's
 rule when not given; its probabilities take the logits' place), or a
-`.tflite` (`FrozenGraphModel` too, the root eval.py:84-113: the file runs in
-`export.tflite.interp` on `--device`, in chunks of its static batch, its
-probabilities taking the logits' place); the JAX package's `.shlo` raises,
+`.tflite`, float or int8 (`FrozenGraphModel` too, the root eval.py:84-113:
+the file runs in `export.tflite.interp` on `--device`, in chunks of its
+static batch, its probabilities taking the logits' place); the JAX package's `.shlo` raises,
 naming its ROADMAP item.
 matplotlib is imported inside the plot functions only, and the metrics are
 printed before any plot is tried.

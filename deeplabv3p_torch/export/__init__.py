@@ -2,8 +2,9 @@
 (deeplabv3p_tpu/export/): `torch.export` artifacts (`.pt2`, the port's
 counterpart of the StableHLO artifact), ONNX files (`onnx/`: the converter,
 the protobuf codec and a torch executor), frozen TensorFlow graphs of plain
-TF ops, fp32 and float16 `.tflite` files and SavedModels (`tf_export.py`,
-`tf/`, `tflite/`, `flatbuf.py`: written and run with no tensorflow) and
+TF ops, fp32, float16 and full-integer int8 `.tflite` files and SavedModels
+(`tf_export.py`, `tf/`, `tflite/`, `flatbuf.py`: written and run with no
+tensorflow) and
 per-channel int8 weights with calibrated int8 x int8 -> int32 pointwise
 convolutions.
 """

@@ -16,10 +16,13 @@ anywhere, as a consumer of the reference's converters expects, and the
 port's executors run them on the card: `FrozenGraphRunner` and
 `TFLiteRunner` keep the reference runners' contracts with no tensorflow at
 all, and never fall back to it. `TFLiteRunner` also runs the JAX package's
-own float `.tflite` files.
+own `.tflite` files, float and int8.
 
-int8 `.tflite` (`quantize="int8"`) needs a full-integer quantizer and an
-integer executor, and raises, naming its ROADMAP item (12c).
+The int8 `.tflite` (`quantize="int8"`) is full-integer and post-training,
+with float I/O, as TF's converter writes the JAX package's: the same float
+file, its BatchNorms folded into the convs, calibrated on the representative
+batches on the CPU and quantized (`export/tflite/quantize.py`); the executor
+runs it in TFLite's reference integer arithmetic.
 """
 
 from __future__ import annotations
@@ -34,8 +37,6 @@ from deeplabv3p_torch.export.tf import graph_pb as pb
 
 INPUT_NODE = "image_input"  # the reference's input name
 OUTPUT_NODE = "Identity"  # the output node TF's convert_variables_to_constants_v2 names
-ITEM_12C = ("not ported yet (ROADMAP Queue A item 12c: int8 .tflite needs a full-integer "
-            "quantizer and an integer executor); the port writes fp32 and float16 .tflite")
 
 
 def export_frozen_pb(model: torch.nn.Module, input_shape: tuple[int, int], path: str,
@@ -105,15 +106,21 @@ def export_tflite(model: torch.nn.Module, input_shape: tuple[int, int], batch_si
     (batch_size, H, W, 3) f32 normalized NHWC images in, the softmax
     probabilities (B, H, W, C) or with `with_argmax` the int32 mask out.
     `quantize="float16"` stores the conv, matmul and GATHER weights as
-    float16 behind DEQUANTIZE, as TF's converter does; "int8" (which would
-    read `representative_data`) raises, naming ROADMAP item 12c."""
+    float16 behind DEQUANTIZE, as TF's converter does; "int8" writes the
+    full-integer file calibrated on `representative_data`, (b, H, W, 3) f32
+    normalized NHWC batches as the JAX package's take, b a multiple of
+    `batch_size` (`export/tflite/quantize.py`)."""
     from deeplabv3p_torch.export.tflite import lower, schema
 
-    if quantize == "int8":
-        raise NotImplementedError(f"export_tflite(quantize='int8'): {ITEM_12C}")
-    if quantize not in (None, "float16"):
+    if quantize not in (None, "float16", "int8"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
+    if quantize == "int8" and representative_data is None:
+        raise ValueError("int8 quantization needs representative_data")
     graph = frozen_graph(model, input_shape, batch_size, with_argmax)
+    if quantize == "int8":
+        from deeplabv3p_torch.export.tflite import quantize as int8
+
+        return schema.encode_model(int8.quantize(lower.lower(graph), representative_data))
     return schema.encode_model(lower.lower(graph, float16=quantize == "float16"))
 
 

@@ -62,7 +62,7 @@ BUILTINS = {
     "TRANSPOSE": 39, "SUB": 41, "DIV": 42, "STRIDED_SLICE": 45, "EXP": 47, "SPLIT": 49,
     "CAST": 53, "MAXIMUM": 55, "ARG_MAX": 56, "MINIMUM": 57, "PADV2": 60,
     "TRANSPOSE_CONV": 67, "SUM": 74, "SQRT": 75, "REDUCE_MAX": 82, "REDUCE_MIN": 89,
-    "BATCH_MATMUL": 126, "BROADCAST_TO": 130,
+    "QUANTIZE": 114, "BATCH_MATMUL": 126, "BROADCAST_TO": 130,
 }
 BUILTIN_NAMES = {v: k for k, v in BUILTINS.items()}
 PLACEHOLDER_FOR_GREATER_OP_CODES = 127

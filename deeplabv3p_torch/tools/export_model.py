@@ -19,16 +19,18 @@ Loads weights (an `.npz` of the JAX variables tree, the JAX package's
   model built on `--device` with the fused ASPP and decoder kernels, which
   the export's eager warm-up forward launches there; the input and output
   tensor names are printed as the JAX tool prints them;
-* `--format tflite` / `tflite_f16`: the same graph as TFLite builtins
-  (`export.tf_export.export_tflite`; `tflite_f16` stores the conv, matmul
-  and GATHER weights as float16 behind DEQUANTIZE), with `--with_argmax`
-  ending at the int32 mask;
+* `--format tflite` / `tflite_f16` / `tflite_int8`: the same graph as TFLite
+  builtins (`export.tf_export.export_tflite`; `tflite_f16` stores the conv,
+  matmul and GATHER weights as float16 behind DEQUANTIZE; `tflite_int8` is
+  full-integer with float I/O, calibrated on the first `--calib_batches`
+  images of `--dataset_path` / `--dataset_file` when both are given, else
+  on the JAX tool's seeded uniform batches, so that both tools feed the same
+  ones), with `--with_argmax` ending at the int32 mask;
 * `--format saved_model`: a SavedModel directory of the frozen graph
   (`export.tf_export.export_saved_model`: `saved_model.pb` with a
   `serving_default` signature, an empty `variables/`).
 
-`shlo` (a JAX artifact) is refused, and so is `tflite_int8` (ROADMAP Queue A
-item 12c: a full-integer quantizer and an integer executor).
+`shlo` (a JAX artifact) is refused.
 
     python -m deeplabv3p_torch.tools.export_model --model_path trained_final.npz \\
         --model_type mobilenetv2_lite --num_classes 21 --model_input_shape 512 \\
@@ -44,12 +46,13 @@ import torch
 
 FORMATS = ["pt2", "int8", "ckpt", "shlo", "tflite", "tflite_int8", "tflite_f16",
            "saved_model", "pb"]
-TF_FORMATS = ("tflite", "tflite_f16", "saved_model", "pb")  # the frozen graph's forms
+# the frozen graph's forms
+TF_FORMATS = ("tflite", "tflite_f16", "tflite_int8", "saved_model", "pb")
 
 
-def calibration_batches(args, shape, device) -> list[torch.Tensor]:
+def dataset_batches(args, shape) -> list[np.ndarray]:
     """Up to `--calib_batches` single images of the dataset, normalized to
-    [-1, 1] as the model's (1, 3, H, W) input (export_model.py:93-108)."""
+    [-1, 1] as (1, H, W, 3) f32 arrays (export_model.py:93-108, 170-180)."""
     from deeplabv3p_torch.data.pipeline import SegmentationDataset
     from deeplabv3p_torch.utils.config import get_data_list
 
@@ -61,20 +64,32 @@ def calibration_batches(args, shape, device) -> list[torch.Tensor]:
     for img, _, _ in ds.epoch_batches():
         if len(batches) >= args.calib_batches:
             break
-        x = torch.from_numpy(img.astype(np.float32) / 127.5 - 1.0)
-        batches.append(x.permute(0, 3, 1, 2).to(device))
+        batches.append(img.astype(np.float32) / 127.5 - 1.0)
     return batches
+
+
+def calibration_batches(args, shape, device) -> list[torch.Tensor]:
+    """The dataset's batches as the model's (1, 3, H, W) input on `device`."""
+    return [torch.from_numpy(x).permute(0, 3, 1, 2).to(device)
+            for x in dataset_batches(args, shape)]
+
+
+def representative_batches(args, shape) -> list[np.ndarray]:
+    """The int8 `.tflite`'s calibration batches (export_model.py:161-185):
+    the dataset's when given, else `--calib_batches` seeded uniform images
+    in [-1, 1], one draw of `RandomState(0)` each, as the JAX tool draws
+    them."""
+    if args.dataset_path and args.dataset_file:
+        return dataset_batches(args, shape)
+    rng = np.random.RandomState(0)
+    return [rng.uniform(-1, 1, (1, *shape, 3)).astype(np.float32)
+            for _ in range(args.calib_batches)]
 
 
 def main(args) -> None:
     if args.format == "shlo":
         raise SystemExit("--format shlo is a JAX artifact, which needs JAX to run; "
                          "the port exports --format pt2")
-    if args.format == "tflite_int8":
-        raise SystemExit("--format tflite_int8 is not ported yet (ROADMAP Queue A item 12c: a "
-                         "full-integer quantizer and an integer executor); --format tflite "
-                         "and tflite_f16 write float files, --format int8 the port's int8 "
-                         "payload")
     from deeplabv3p_torch.eval import resolve_device
     from deeplabv3p_torch.models.factory import build_segmentation_model
     from deeplabv3p_torch.models.layers import init_parameters
@@ -99,11 +114,13 @@ def main(args) -> None:
         in_name, out_name = export_frozen_pb(model, shape, args.output)
         print(f"exported frozen pb to {args.output} (input={in_name}, output={out_name})")
         return
-    if args.format in ("tflite", "tflite_f16"):
+    if args.format in ("tflite", "tflite_f16", "tflite_int8"):
         from deeplabv3p_torch.export.tf_export import export_tflite, save_tflite
 
-        content = export_tflite(model, shape, with_argmax=args.with_argmax,
-                                quantize="float16" if args.format == "tflite_f16" else None)
+        quantize = {"tflite": None, "tflite_f16": "float16", "tflite_int8": "int8"}[args.format]
+        rep = representative_batches(args, shape) if quantize == "int8" else None
+        content = export_tflite(model, shape, with_argmax=args.with_argmax, quantize=quantize,
+                                representative_data=rep)
         save_tflite(content, args.output)
         print(f"exported {args.format} model ({len(content)} bytes) to {args.output}")
         return
@@ -150,13 +167,13 @@ def parse_args(argv=None):
                    help="a single int, as the JAX tool takes, or HxW (e.g. 1024x2048)")
     p.add_argument("--output_stride", type=int, default=16)
     p.add_argument("--format", default="pt2", choices=FORMATS,
-                   help="pt2/int8/ckpt/pb/tflite/tflite_f16/saved_model; shlo and "
-                        "tflite_int8 are refused")
+                   help="pt2/int8/ckpt/pb/tflite/tflite_f16/tflite_int8/saved_model; shlo is "
+                        "refused")
     p.add_argument("--output", required=True)
     p.add_argument("--with_argmax", action="store_true",
                    help="end the exported program (pt2, tflite*) at the int32 mask")
     p.add_argument("--dataset_path", default=None,
-                   help="representative dataset root for int8 calibration")
+                   help="representative dataset root for int8 / tflite_int8 calibration")
     p.add_argument("--dataset_file", default=None)
     p.add_argument("--calib_batches", type=int, default=4)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

@@ -10,8 +10,9 @@ engine:
   .onnx                `export.onnx.interp`, on --device
   .pb                  a frozen graph through `export.tf_export.FrozenGraphRunner`
                        (the port's executor, no tensorflow), on --device
-  .tflite              a float TFLite file through `export.tf_export.TFLiteRunner`
-                       (the port's executor, no tensorflow), on --device
+  .tflite              a float or int8 TFLite file through
+                       `export.tf_export.TFLiteRunner` (the port's executor, no
+                       tensorflow), on --device
   native:<file.onnx>   the C++ `deeplabSegment` binary's ONNX engine
                        (`--engine onnx`), fed the exact preprocessed tensor
                        through --input_raw / --dump_raw, so the diff is the

@@ -281,10 +281,10 @@ def test_export_tool_refuses_other_formats(weights_ckpt, tmp_path):
               "--device", "cpu", "--output", str(tmp_path / "x")]
     with pytest.raises(SystemExit, match="pt2"):
         _tool(*common, "--format", "shlo")
-    # int8 .tflite is ROADMAP item 12c; tflite, tflite_f16 and saved_model are ported
-    # since (tests/test_torch_tflite.py holds their files)
-    with pytest.raises(SystemExit, match="item 12c"):
-        _tool(*common, "--format", "tflite_int8")
+    # the TF formats are ported since, int8 .tflite too (tests/test_torch_tflite.py and
+    # tests/test_torch_tflite_int8.py hold their files): tflite_int8 writes a file
+    _tool(*common, "--format", "tflite_int8")
+    assert open(tmp_path / "x", "rb").read()[4:8] == b"TFL3"
     # --format pb is ported since (tests/test_torch_tf_export.py holds its file)
     _tool(*common, "--format", "pb")
     from deeplabv3p_torch.export.tf_export import load_graph

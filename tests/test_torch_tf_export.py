@@ -402,13 +402,15 @@ def test_export_tool_eval_and_validate_on_pb(toy, tmp_path, capsys):
 
 
 def test_tf_formats_needing_tensorflow_refuse_naming_item_12b(toy, tmp_path):
-    """Item 12b (.tflite and SavedModel) is ported since, with no tensorflow
-    (tests/test_torch_tflite.py holds its files); what still refuses is int8
-    .tflite, naming item 12c, and a .tflite given as weights."""
-    with pytest.raises(SystemExit, match="item 12c"):
-        _export_tool(toy, str(tmp_path / "x"), "--format", "tflite_int8")
+    """Items 12b (.tflite and SavedModel) and 12c (int8 .tflite) are ported
+    since, with no tensorflow (tests/test_torch_tflite.py and
+    tests/test_torch_tflite_int8.py hold their files): `tflite_int8` writes a
+    file, int8 without representative data raises as JAX's does, and a
+    .tflite or a .pb given as weights is refused."""
+    _export_tool(toy, str(tmp_path / "x"), "--format", "tflite_int8")
+    assert open(tmp_path / "x", "rb").read()[4:8] == b"TFL3"
     model = port_build("mobilenetv2_lite", 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(ValueError, match="int8 quantization needs representative_data"):
         tf_export.export_tflite(model, (32, 32), quantize="int8")
     with pytest.raises(NotImplementedError, match="a .tflite is an exported program"):
         tckpt.load_weights("m.tflite", model)

@@ -20,11 +20,11 @@ CLI's `.tflite` branch, tools/export_model.py `--format tflite | tflite_f16
   `from_jax_variables`): the fp32 file through the port's executor against
   JAX's softmax (1e-4); the float16 file's stored weights exactly
   `np.float16` of the fp32 file's; `with_argmax` gives JAX's int32 mask;
-* the export tool (`tflite`, `saved_model`; `tflite_int8` and
-  `quantize="int8"` raise naming item 12c), eval with `--batch_size 3` over
-  a batch-1 file and `validate_deeplab` on the toy set, `--device cpu`;
-* the refusals: an unknown builtin, a custom operator, a quantized tensor,
-  `Erf`, and a `.tflite` given as weights;
+* the export tool (`tflite`, `saved_model`, `tflite_int8`; `quantize="int8"`
+  without representative data raises), eval with `--batch_size 3` over a
+  batch-1 file and `validate_deeplab` on the toy set, `--device cpu`;
+* the refusals: an unknown builtin, a custom operator, a uint8 or int16
+  quantized tensor, `Erf`, and a `.tflite` given as weights;
 * no module of the port or `chip_smoke.py` imports jax, flax,
   deeplabv3p_tpu, tensorflow, flatbuffers or google.protobuf.
 """
@@ -240,11 +240,16 @@ def test_erf_an_unknown_builtin_a_custom_op_and_a_quantized_tensor_raise():
         one.subgraphs[0].operators[0].builtin_options.fused_activation_function = act
         with pytest.raises(NotImplementedError, match=f"fused activation {act}"):
             TFLiteProgram(S.encode_model(one), "cpu")
-    m = S.decode_model(data)
-    m.subgraphs[0].tensors[0].quantization = S.QuantizationParameters(scale=[0.1],
-                                                                      zero_point=[0])
-    with pytest.raises(NotImplementedError, match="quantized tensor x; .*item 12c"):
-        TFLiteProgram(S.encode_model(m), "cpu")
+    # int8 runs (tests/test_torch_tflite_int8.py); a uint8 or int16 quantized tensor is refused,
+    # naming the builtin that reads it and the tensor's type
+    for ttype, kind in ((S.TensorType.UINT8, "uint8"), (S.TensorType.INT16, "int16")):
+        m = S.decode_model(data)
+        m.subgraphs[0].tensors[0].type = ttype
+        m.subgraphs[0].tensors[0].quantization = S.QuantizationParameters(scale=[0.1],
+                                                                          zero_point=[0])
+        with pytest.raises(NotImplementedError,
+                           match=f"EXP with a quantized {kind} tensor x \\(operator 0"):
+            TFLiteProgram(S.encode_model(m), "cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TFLiteProgram(data)  # the card unless the caller asks for the CPU
@@ -548,10 +553,15 @@ def test_export_tool_saved_model_and_the_int8_refusals(toy, tmp_path, capsys):
         want = torch.softmax(model.eval()(_t(x).permute(0, 3, 1, 2)), 1).permute(0, 2, 3, 1)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
-    with pytest.raises(SystemExit, match="item 12c"):
-        _export_tool(toy, str(tmp_path / "x.tflite"), "tflite_int8")
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        tf_export.export_tflite(model, (64, 64), quantize="int8", representative_data=[x])
+    # int8 is ported: the tool writes a full-integer file with float I/O (its numbers are
+    # tests/test_torch_tflite_int8.py's)
+    _export_tool(toy, str(tmp_path / "x.tflite"), "tflite_int8")
+    size = os.path.getsize(tmp_path / "x.tflite")
+    assert f"exported tflite_int8 model ({size} bytes)" in capsys.readouterr().out
+    names = _builtins(open(tmp_path / "x.tflite", "rb").read())
+    assert {"QUANTIZE", "DEQUANTIZE", "CONV_2D"} <= names and "MAXIMUM" not in names
+    with pytest.raises(ValueError, match="int8 quantization needs representative_data"):
+        tf_export.export_tflite(model, (64, 64), quantize="int8")
     with pytest.raises(ValueError, match="unknown quantize mode 'int4'"):
         tf_export.export_tflite(model, (64, 64), quantize="int4")
 
@@ -599,6 +609,8 @@ def test_importing_the_tflite_route_loads_no_jax_tf_flatbuffers_or_protobuf():
     code = ("import sys\n"
             "import deeplabv3p_torch.export.tf_export, deeplabv3p_torch.export.tflite.lower\n"
             "import deeplabv3p_torch.export.tflite.interp, deeplabv3p_torch.export.flatbuf\n"
+            "import deeplabv3p_torch.export.tflite.quantize\n"
+            "import deeplabv3p_torch.export.tflite.fixed_point\n"
             "import deeplabv3p_torch.export.tf.saved_model, deeplabv3p_torch.eval\n"
             "import deeplabv3p_torch.tools.export_model, deeplabv3p_torch.tools.validate_deeplab\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {BANNED!r}\n"

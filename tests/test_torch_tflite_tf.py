@@ -19,7 +19,22 @@ the cases that import it live in this one file, whose TF import costs
 * `unet_standard` (TRANSPOSE_CONV, MAX_POOL_2D) in TF's interpreter from
   the port's file against the eager f32 model; (slow) `mobilenetv2`,
   `fast_scnn`, `xception`, `mobilevit_xxs`, `ghostnet` and the other
-  registry entries.
+  registry entries;
+* int8: JAX's int8 file decoded and re-encoded by the port to the same
+  tables and output; each one-operator case of
+  tests/test_torch_tflite_int8.py in TF's reference kernels
+  (`OpResolverType.BUILTIN_REF`) within 1 LSB of the
+  port's executor, but `SUM`, whose reference int8 kernel reads int8 values
+  as uint8 in tf 2.21 (shown below), held to TF's optimized kernel
+  (`BUILTIN_WITHOUT_DEFAULT_DELEGATES`) instead; the port's int8
+  mobilenetv2_lite file (the same export's graph, quantized on two
+  representative batches) and the JAX package's own int8 file (TF's
+  converter) in TF against the port's executor: within the larger of 2 LSB
+  and the spread between TF's own resolvers on the same file (the port's
+  and JAX's against `BUILTIN_REF`, JAX's against its `TFLiteRunner`, which
+  runs XNNPACK), every operator but `SUM` run by the port on
+  `BUILTIN_REF`'s own inputs within 1 LSB of its output, and TF's output on
+  the port's file meeting tests/test_tf_export.py:69-99's criteria.
 """
 
 import jax
@@ -49,8 +64,9 @@ from deeplabv3p_tpu.export.tf_export import export_tflite as jax_export_tflite  
 from deeplabv3p_tpu.models.factory import build_segmentation_model  # noqa: E402
 from test_torch_model import one_torch_thread  # noqa: E402,F401 (a fixture)
 from test_torch_tf_graph import one_tf_thread  # noqa: E402,F401 (a fixture)
-from test_torch_tflite import LOWERED_CASES, OPTION_CASES, option_case, \
+from test_torch_tflite import LOWERED_CASES, OPTION_CASES, _plain, option_case, \
     tflite_of_op_case  # noqa: E402
+from test_torch_tflite_int8 import INT8_CASES, _jax_criteria, int8_case  # noqa: E402
 
 HW, NCLS = 48, 4
 TOL = 1e-4
@@ -65,9 +81,13 @@ TIER1_FAMILIES = ["unet_standard"]
 SLOW_FAMILIES = ["mobilenetv2", "fast_scnn", "xception", "mobilevit_xxs", "ghostnet"]
 
 
-def tf_run(content: bytes, x: np.ndarray) -> np.ndarray:
-    """TF's TFLite interpreter on `x`, one image a call (the file's batch)."""
-    interp = tf.lite.Interpreter(model_content=bytes(content))
+def tf_run(content: bytes, x: np.ndarray, resolver: str | None = None) -> np.ndarray:
+    """TF's TFLite interpreter on `x`, one image a call (the file's batch),
+    with the op resolver `resolver` (`OpResolverType`'s name; None: TF's
+    default, XNNPACK)."""
+    kw = {} if resolver is None else {"experimental_op_resolver_type": getattr(
+        tf.lite.experimental.OpResolverType, resolver)}
+    interp = tf.lite.Interpreter(model_content=bytes(content), **kw)
     interp.allocate_tensors()
     inp, out = interp.get_input_details()[0], interp.get_output_details()[0]
     mb = int(inp["shape"][0]) if len(inp["shape"]) else 1
@@ -194,3 +214,131 @@ def test_families_in_tensorflow(model_type):
     - set(SLOW_FAMILIES) - set(TIER1_FAMILIES)))
 def test_other_registry_entries_in_tensorflow(model_type):
     _family_in_tensorflow(model_type, 32)
+
+
+# -- int8 --------------------------------------------------------------------------------------
+
+REF, OPTIMIZED = "BUILTIN_REF", "BUILTIN_WITHOUT_DEFAULT_DELEGATES"
+
+
+def _lsb(data: bytes) -> float:
+    """The output's quantization step: its DEQUANTIZE's input scale."""
+    m = S.decode_model(data)
+    g = m.subgraphs[0]
+    q = g.tensors[g.operators[-1].inputs[0]].quantization
+    return float(q.scale[0]) if q is not None and q.scale else 1.0
+
+
+@pytest.mark.parametrize("case", sorted(INT8_CASES))
+def test_each_int8_builtin_in_tensorflow(case):
+    _, data, x = int8_case(case)
+    resolver = OPTIMIZED if INT8_CASES[case][0] == "SUM" else REF
+    want = tf_run(data, x, resolver)
+    got = TFLiteProgram(data, "cpu")(x).numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert np.abs(got.astype(np.float64) - want).max() <= _lsb(data) * 1.001
+
+
+def test_tf_reference_int8_sum_reads_int8_as_uint8():
+    """tf 2.21's reference int8 SUM agrees with the port where every int8
+    input is >= 0, and is off by tens of LSB where some are negative: it
+    takes the int8 bytes for uint8 values. Its optimized kernel agrees with
+    the port on both (within 1 LSB)."""
+    _, data, x = int8_case("sum_keep_dims")
+    for shift in (4.0, 0.0):  # all positive (x + 4 > 0 quantizes >= 0 here), then mixed
+        xs = (np.abs(x) + shift if shift else x).astype(np.float32)
+        from deeplabv3p_torch.export.tflite import quantize as Q
+
+        content = S.encode_model(Q.quantize(S.decode_model(int8_case("sum_keep_dims")[0]),
+                                            [xs]))
+        q_in = TFLiteProgram(content, "cpu")
+        seen = {}
+        got = q_in(xs, lambda t, v: seen.__setitem__(t, v)).numpy()
+        negative = bool((seen[S.decode_model(content).subgraphs[0].operators[1].inputs[0]]
+                         < 0).any())
+        lsb = _lsb(content)
+        assert np.abs(got - tf_run(content, xs, OPTIMIZED)).max() <= lsb * 1.001
+        off = np.abs(got - tf_run(content, xs, REF)).max() / lsb
+        assert (off == 0) if not negative else (off > 8), (negative, off)
+
+
+def ops_against_tensorflow(data: bytes, x: np.ndarray, resolver: str = REF) -> list:
+    """Each operator of `data` run by the port's executor on TF's own inputs
+    (TF's interpreter with every tensor kept): [(builtin, max |d| in LSB of
+    the int8 tensor it writes or reads; absolute for an f32 one)]."""
+    it = tf.lite.Interpreter(model_content=bytes(data), experimental_preserve_all_tensors=True,
+                             experimental_op_resolver_type=getattr(
+                                 tf.lite.experimental.OpResolverType, resolver))
+    it.allocate_tensors()
+    it.set_tensor(it.get_input_details()[0]["index"], x)
+    it.invoke()
+    program = TFLiteProgram(data, "cpu")
+    m = S.decode_model(data)
+    out = []
+    with torch.no_grad():
+        for name, spec, ins, o, (opts, extra) in program.steps:
+            vals = [program.consts[t] if isinstance(t, str) else None if t == -1 else
+                    torch.from_numpy(np.array(it.get_tensor(t))) for t in ins]
+            got = spec.fn(*vals, opts, **extra).numpy().astype(np.float64)
+            want = it.get_tensor(o).astype(np.float64)
+            unit = 1.0  # an int8 output differs by LSB; a DEQUANTIZE's by its input's scale
+            if name == "DEQUANTIZE":
+                unit = m.subgraphs[0].tensors[ins[0]].quantization.scale[0]
+            out.append((name, float(np.abs(got - want).max()) / unit))
+    return out
+
+
+def _int8_against_tensorflow(data: bytes, x: np.ndarray, what: str) -> dict:
+    """The port's executor on `data` against TF's resolvers: the spread
+    rule of the module text, and each operator on BUILTIN_REF's inputs."""
+    lsb = _lsb(data)
+    got = tf_export.TFLiteRunner(data, device="cpu")(x)
+    ref, opt = tf_run(data, x, REF), tf_run(data, x, OPTIMIZED)
+    d = {"port-ref": np.abs(got - ref).max() / lsb, "optimized-ref": np.abs(opt - ref).max() / lsb,
+         "port-optimized": np.abs(got - opt).max() / lsb}
+    print(f"{what}: |d| in LSB {d}")
+    assert d["port-ref"] <= max(2.0, d["optimized-ref"]), d
+    steps = ops_against_tensorflow(data, x[:1])
+    off = [(k, n, e) for k, (n, e) in enumerate(steps) if e > 1.001 and n != "SUM"]
+    assert not off, off
+    assert {n for n, _ in steps} >= {"QUANTIZE", "CONV_2D", "DEPTHWISE_CONV_2D", "ADD",
+                                     "CONCATENATION", "SOFTMAX", "DEQUANTIZE"}
+    return {"got": got, "ref": ref, **d}
+
+
+def test_the_port_int8_file_in_tensorflow(lite):
+    from deeplabv3p_torch.export.tflite import quantize as Q
+
+    _, _, x, want, path = lite
+    graph = saved_model.load(path).meta_graphs[0].graph_def
+    rng = np.random.RandomState(3)
+    rep = [rng.uniform(-1, 1, (1, HW, HW, 3)).astype(np.float32) for _ in range(2)]
+    data = S.encode_model(Q.quantize(lower(graph), rep))
+    assert len(data) < 0.5 * len(S.encode_model(lower(graph)))
+    r = _int8_against_tensorflow(data, x, "the port's int8 mobilenetv2_lite")
+    for name, probs in (("TF BUILTIN_REF", r["ref"]), ("the port", r["got"])):
+        corr, mean = _jax_criteria(probs, want)
+        print(f"{name} against JAX's f32 softmax: correlation {corr:.4f}, mean |dprob| "
+              f"{mean:.4f}")
+        assert corr > 0.9 and mean < 0.1, (name, corr, mean)
+
+
+def test_the_port_executor_runs_the_jax_int8_file(lite):
+    jm, variables, x, want, _ = lite
+    rng = np.random.RandomState(3)
+    rep = [rng.uniform(-1, 1, (1, HW, HW, 3)).astype(np.float32) for _ in range(2)]
+    data = jax_export_tflite(jm, variables, (HW, HW), quantize="int8", representative_data=rep)
+    # decoded and re-encoded by the port (flatc's layout is not the port's, so the bytes
+    # differ): the same tables, every scale, zero point and quantized axis, the same output
+    again = S.encode_model(S.decode_model(data))
+    assert _plain(S.decode_model(again)) == _plain(S.decode_model(data))
+    r = _int8_against_tensorflow(data, x, "JAX's int8 mobilenetv2_lite")
+    np.testing.assert_array_equal(tf_export.TFLiteRunner(again, device="cpu")(x), r["got"])
+    xnnpack = JaxTFLiteRunner(data)(x)
+    lsb = _lsb(data)
+    spread = np.abs(r["ref"] - xnnpack).max() / lsb
+    d = np.abs(r["got"] - xnnpack).max() / lsb
+    print(f"JAX's int8 file: port against XNNPACK {d} LSB, BUILTIN_REF against XNNPACK {spread}")
+    assert d <= spread, (d, spread)
+    corr, mean = _jax_criteria(r["got"], want)
+    assert corr > 0.9 and mean < 0.1, (corr, mean)
