@@ -13,6 +13,7 @@
     python3 chip_smoke.py --spatial   # steps 1-2 and the spatial phase (15d) alone
     python3 chip_smoke.py --tools     # steps 1-2 and the tools phase (15e) alone
     python3 chip_smoke.py --diagnostics  # steps 1-2 and the diagnostics phase (15f) alone
+    python3 chip_smoke.py --remat     # steps 1-2 and the remat phase (15i) alone
 
 1. prints the card (`nvidia-smi` name and power limit) and the versions;
 2. builds the CUDA kernels from deeplabv3p_torch/ops/kernels/csrc with nvcc;
@@ -26,8 +27,9 @@
    counts that are no multiple of 4, printing for each the channels a thread
    owns and the blocks and shared memory of its plan; the loss tail's forward
    and backward (csrc/upsample_ce.cu) at the training slice's (16,128,128,21)
-   -> 512^2, the lite head's (2,32,32,21) -> 512^2 and a ragged (3,29,37,21)
-   -> (116,148), each kernel also alone at scale 1 and at an odd scale and
+   -> 512^2, the lite head's (2,32,32,21) -> 512^2, xception OS8's
+   (8,64,64,21) and (16,64,64,21) -> 512^2 (the remat phase) and a ragged
+   (3,29,37,21) -> (116,148), each kernel also alone at scale 1 and at an odd scale and
    twice in a row for bit-equal results, the forward besides at 6 and 151
    classes, at scale 2 and at a width that is no multiple of 4, with its lse
    held against torch.logsumexp; the confusion kernel (csrc/confusion.cu,
@@ -195,9 +197,9 @@
    the same PNGs), `model_statistics` of mobilenetv2 at 512 on the card
    (FLOPs >= the convolutions'), every dataset tool's --help in one process;
 15f. the profiler and the diagnostics tools (`diagnostics_phase`):
-   train_phase_profile on mobilenetv2_lite and mobilenetv2 b16 at 512x512
-   (six phases each: ms, TFLOP/s, GB/s, shares of the card's peaks; both
-   JSON records printed with the card), `utils.profiler.trace` + `annotate`
+   train_phase_profile on mobilenetv2 b16 at 512x512 (six phases: ms,
+   TFLOP/s, GB/s, shares of the card's peaks; the JSON record printed with
+   the card), `utils.profiler.trace` + `annotate`
    around two served mobilenetv2 requests (the trace holds the annotation
    and the ASPP and decoder kernels), featuremap_check, convkernel_check and
    export_native_bench_model on the card against the CPU, augment_test on
@@ -236,6 +238,15 @@
    criteria against eager f32, the eval CLI on an int8 file of the trained
    weights (masks >= 0.98 of the f32 model's); the int8 executor timed in
    15g's turns;
+15i. backbone rematerialisation (`remat_phase`, models/remat.py): xception at
+   512x512, OS8, 21 classes, bf16, --fused_loss, seeded weights, each mode
+   (off, full, block) at b8 (a b2 probe first predicts its b8 peak) and at
+   b16 where the b8 peak predicts under REMAT_MEMORY_SHARE of the card: the
+   peak memory and the median step time by CUDA events, with the card; each
+   mode against off in f32 b2 on the same weights (step-1 loss and BN
+   buffers equal, gradients within REMAT_GRAD_RTOL / REMAT_GRAD_ATOL); the
+   train CLI with --remat block --fused_loss on mobilenetv2 for 2 steps,
+   the loss kernels once a step;
 16. latency of the serving path, train-step time and peak memory fused and
    unfused in turns, images/s of the eval loop (default, `--fused_mbconv`,
    no kernels, in turns), the CLI default's step with the augmentation's
@@ -328,6 +339,11 @@ EXPORT_REQUESTS, EXPORT_ITERS, INT8_SEED = 4, 20, 11
 # the bf16 floor (PERF.md section 2), its output against eager f32 to the JAX
 # package's int8 criteria (tests/test_tf_export.py:69-99)
 INT8_CALIB, INT8_MASK_FLOOR, INT8_CORRELATION, INT8_MEAN_DPROB = 4, 0.98, 0.9, 0.1
+# an f32 file's eval mIoU against the f32 model's on the same weights; the CLI's
+# eval of the .npz runs the model in bf16, and its gap from the f32 model is
+# held to bf16's mask floor (PERF.md section 2) instead: that gap is bf16's,
+# not the file's, and reached 1.06e-03 once in twelve runs against the files
+FILE_EVAL_MIOU, BF16_MASK_FLOOR = 1e-3, 0.98
 # data parallelism: 2 steps on global batches of TRAIN_BATCH, an eval pass over
 # 32 images in batches of 8 a rank, the data's and the weights' seeds, in bf16 (the
 # train CLI's) and f32. (b) and (c) against (a) in f32: the loss within 1e-4
@@ -369,9 +385,9 @@ SPATIAL_SERVING = [((1, 2), (1024, 2048), 19), ((1, 4), INPUT, 21)]
 # every rank, with f32 logits within 1.2e-06 of max|logits|)
 SPATIAL_UNET = ((1, 2), (1080, 1920), 19)
 SPATIAL_BF16_VS_F32 = 1e-3
-SPATIAL_REQUESTS, SPATIAL_EVAL_IMAGES, SPATIAL_EVAL_BATCH = 6, 8, 4
+SPATIAL_REQUESTS, SPATIAL_EVAL_IMAGES, SPATIAL_EVAL_BATCH = 4, 8, 4
 SPATIAL_TRAINING = [((1, 2), 2), ((2, 2), 4)]
-SPATIAL_STEPS, SPATIAL_TIMED, SPATIAL_SEEDS = 2, 3, (21, 22, 23)
+SPATIAL_STEPS, SPATIAL_TIMED, SPATIAL_SEEDS = 2, 1, (21, 22, 23)
 SPATIAL_F32_LOGITS, SPATIAL_MASK_FLOOR, SPATIAL_EVAL_DISAGREE = 1e-4, 0.999, 1e-4
 # the dataset and evaluation tools (15e): the toy set of data/toy.py packed at
 # 512x512 in shards of 4, mobilenetv2 trained b4 for TOOLS_STEPS steps on the
@@ -408,7 +424,7 @@ DIAGNOSTICS_TOOLS = ("featuremap_check", "convkernel_check", "augment_test",
 # (15f) the phase profiler's cases at its defaults (512x512, 21 classes, 8 timed
 # calls), the trace's requests, the convolution kernels' ascent, the augmented
 # samples and the file the native engine's benchmark reads
-DIAG_PROFILED = (("mobilenetv2_lite", 16), ("mobilenetv2", 16))
+DIAG_PROFILED = (("mobilenetv2", 16),)
 DIAG_PHASES = ["backbone_fwd", "forward", "forward+loss", "grad (fwd+bwd)", "train_step",
                "loss_only"]
 DIAG_TRACED_REQUESTS = 2
@@ -424,6 +440,21 @@ DIAG_KERNEL_ARGS = ["--layer", "Conv", "--num_filters", "4", "--image_size", "12
                     "--steps", "5"]
 DIAG_AUGMENT_COUNT = 4
 DIAG_ONNX_ATOL = 1e-4
+DIAG_FEATUREMAP_HW = 256  # featuremap_check's input on the card and on the CPU
+# backbone rematerialisation (15i): xception at 512x512 OS8 (21 classes, bf16,
+# --fused_loss, seeded weights), each mode's b2 probe predicting its b8 peak
+# and its b8 peak its b16 one (the step's own bytes, peak less what was
+# allocated before it, scaled with the batch); a configuration runs only where
+# its prediction is under REMAT_MEMORY_SHARE of the card, REMAT_WARMUP steps
+# then REMAT_TIMED timed by CUDA events; each mode against off in f32 at
+# REMAT_CHECK_BATCH: the step-1 loss and BN buffers equal (the forward is the
+# same), the gradients within REMAT_GRAD_RTOL and REMAT_GRAD_ATOL x the largest
+# (the recompute may take other cuDNN algorithms, and cuDNN's weight gradients
+# sum in no fixed order); the train CLI's --remat block run on mobilenetv2 b16
+REMAT_MODEL, REMAT_OS, REMAT_MODES = "xception", 8, ("off", "full", "block")
+REMAT_PROBE_BATCH, REMAT_BATCHES, REMAT_MEMORY_SHARE = 2, (8, 16), 0.8
+REMAT_WARMUP, REMAT_TIMED, REMAT_CHECK_BATCH = 2, 4, 2
+REMAT_GRAD_RTOL, REMAT_GRAD_ATOL = 1e-4, 1e-4
 # (logits shape, logits dtype name, labels dtype name): the eval slice's call first
 CONFUSION_CASES = [((8, 512, 512, 21), "float32", "int32"),
                    ((8, 512, 512, 21), "bfloat16", "uint8"),
@@ -464,11 +495,12 @@ DECODER_CASES = [((1, 32, 32, 256), (1, 128, 128, 48)), ((2, 13, 11, 200), (2, 5
                  ((8, 32, 32, 256), (8, 128, 128, 48)), ((1, 64, 64, 256), (1, 128, 128, 48)),
                  ((1, 16, 16, 100), (1, 64, 64, 46))]
 # (B, h, w, C) -> (H, W) loss-tail cases; the first is the training slice's, the
-# fourth mobilenetv3large_lite's --fused_loss call (OS16 logits, x16), the last
-# xception's at b8
+# fourth mobilenetv3large_lite's --fused_loss call (OS16 logits, x16), the fifth
+# xception's at b8, the last two xception's at OS8 (x8) in the remat phase, b8 and b16
 UPSAMPLE_CE_CASES = [((16, 128, 128, 21), (512, 512)), ((2, 32, 32, 21), (512, 512)),
                      ((3, 29, 37, 21), (116, 148)), ((16, 32, 32, 21), (512, 512)),
-                     ((8, 128, 128, 21), (512, 512))]
+                     ((8, 128, 128, 21), (512, 512)), ((8, 64, 64, 21), (512, 512)),
+                     ((16, 64, 64, 21), (512, 512))]
 # the backward kernel alone also at scale 1 and at an odd scale
 UPSAMPLE_CE_BACKWARD_CASES = [((2, 24, 40, 21), (24, 40)), ((2, 24, 40, 21), (72, 120))]
 # the forward kernel alone also there, at 6 and 151 classes (above 32 the batch-
@@ -901,6 +933,18 @@ def main() -> None:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return
+    if "--remat" in sys.argv[1:]:  # the remat phase alone, on the training path's set
+        root = os.path.join(OUT_DIR, "smoke_train_data")
+        write_train_dataset(root, [INPUT] * TRAIN_IMAGES, 21, TRAIN_SEED)
+        launches, by_batch = remat_phase(torch, kernels, train_main, train_args, classes_path,
+                                         root)
+        print(json.dumps({"remat_launches": {**launches, **{
+            f"{REMAT_MODEL} OS{REMAT_OS} b{b}": counts for b, counts in by_batch.items()}}}))
+        if failures:
+            die(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
     if "--export" in sys.argv[1:]:  # the export phase alone
         requests = make_requests(preprocess_image)
         launches = export_phase(torch, kernels, classes_path, requests, kaspp, kdec, kmb)
@@ -944,6 +988,8 @@ def main() -> None:
             records["upsample_ce_x16"] = rec
         if shape == UPSAMPLE_CE_CASES[4][0]:  # xception --fused_loss
             records["upsample_ce_b8"] = rec
+        if shape in (UPSAMPLE_CE_CASES[5][0], UPSAMPLE_CE_CASES[6][0]):  # xception OS8 (remat)
+            records[f"upsample_ce_os8_b{shape[0]}"] = rec
     for shape, out_hw in UPSAMPLE_CE_BACKWARD_CASES:
         upsample_ce_backward_check(torch, kce, shape, out_hw)
     for shape, out_hw in UPSAMPLE_CE_FORWARD_CASES:
@@ -1164,6 +1210,10 @@ def main() -> None:
     spatial_launches = spatial_phase(torch, kaspp, kdec, kmb, kconf)
     tools_launches = tools_phase(torch, kernels, train_main, train_args)
     diagnostics_launches = diagnostics_phase(torch, kernels, classes_path)
+    # -- 5s. backbone rematerialisation: xception OS8 off / full / block, the train
+    # CLI with --remat block --fused_loss ---------------------------------------------
+    remat_launches, remat_os8 = remat_phase(torch, kernels, train_main, train_args,
+                                            classes_path, train_dir)
 
     # -- 6. latency and kernel times ---------------------------------------------
     def pct(v, q):
@@ -1283,14 +1333,18 @@ def main() -> None:
                 crf_eval_launches[row["name"]]
     for path, counts in {**export_launches, **onnx_launches, **tf_launches,
                          **tflite_launches, **parallel_launches, **spatial_launches,
-                         **tools_launches, **diagnostics_launches}.items():  # .pt2, ONNX,
-        # .pb, .tflite, data-parallel, spatial, the tools' flow, the traced requests
+                         **tools_launches, **diagnostics_launches,
+                         **remat_launches}.items():  # .pt2, ONNX, .pb, .tflite, data-parallel,
+        # spatial, the tools' flow, the traced requests, remat
         for row in kernels:
             if counts[row["name"]]:
                 row.setdefault("also_on", {})[path] = counts[row["name"]]
     for key, launches_of, path in (("upsample_ce_x16", v3_launches,
                                     "mobilenetv3large_lite --fused_loss"),
-                                   ("upsample_ce_b8", x_train_launches, "xception --fused_loss")):
+                                   ("upsample_ce_b8", x_train_launches, "xception --fused_loss"),
+                                   *((f"upsample_ce_os8_b{b}", counts,
+                                      f"{REMAT_MODEL} OS{REMAT_OS} b{b} --fused_loss, the "
+                                      f"remat phase's runs") for b, counts in remat_os8.items())):
         for row in upsample_ce_times(torch, kce, records[key], launches_of):
             row["path"] = path
             if key == "upsample_ce_b8":  # the same shape on the zoo's b8 training runs
@@ -3672,6 +3726,45 @@ def int8_phase(torch, requests, learn=None) -> None:
           f"0.98; mIoU {miou['int8']:.5f} against {miou['bf16']:.5f}, |d| < 0.01  [{card}]")
 
 
+def learned_f32_eval(torch, eval_cli, learn, batch: int):
+    """`eval_miou` of the f32 model (the ASPP and decoder kernels in f32) on
+    the learning proof's weights over the toy set at `batch`: the reference
+    an f32 file of those weights is held to."""
+    from deeplabv3p_torch.models.factory import build_segmentation_model
+    from deeplabv3p_torch.utils.checkpoint import load_weights
+    from deeplabv3p_torch.utils.config import get_classes, get_data_list
+
+    f32 = build_segmentation_model("mobilenetv2", 4, output_stride=16, fused_aspp=True,
+                                   fused_decoder=True, device="cuda")
+    load_weights(learn["weights"], f32)
+    root = learn["root"]
+    ref, _ = quiet(lambda: eval_cli.eval_miou(
+        f32.eval(), root, get_data_list(learn["list"], shuffle=False),
+        get_classes(os.path.join(root, "classes.txt")), model_input_shape=(LEARN_HW, LEARN_HW),
+        batch_size=batch))
+    return f32, ref
+
+
+def file_eval_checks(what: str, m_file, m_npz, ref, counts: dict, batches: int) -> None:
+    """The eval CLI on an f32 file of the learning proof's weights held to
+    the f32 model's eval on the same weights (|d mIoU| <= FILE_EVAL_MIOU),
+    the confusion kernel once a batch; and the CLI's eval of the .npz, which
+    runs the model in bf16, held to the bf16 floor of PERF.md section 2 (its
+    gap from the f32 model within 1 - BF16_MASK_FLOOR)."""
+    d = abs(m_file.miou - ref.miou)
+    check(d <= FILE_EVAL_MIOU and counts == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches},
+          f"eval --model_path {what}: mIoU {m_file.miou:.6f} against the f32 model's "
+          f"{ref.miou:.6f} on the same weights, |d| {d:.2e} <= {FILE_EVAL_MIOU:g}; the confusion "
+          f"kernel once a batch ({batches}): {counts}")
+    gap = abs(m_npz.miou - ref.miou)
+    moved = int(np.abs(m_npz.confusion - ref.confusion).sum()) // 2
+    check(gap <= 1 - BF16_MASK_FLOOR,
+          f"eval of the .npz (bf16): mIoU {m_npz.miou:.6f}, |d| {gap:.2e} from the f32 model's "
+          f"<= {1 - BF16_MASK_FLOOR:.2g} (bf16's floor); {moved} of {int(ref.confusion.sum())} "
+          f"pixels counted elsewhere; the file's |d| from the .npz's "
+          f"{abs(m_file.miou - m_npz.miou):.2e}")
+
+
 def onnx_phase(torch, kernels, classes_path, requests, learn) -> dict:
     """ONNX on the card: `tools/export_onnx.py --device cuda` on
     mobilenetv2 (f32, 512x512, OS16, 21 classes, seeded weights written as an
@@ -3793,11 +3886,10 @@ def onnx_phase(torch, kernels, classes_path, requests, learn) -> dict:
     m_onnx, m_npz = metrics[trained], metrics[learn["weights"]]
     batches = -(-8 // batch)
     onnx_counts = launches[f"eval --model_path {os.path.basename(trained)} b{batch}"]
-    check(abs(m_onnx.miou - m_npz.miou) <= 1e-3
-          and onnx_counts == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches},
-          f"eval --model_path x.onnx (f32, exported in {s:.2f} s): mIoU {m_onnx.miou:.6f} "
-          f"against the .npz's {m_npz.miou:.6f} (bf16), |d| {abs(m_onnx.miou - m_npz.miou):.2e} "
-          f"<= 1e-3; the confusion kernel once a batch ({batches}): {onnx_counts}")
+    f32, ref = learned_f32_eval(torch, eval_cli, learn, batch)
+    del f32
+    file_eval_checks(f"x.onnx (f32, exported in {s:.2f} s)", m_onnx, m_npz, ref, onnx_counts,
+                     batches)
 
     # validate_deeplab on the seeded mobilenetv2 as .npz, .onnx and .pt2
     pt2 = os.path.join(OUT_DIR, "smoke_onnx_mobilenetv2.pt2")
@@ -3982,21 +4074,11 @@ def tf_phase(torch, kernels, classes_path, requests, learn) -> dict:
     m_pb, m_npz = metrics[trained], metrics[learn["weights"]]
     batches = -(-8 // batch)
     pb_counts = launches[f"eval --model_path {os.path.basename(trained)} b{batch}"]
-    check(abs(m_pb.miou - m_npz.miou) <= 1e-3
-          and pb_counts == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches},
-          f"eval --model_path x.pb (f32, graph batch 1 run in chunks): mIoU {m_pb.miou:.6f} "
-          f"against the .npz's {m_npz.miou:.6f} (bf16), |d| {abs(m_pb.miou - m_npz.miou):.2e} "
-          f"<= 1e-3; the confusion kernel once a batch ({batches}): {pb_counts}")
     # the .npz's CLI model is bf16; the graph computes the f32 model's matrix
-    from deeplabv3p_torch.utils.checkpoint import load_weights
-    from deeplabv3p_torch.utils.config import get_classes, get_data_list
-
-    f32 = build_segmentation_model("mobilenetv2", 4, output_stride=16, fused_aspp=True,
-                                   fused_decoder=True, device="cuda")
-    load_weights(learn["weights"], f32)
-    ref, _ = quiet(lambda: eval_cli.eval_miou(
-        f32.eval(), root, get_data_list(list_path, shuffle=False), get_classes(toy_classes),
-        model_input_shape=(LEARN_HW, LEARN_HW), batch_size=batch))
+    f32, ref = learned_f32_eval(torch, eval_cli, learn, batch)
+    del f32
+    file_eval_checks("x.pb (f32, graph batch 1 run in chunks)", m_pb, m_npz, ref, pb_counts,
+                     batches)
     flips = int(np.abs(m_pb.confusion - ref.confusion).sum()) // 2
     check(flips <= 1e-4 * ref.confusion.sum(),
           f"eval --model_path x.pb against eval_miou of the f32 model on the .npz's weights: "
@@ -4127,7 +4209,6 @@ def tflite_phase(torch, kernels, classes_path, requests, learn) -> dict:
     from deeplabv3p_torch.tools import export_model as tool
     from deeplabv3p_torch.tools import validate_deeplab
     from deeplabv3p_torch.utils.checkpoint import load_weights
-    from deeplabv3p_torch.utils.config import get_classes, get_data_list
     from deeplabv3p_torch.utils.weights import save_npz, to_jax_variables
 
     card = card_line()
@@ -4323,17 +4404,9 @@ def tflite_phase(torch, kernels, classes_path, requests, learn) -> dict:
     m_tfl, m_npz = metrics[trained], metrics[learn["weights"]]
     batches = -(-8 // batch)
     tfl_counts = launches[f"eval --model_path {os.path.basename(trained)} b{batch} (.tflite phase)"]
-    check(abs(m_tfl.miou - m_npz.miou) <= 1e-3
-          and tfl_counts == {**ZERO_LAUNCHES, "confusion_matrix_fused": batches},
-          f"eval --model_path x.tflite (f32, file batch 1 run in chunks): mIoU {m_tfl.miou:.6f} "
-          f"against the .npz's {m_npz.miou:.6f} (bf16), |d| {abs(m_tfl.miou - m_npz.miou):.2e} "
-          f"<= 1e-3; the confusion kernel once a batch ({batches}): {tfl_counts}")
-    f32 = build_segmentation_model("mobilenetv2", 4, output_stride=16, fused_aspp=True,
-                                   fused_decoder=True, device="cuda")
-    load_weights(learn["weights"], f32)
-    ref, _ = quiet(lambda: eval_cli.eval_miou(
-        f32.eval(), root, get_data_list(list_path, shuffle=False), get_classes(toy_classes),
-        model_input_shape=(LEARN_HW, LEARN_HW), batch_size=batch))
+    f32, ref = learned_f32_eval(torch, eval_cli, learn, batch)
+    file_eval_checks("x.tflite (f32, file batch 1 run in chunks)", m_tfl, m_npz, ref, tfl_counts,
+                     batches)
     flips = int(np.abs(m_tfl.confusion - ref.confusion).sum()) // 2
     check(flips <= 1e-4 * ref.confusion.sum(),
           f"eval --model_path x.tflite against eval_miou of the f32 model on the .npz's "
@@ -5424,12 +5497,12 @@ def phase_profile_checks(record: dict, card: str) -> None:
 
 def diagnostics_phase(torch, kernels, classes_path) -> dict:
     """(15f) the profiler and the diagnostics tools on the card: the phase
-    profiler (train_phase_profile) on mobilenetv2_lite and mobilenetv2 b16 at
-    512x512, its two JSON records printed, and one train_step of the second
+    profiler (train_phase_profile) on DIAG_PROFILED (mobilenetv2 b16) at
+    512x512, its JSON record printed, and one train_step of the last
     traced (busy share, top kernels, the host's waits); `utils.profiler.trace` and
     `annotate` around DIAG_TRACED_REQUESTS served mobilenetv2 requests (bf16,
     the ASPP and decoder kernels), the trace holding the annotation and both
-    kernels; featuremap_check of mobilenetv2 at 512 on an example/ image on
+    kernels; featuremap_check of mobilenetv2 at DIAG_FEATUREMAP_HW on an example/ image on
     the card and on the CPU (seeded weights, the same on both): the same
     files, every map within DIAG_MAP_RTOL of max|map|; convkernel_check
     (--layer Conv, 4 filters, 128 px, 5 steps) on the card and on the CPU:
@@ -5529,8 +5602,10 @@ def diagnostics_phase(torch, kernels, classes_path) -> dict:
         t = time.perf_counter()
         names, _ = quiet(featuremap_check.main, ["--model_type", "mobilenetv2", "--image_file",
                                                  image_file, "--output_path", dirs[device],
+                                                 "--model_input_shape", str(DIAG_FEATUREMAP_HW),
                                                  "--device", device])
-        print(f"  featuremap_check mobilenetv2 512x512 --device {device}: {len(names)} maps, "
+        print(f"  featuremap_check mobilenetv2 {DIAG_FEATUREMAP_HW}x{DIAG_FEATUREMAP_HW} "
+              f"--device {device}: {len(names)} maps, "
               f"{time.perf_counter() - t:.1f} s")
     files = {d: sorted(os.listdir(dirs[d])) for d in dirs}
     worst, bad = 0.0, []
@@ -5605,6 +5680,167 @@ def diagnostics_phase(torch, kernels, classes_path) -> dict:
     print(f"the diagnostics phase took {time.perf_counter() - t0:.1f} s")
     return {f"diagnostics: mobilenetv2 served under trace + annotate, {DIAG_TRACED_REQUESTS} "
             "requests": counts}
+
+
+def remat_phase(torch, kernels, train_main, train_args, classes_path, root) -> dict:
+    """(15i) backbone rematerialisation on the card (models/remat.py):
+    REMAT_MODEL at 512x512, OS REMAT_OS, 21 classes, bf16, --fused_loss,
+    seeded weights, trained through `Trainer` on the synthetic set at `root`
+    in each of REMAT_MODES: the peak memory and step time at b8 and b16
+    (each run only where its predicted peak is under REMAT_MEMORY_SHARE of
+    the card); each mode against off in f32 at REMAT_CHECK_BATCH; then the
+    train CLI with --remat block --fused_loss on mobilenetv2. Returns the
+    launch counts by path for the kernels' record: the train CLI's (the
+    training slice's loss shape), and {batch: the counts summed over the
+    modes' runs} of REMAT_MODEL (its OS8 loss shapes)."""
+    import shutil
+
+    from deeplabv3p_torch.losses import get_loss_fn
+    from deeplabv3p_torch.models.factory import build_segmentation_model
+    from deeplabv3p_torch.models.layers import init_parameters
+    from deeplabv3p_torch.train import StageConfig, Trainer
+
+    t0 = time.perf_counter()
+    card = card_line()
+    total = torch.cuda.get_device_properties(0).total_memory
+    images, labels = train_batch(torch, root, classes_path, max(REMAT_BATCHES))
+    log_dir = os.path.join(OUT_DIR, "smoke_remat_logs")
+    launches = {}
+    print(f"backbone rematerialisation: {REMAT_MODEL} {INPUT[0]}x{INPUT[1]} OS{REMAT_OS}, 21 "
+          f"classes, bf16, --fused_loss, SGD 1e-2, seeded weights; the card holds "
+          f"{total / 2**30:.2f} GiB, a run only where its predicted peak is under "
+          f"{REMAT_MEMORY_SHARE} of it  [{card}]")
+
+    def trainer_of(mode, dtype):
+        model = build_segmentation_model(REMAT_MODEL, 21, output_stride=REMAT_OS, remat=mode,
+                                         dtype=dtype, device="cuda")
+        init_parameters(model, torch.Generator().manual_seed(TRAIN_SEED), bn_identity=True)
+        trainer = Trainer(model, 21, get_loss_fn("crossentropy"), device="cuda",
+                          log_dir=log_dir, fused_loss=True)
+        stage = StageConfig(freeze_level=0, optim_type="sgd", learning_rate=1e-2)
+        return model, trainer.build_stage_state(stage), trainer.make_train_step(stage)
+
+    def run(mode, model, state, step, batch, timed):
+        """(peak bytes, bytes allocated before the steps, median ms, counts)
+        of REMAT_WARMUP + `timed` steps of `model` in `mode` at `batch`."""
+        torch.cuda.empty_cache()
+        x, y = images[:batch], labels[:batch]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()                # this run's steps start here
+        losses, ms = [], []
+        for i in range(REMAT_WARMUP + timed):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(state, x, y, None)
+            end.record()
+            end.synchronize()
+            losses.append(metrics["loss"].item())
+            if i >= REMAT_WARMUP:
+                ms.append(start.elapsed_time(end))
+        counts = kernels.launch_counts()             # ... and end here
+        peak = torch.cuda.max_memory_allocated()
+        steps = REMAT_WARMUP + timed
+        check(all(np.isfinite(losses)) and model.remat == (None if mode == "off" else mode)
+              and counts == {**ZERO_LAUNCHES, "upsample_ce_forward": steps,
+                             "upsample_ce_backward": steps},
+              f"remat {mode} b{batch}: {steps} finite losses, each loss kernel once a step: "
+              f"{counts}")
+        del metrics
+        return peak, before, statistics.median(ms) if ms else None, counts
+
+    def predicted(peak, before, factor):
+        """The peak at `factor` times the batch: the step's own bytes scaled
+        (its weight gradients and momentum too, so an overestimate)."""
+        return before + factor * (peak - before)
+
+    gib = 2**30
+    rows, by_batch = {}, {}
+    for mode in REMAT_MODES:  # one model a mode, its batches in turn
+        trained = trainer_of(mode, torch.bfloat16)
+        peak, before, _, _ = run(mode, *trained, REMAT_PROBE_BATCH, 0)
+        want = predicted(peak, before, REMAT_BATCHES[0] / REMAT_PROBE_BATCH)
+        print(f"  {mode} b{REMAT_PROBE_BATCH} probe: peak {peak / gib:.3f} GiB ({before / gib:.3f} "
+              f"before the steps); b{REMAT_BATCHES[0]} predicted {want / gib:.3f} GiB  [{card}]")
+        for batch in REMAT_BATCHES:
+            if want >= REMAT_MEMORY_SHARE * total:
+                print(f"  {mode} b{batch}: not run, predicted {want / gib:.3f} GiB >= "
+                      f"{REMAT_MEMORY_SHARE} of the card  [{card}]")
+                break
+            peak, before, med, counts = run(mode, *trained, batch, REMAT_TIMED)
+            rows[(mode, batch)] = (peak, med)
+            for name, n in counts.items():
+                by_batch.setdefault(batch, dict(ZERO_LAUNCHES))[name] += n
+            print(f"  {mode} b{batch}: peak {peak / gib:.3f} GiB (predicted {want / gib:.3f}, "
+                  f"{before / gib:.3f} before the steps), median step {med:.3f} ms over "
+                  f"{REMAT_TIMED} after {REMAT_WARMUP} (CUDA events), {batch / med * 1e3:.2f} "
+                  f"img/s  [{card}]")
+            want = predicted(peak, before, 2)
+        del trained
+        torch.cuda.empty_cache()
+    for batch in REMAT_BATCHES:
+        off = rows.get(("off", batch))
+        for mode in REMAT_MODES[1:]:
+            if off and (mode, batch) in rows:
+                peak, med = rows[(mode, batch)]
+                print(f"  b{batch} {mode} against off: peak {peak / off[0]:.3f}x, step "
+                      f"{med / off[1]:.3f}x  [{card}]")
+    if ("off", REMAT_BATCHES[0]) in rows and ("block", REMAT_BATCHES[0]) in rows:
+        check(rows[("block", REMAT_BATCHES[0])][0] < rows[("off", REMAT_BATCHES[0])][0],
+              f"remat block b{REMAT_BATCHES[0]}: peak under off's")
+
+    # each mode against off in f32 (TF32 off), one forward, loss and backward
+    def grads_of(mode):
+        model, state, step = trainer_of(mode, torch.float32)
+        loss, _ = step.forward_loss(images[:REMAT_CHECK_BATCH], labels[:REMAT_CHECK_BATCH], None)
+        loss.backward()
+        out = (loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+               {n: b.detach().clone() for n, b in model.named_buffers()})
+        del model, state, step, loss
+        torch.cuda.empty_cache()
+        return out
+
+    ref_loss, ref_grads, ref_bufs = grads_of("off")
+    scale = max(g.abs().max().item() for g in ref_grads.values())
+    for mode in REMAT_MODES[1:]:
+        loss, grads, bufs = grads_of(mode)
+        worst = max(((g - ref_grads[n]).abs() - REMAT_GRAD_RTOL * ref_grads[n].abs()).max().item()
+                    for n, g in grads.items())
+        err = max((g - ref_grads[n]).abs().max().item() for n, g in grads.items())
+        same_bufs = all(torch.equal(b, ref_bufs[n]) for n, b in bufs.items())
+        check(loss == ref_loss and same_bufs and grads.keys() == ref_grads.keys()
+              and worst <= REMAT_GRAD_ATOL * scale,
+              f"remat {mode} against off, f32 b{REMAT_CHECK_BATCH}: step-1 loss {loss!r} and "
+              f"{ref_loss!r}, BN buffers bit-equal {same_bufs}, gradients max|d| {err:.3g} "
+              f"(max|g| {scale:.3g}; |d| - {REMAT_GRAD_RTOL:g}|g| at most {worst:.3g} <= "
+              f"{REMAT_GRAD_ATOL:g} * max|g|)")
+    del ref_grads, ref_bufs
+
+    # the train CLI: --remat block --fused_loss on mobilenetv2 b16, 2 steps
+    list_path = os.path.join(root, "list_remat.txt")
+    with open(list_path, "w") as f:
+        f.write("\n".join(f"s{i:03d}" for i in range(2 * TRAIN_BATCH)) + "\n")
+    cli_dir = os.path.join(OUT_DIR, "smoke_remat_train_logs")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    argv = ["--model_type", "mobilenetv2", "--model_input_shape", f"{INPUT[0]}x{INPUT[1]}",
+            "--batch_size", str(TRAIN_BATCH), "--remat", "block", "--fused_loss", "--no_augment",
+            "--transfer_epoch", "0", "--total_epoch", "1", "--dataset_path", root,
+            "--dataset_file", list_path, "--classes_path", classes_path, "--log_dir", cli_dir,
+            "--device", "cuda"]
+    print("  python -m deeplabv3p_torch.train " + " ".join(argv))
+    trainer, wall, counts, _ = run_cli(torch, kernels, train_main, train_args(argv))
+    launches["mobilenetv2 train --remat block --fused_loss"] = counts
+    losses = [r["loss"] for r in trainer.history]
+    check(trainer.model.remat == "block" and trainer.model.backbone.remat_blocks
+          and len(losses) == 1 and all(np.isfinite(losses))
+          and counts == {**ZERO_LAUNCHES, "upsample_ce_forward": 2, "upsample_ce_backward": 2},
+          f"train CLI --remat block --fused_loss (mobilenetv2 b{TRAIN_BATCH}, 2 steps in "
+          f"{wall:.1f} s with its start): losses {losses}, each loss kernel once a step: {counts}")
+    del trainer
+    torch.cuda.empty_cache()
+    print(f"the remat phase took {time.perf_counter() - t0:.1f} s  [{card}]")
+    return launches, by_batch
 
 
 def card_line() -> str:

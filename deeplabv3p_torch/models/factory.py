@@ -18,16 +18,25 @@ and `trainable_parameters` names what the optimizer trains at that level
 factory.py:63-90, :284-308). UNet and Fast-SCNN ignore the level in their
 forward, as JAX's do, while the mask still applies: level 1 trains every
 parameter (none is under `backbone`), level 2 none.
+
+`remat` (JAX factory.py:53-57, :92-137) trades backbone activations for a
+second forward in the backward (`models/remat.py`): "full" checkpoints the
+whole backbone call, "block" each block of a body that takes
+`remat_blocks` (MobileNetV2, Xception, ResNet50). The checkpoints are
+taken in `forward`, so the parameter names and every weight file are the
+same with remat on and off.
 """
 
 from __future__ import annotations
 
+import inspect
 from functools import partial
 from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 
+from deeplabv3p_torch.models import remat as remat_lib
 from deeplabv3p_torch.models.layers import (
     ASPP,
     ASPPLite,
@@ -60,7 +69,8 @@ class DeeplabV3Plus(nn.Module):
     that takes the flag (the MobileNetV2 body); the other bodies refuse it.
     `use_subpixel` puts the `subpixel` head in place of `conv_upsample` and
     the final resize: its scale is 4 behind the decoder (every full head's
-    skip is at OS4) and the output stride behind a lite head.
+    skip is at OS4) and the output stride behind a lite head. `remat`:
+    None, "full" or "block" (`build_deeplab_model` checks it).
     """
 
     def __init__(
@@ -73,16 +83,21 @@ class DeeplabV3Plus(nn.Module):
         fused_aspp: bool = False,
         fused_decoder: bool = False,
         fused_mbconv: bool = False,
+        remat: Optional[str] = None,
         dtype: Optional[torch.dtype] = None,
         device=None,
     ):
         super().__init__()
         self.lite = lite
         self.use_subpixel = use_subpixel
+        self.remat = remat
         self.dtype = torch.float32 if dtype is None else dtype
         kw = dict(dtype=dtype, device=device)
-        # only a backbone with inverted residuals is handed the flag
+        # only a backbone with inverted residuals is handed the flag, only
+        # one with a per-block form `remat_blocks`
         body_kw = dict(fused_mbconv=True) if fused_mbconv else {}
+        if remat == "block":
+            body_kw["remat_blocks"] = True
         self.backbone = backbone_fn(output_stride=output_stride, **body_kw, **kw)
         feat_ch = self.backbone.out_channels
         if lite:
@@ -113,7 +128,7 @@ class DeeplabV3Plus(nn.Module):
             raise ValueError("skip_final_resize is incompatible with the subpixel head "
                              "(its upsample is the pixel shuffle itself)")
         x = channels_last(x.to(self.dtype))
-        feat, skip = self.backbone(x)
+        feat, skip = remat_lib.call(self.backbone, x, remat=self.remat == "full")
         feat = self.aspp(feat)
         if not self.lite:
             feat = self.decoder(feat, skip)
@@ -163,22 +178,32 @@ def build_deeplab_model(
     fused_aspp: bool = False,
     fused_decoder: bool = False,
     fused_mbconv: bool = False,
+    remat=False,
     dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> DeeplabV3Plus:
     """Construct a DeepLabV3+ model in eval mode (`set_train_mode` puts it
     in training mode). Weights: utils/weights.py or `init_parameters`. The
-    other families go through `build_segmentation_model`."""
+    other families go through `build_segmentation_model`. `remat`:
+    False / None / "off", True / "full" or "block" (JAX's values); "block"
+    on a body without `remat_blocks` raises, as in JAX."""
     if model_type not in DEEPLAB_MODEL_REGISTRY:
         raise ValueError(
             f"{model_type!r} is not a DeepLabV3+ model: build it with "
             f"build_segmentation_model; DeepLabV3+ models: {sorted(DEEPLAB_MODEL_REGISTRY)}"
         )
     backbone_fn, lite = DEEPLAB_MODEL_REGISTRY[model_type]
+    mode = remat_lib.remat_mode(remat)
+    if mode == "block":
+        cls = backbone_fn.func if isinstance(backbone_fn, partial) else backbone_fn
+        if "remat_blocks" not in inspect.signature(cls).parameters:
+            raise ValueError(f"remat='block' unsupported for {cls.__name__} "
+                             "(no remat_blocks field); use remat='full'")
     model = DeeplabV3Plus(
         backbone_fn, num_classes=num_classes, output_stride=output_stride,
         lite=lite, use_subpixel=use_subpixel, fused_aspp=fused_aspp,
-        fused_decoder=fused_decoder, fused_mbconv=fused_mbconv, dtype=dtype, device=device,
+        fused_decoder=fused_decoder, fused_mbconv=fused_mbconv, remat=mode, dtype=dtype,
+        device=device,
     )
     return model.eval()
 
@@ -198,18 +223,16 @@ def build_segmentation_model(
     """Any of the 22 models of the JAX package's three registries, in eval
     mode (JAX `build_segmentation_model`, factory.py:249-281, plus the
     port's `fused_mbconv` and `device`). As JAX does, UNet and Fast-SCNN
-    drop `output_stride`, `use_subpixel`, `fused_aspp` and `fused_decoder`
-    (they have no ASPP, decoder or DeepLab head); `fused_mbconv` on them
-    raises, as on every body without MobileNetV2's blocks. `remat` other
-    than off raises: it is not ported (ROADMAP Queue A item 14)."""
-    if remat not in (False, None, "off"):
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP Queue A item 14)")
+    drop `output_stride`, `use_subpixel`, `fused_aspp`, `fused_decoder` and
+    `remat` (they have no ASPP, decoder, DeepLab head or backbone; an unknown
+    `remat` mode still raises); `fused_mbconv` on them raises, as on every
+    body without MobileNetV2's blocks."""
+    remat_lib.remat_mode(remat)
     if model_type in DEEPLAB_MODEL_REGISTRY:
         return build_deeplab_model(
             model_type, num_classes, output_stride=output_stride, use_subpixel=use_subpixel,
             fused_aspp=fused_aspp, fused_decoder=fused_decoder, fused_mbconv=fused_mbconv,
-            dtype=dtype, device=device)
+            remat=remat, dtype=dtype, device=device)
     family = ("UNet" if model_type in UNET_MODEL_REGISTRY else
               "Fast-SCNN" if model_type in FAST_SCNN_MODEL_REGISTRY else None)
     if family is None:

@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from deeplabv3p_torch.models import remat
 from deeplabv3p_torch.ops.conv import atrous_explicit_pad, conv2d_same
 from deeplabv3p_torch.ops.resize import resize_bilinear
 from deeplabv3p_torch.parallel import spatial
@@ -154,10 +155,11 @@ class BatchNorm(nn.Module):
             n = stats[2 * c]
             mean = stats[:c] / n
             var = torch.clamp_min(stats[c:2 * c] / n - mean * mean, 0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        if not remat.recomputing():  # the forward moved them (models/remat.py)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)

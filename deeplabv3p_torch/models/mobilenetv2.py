@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from deeplabv3p_torch.models import remat
 from deeplabv3p_torch.models.layers import BatchNorm, Conv, DepthwiseConv, KeepsPrepared, _on_slab
 from deeplabv3p_torch.ops.activations import relu6
 from deeplabv3p_torch.parallel import spatial
@@ -187,8 +188,11 @@ class MobileNetV2Body(nn.Module):
     (reference MobileNetV2_body, deeplabv3p_mobilenetv2.py:77-199)."""
 
     def __init__(self, output_stride: int = 16, alpha: float = 1.0,
-                 fused_mbconv: bool = False, dtype=None, device=None):
+                 fused_mbconv: bool = False, remat_blocks: bool = False, dtype=None,
+                 device=None):
         super().__init__()
+        # each block checkpointed in training (models/remat.py; JAX remat_blocks)
+        self.remat_blocks = remat_blocks
         tab = os_control_table(output_stride)
         kw = dict(dtype=dtype, device=device)
         first = make_divisible(32 * alpha, 8)
@@ -211,7 +215,7 @@ class MobileNetV2Body(nn.Module):
         x = relu6(self.Conv_BN(self.Conv(x)))
         skip = None
         for i in range(len(_BLOCKS)):
-            x = getattr(self, f"block_{i}")(x)
+            x = remat.call(getattr(self, f"block_{i}"), x, remat=self.remat_blocks)
             if i == SKIP_BLOCK:
                 skip = x
         return x, skip

@@ -23,6 +23,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from deeplabv3p_torch.models import remat
 from deeplabv3p_torch.models.layers import BatchNorm, Conv
 from deeplabv3p_torch.models.mobilenetv2 import os_control_table
 from deeplabv3p_torch.ops.conv import pool2d
@@ -72,13 +73,15 @@ class ResNet50Body(nn.Module):
     out_channels = 2048
     skip_channels = 256
 
-    def __init__(self, output_stride: int = 16, fused_mbconv: bool = False, dtype=None,
-                 device=None):
+    def __init__(self, output_stride: int = 16, fused_mbconv: bool = False,
+                 remat_blocks: bool = False, dtype=None, device=None):
         super().__init__()
         if fused_mbconv:
             raise ValueError(
                 "fused_mbconv: the inverted-residual kernel runs MobileNetV2's blocks; "
                 "ResNet50 has none")
+        # each bottleneck checkpointed in training (models/remat.py; JAX remat_blocks)
+        self.remat_blocks = remat_blocks
         # the stage-4 and stage-5 (stride, rate) of JAX resnet50.py:89-97
         tab = os_control_table(output_stride)
         s16, r16 = tab["os16_stride"], tab["os16_rate"]
@@ -113,7 +116,7 @@ class ResNet50Body(nn.Module):
         x = pool2d(x, "max", 3, stride=2, padding=1)
         skip = None
         for name in self.stage_names:
-            x = getattr(self, name)(x)
+            x = remat.call(getattr(self, name), x, remat=self.remat_blocks)
             if name == "stage2c":
                 skip = x  # OS4
         return x, skip

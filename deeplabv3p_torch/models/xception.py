@@ -17,11 +17,13 @@ kernel otherwise. Every BN has Keras's defaults, momentum 0.99 and epsilon
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
 import torch.nn as nn
 
+from deeplabv3p_torch.models import remat
 from deeplabv3p_torch.models.layers import BatchNorm, Conv, SepConvBN
 from deeplabv3p_torch.models.mobilenetv2 import os_control_table
 from deeplabv3p_torch.ops.conv import atrous_explicit_pad
@@ -79,13 +81,15 @@ class XceptionBody(nn.Module):
     out_channels = 2048
     skip_channels = 256
 
-    def __init__(self, output_stride: int = 16, fused_mbconv: bool = False, dtype=None,
-                 device=None):
+    def __init__(self, output_stride: int = 16, fused_mbconv: bool = False,
+                 remat_blocks: bool = False, dtype=None, device=None):
         super().__init__()
         if fused_mbconv:
             raise ValueError(
                 "fused_mbconv: the inverted-residual kernel runs MobileNetV2's blocks; "
                 "Xception has none")
+        # each block checkpointed in training (models/remat.py; JAX remat_blocks)
+        self.remat_blocks = remat_blocks
         tab = os_control_table(output_stride)
         kw = dict(dtype=dtype, device=device)
         self.entry_flow_conv1_1 = Conv(3, 32, 3, strides=2, **kw)
@@ -113,10 +117,11 @@ class XceptionBody(nn.Module):
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         x = torch.relu(self.entry_flow_conv1_1_BN(self.entry_flow_conv1_1(x)))
         x = torch.relu(self.entry_flow_conv1_2_BN(self.entry_flow_conv1_2(x)))
-        x = self.entry_flow_block1(x)
-        x, skip = self.entry_flow_block2(x)
-        x = self.entry_flow_block3(x)
+        block = functools.partial(remat.call, remat=self.remat_blocks)
+        x = block(self.entry_flow_block1, x)
+        x, skip = block(self.entry_flow_block2, x)  # a tuple out of the checkpoint
+        x = block(self.entry_flow_block3, x)
         for i in range(self.middle_units):
-            x = getattr(self, f"middle_flow_unit_{i + 1}")(x)
-        x = self.exit_flow_block1(x)
-        return self.exit_flow_block2(x), skip
+            x = block(getattr(self, f"middle_flow_unit_{i + 1}"), x)
+        x = block(self.exit_flow_block1, x)
+        return block(self.exit_flow_block2, x), skip

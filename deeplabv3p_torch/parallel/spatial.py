@@ -111,16 +111,23 @@ class Partition:
 
 
 @contextlib.contextmanager
+def entered(part: Optional[Partition]):
+    """Run what is inside under `part`: a forward's partition captured
+    earlier (a checkpointed region's recompute runs in the backward, after
+    `partitioned` has ended and maybe in another thread), or None."""
+    prev = current()
+    _state.partition = part
+    try:
+        yield part
+    finally:
+        _state.partition = prev
+
+
 def suspended():
     """Run what is inside as one process would: on a map every rank of the
     spatial group holds whole (a replicated branch), no operator splits
     rows."""
-    prev = current()
-    _state.partition = None
-    try:
-        yield
-    finally:
-        _state.partition = prev
+    return entered(None)
 
 
 def height_of(x: torch.Tensor) -> int:
@@ -150,12 +157,8 @@ def partitioned(mesh, image_hw: Sequence[int]):
         return
     part = partition_of(mesh)
     part.record(int(image_hw[1]), int(image_hw[0]))
-    prev = current()
-    _state.partition = part
-    try:
+    with entered(part):
         yield part
-    finally:
-        _state.partition = prev
 
 
 def own_rows(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:

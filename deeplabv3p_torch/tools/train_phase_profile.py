@@ -118,6 +118,11 @@ def count_bytes(fn) -> int:
     return counter.bytes
 
 
+def significant(v: float) -> float:
+    """v to 4 significant figures: a positive rate never prints as 0."""
+    return float(f"{v:.4g}")
+
+
 def median_ms(fn, iters: int, device: torch.device) -> float:
     """Median ms of `iters` calls after WARMUP calls."""
     for _ in range(WARMUP):
@@ -210,10 +215,10 @@ def profile(model_type, batch, hw, num_classes, iters, device="cuda"):
         tflops = flops / (ms / 1e3) / 1e12
         gbps = nbytes / (ms / 1e3) / 1e9
         rows.append({
-            "phase": name, "ms": round(ms, 3), "tflops": round(tflops, 4),
-            "mfu_pct": None if peak_flops is None else round(100 * tflops * 1e12 / peak_flops, 2),
-            "hbm_gbps": round(gbps, 1),
-            "hbm_pct": None if peak_bw is None else round(100 * gbps * 1e9 / peak_bw, 2),
+            "phase": name, "ms": round(ms, 3), "tflops": significant(tflops),
+            "mfu_pct": None if peak_flops is None else significant(100 * tflops * 1e12 / peak_flops),
+            "hbm_gbps": significant(gbps),
+            "hbm_pct": None if peak_bw is None else significant(100 * gbps * 1e9 / peak_bw),
         })
         print(f"# {name}: {ms:.2f} ms  {flops / 1e9:.3f} GFLOP {tflops:.2f} TF/s "
               f"({rows[-1]['mfu_pct']}% of peak)  {nbytes / 1e9:.3f} GB {gbps:.0f} GB/s "

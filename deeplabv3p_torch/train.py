@@ -7,8 +7,8 @@ runs the root train.py's defaults: mobilenetv3large_lite, 512x512, OS16,
 b16, bf16 activations with f32 parameters, and the stochastic
 augmentation on the device (`data/augment.py`). `--fused_loss`,
 `--device_cache`, `--no_augment`, `--model_type`, `--bn_recalibrate`,
-`--optim_state_dtype` and `--weights_path` (`.npz`, `.ckpt` or `.h5`) as
-there; `--model_type` takes any of the 22 models of
+`--optim_state_dtype`, `--remat` (`models/remat.py`) and `--weights_path`
+(`.npz`, `.ckpt` or `.h5`) as there; `--model_type` takes any of the 22 models of
 `models.factory.build_segmentation_model` (`--fused_loss` a DeepLabV3+ one
 only; a UNet trains without the L2 penalty, as in the root CLI).
 
@@ -81,7 +81,7 @@ from deeplabv3p_torch.parallel.mesh import (
 )
 from deeplabv3p_torch.parallel.spatial import height_of, own_rows, partitioned
 from deeplabv3p_torch.utils.checkpoint import check_weights_path
-from deeplabv3p_torch.utils.weights import to_jax_variables
+from deeplabv3p_torch.utils.weights import from_jax_variables, to_jax_variables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -519,17 +519,39 @@ class Trainer:
         augment_fn=None,
         val_data=None,
         eval_data=None,
+        initial_state: Optional[TrainState] = None,
+        initial_variables: Optional[dict] = None,
         eval_every: int = 0,
+        checkpoint_cb: Optional[Callable[[TrainState, dict], None]] = None,
         ckpt_manager=None,
         reduce_lr_patience: int = 5,
         reduce_lr_factor: float = 0.5,
         early_stop_patience: int = 100,
+        steps_per_epoch: Optional[int] = None,
     ) -> Optional[TrainState]:
         """Run the staged schedule (JAX train.py:507-680). `train_data`
         yields host batches (images u8, labels u8, orig_hw);
         `augment_fn(images_u8, labels_u8, orig_hw)` on device tensors
         returns (images, labels, weights). Records stream to
-        <log_dir>/history.jsonl."""
+        <log_dir>/history.jsonl.
+
+        The model starts from `initial_state`'s parameter values (a
+        `TrainState` of this or another model of the same layout; each stage
+        builds its own optimizer, as JAX's does), else from
+        `initial_variables` (a JAX-layout `{'params', 'batch_stats'}` tree,
+        `utils/weights.from_jax_variables`), else as it is.
+        `steps_per_epoch` ends an epoch after that many batches.
+        `checkpoint_cb(state, record)` is called on each improved epoch,
+        where `ckpt_manager.save_epoch` saves."""
+        if initial_state is not None:
+            with torch.no_grad():
+                own = dict(self.model.named_parameters())
+                for name, p in initial_state.params.items():
+                    if p is not own[name]:
+                        own[name].copy_(p)
+        elif initial_variables is not None:
+            self.model.load_state_dict(from_jax_variables(initial_variables, self.model),
+                                       strict=True)
         state = None
         epoch_base = 0
         for stage in stages:
@@ -542,7 +564,9 @@ class Trainer:
                 step_metrics: list[dict] = []
                 feed = device_feed(train_data.epoch_batches(), self.device)
                 try:
-                    for batch in feed:
+                    for b, batch in enumerate(feed):
+                        if steps_per_epoch and b >= steps_per_epoch:
+                            break
                         if augment_fn is not None:
                             images, labels, weights = augment_fn(*batch)
                         else:
@@ -589,6 +613,8 @@ class Trainer:
                 if monitored > best_metric:
                     best_metric = monitored
                     plateau_wait = early_wait = 0
+                    if checkpoint_cb is not None:
+                        checkpoint_cb(state, record)
                     if ckpt_manager is not None and self.rank == 0:
                         ckpt_manager.save_epoch(
                             self.eval_variables(state, stage), global_epoch, record)
@@ -654,24 +680,14 @@ def parse_input_shape(spec):
     return (int(parts[0]), int(parts[1]))
 
 
-def _refuse_unported(args) -> None:
-    """Flags of the root train.py the port does not run yet: each raises,
-    naming its ROADMAP item; none is ignored."""
-    unported = [(args.remat != "off", "--remat", "Queue A item 14")]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-    if args.weights_path:
-        check_weights_path(args.weights_path)
-
-
 def main(args):
     """Train as the root train.py does. With `--num_devices N > 1` it spawns
     N ranks and returns None (the results are in `--log_dir`); under
     torchrun (RANK / WORLD_SIZE / LOCAL_RANK in the environment) it is one
     of the ranks. Otherwise it trains in this process and returns the
     `Trainer`."""
-    _refuse_unported(args)
+    if args.weights_path:
+        check_weights_path(args.weights_path)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False; "
                            "pass --device cpu to train on the CPU")
@@ -813,7 +829,7 @@ def train(args, mesh: Optional[Mesh] = None):
     if args.fused_loss and args.model_type not in DEEPLAB_MODEL_REGISTRY:
         raise SystemExit("--fused_loss requires a DeepLab conv-head model")
     model = build_segmentation_model(
-        args.model_type, num_classes, output_stride=args.output_stride,
+        args.model_type, num_classes, output_stride=args.output_stride, remat=args.remat,
         dtype=torch.bfloat16 if args.mixed_precision else None, device=device)
     # seeded as flax's init; an .h5 loads by layer name, what it lacks keeps this
     init_parameters(model, torch.Generator().manual_seed(args.seed), bn_identity=True)
@@ -955,7 +971,10 @@ def parse_args(argv=None):
                    help="fuse upsample + CE + metric argmax into the CUDA kernels of "
                         "ops/kernels/csrc/upsample_ce.cu (CE loss)")
     p.add_argument("--remat", nargs="?", const="full", default="off",
-                   choices=["off", "full", "block"], help="off only: not ported")
+                   choices=["off", "full", "block"],
+                   help="rematerialize backbone activations (OS8 memory): 'full' = one "
+                        "checkpoint around the backbone (bare --remat), 'block' = per-block "
+                        "checkpoints (mobilenetv2/xception/resnet50 backbones)")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="accumulate gradients over k micro-batches before each update")
     p.add_argument("--log_dir", default="logs/000")

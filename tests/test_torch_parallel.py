@@ -69,6 +69,10 @@ def cases():
         "lite": dict(lite, val=val, val_batch=B),
         "full_fused": dict(data, model_type="mobilenetv2", fused=True, lr=LR,
                            variables=jax_variables("mobilenetv2", 4)),
+        # each block checkpointed: the recompute's BN all-reduce over the ranks
+        "full_fused_remat_block": dict(data, model_type="mobilenetv2", fused=True, lr=LR,
+                                       variables=jax_variables("mobilenetv2", 4),
+                                       remat="block"),
         "lite_local_bn": dict(lite, global_bn=False),
         "accum": dict(lite, optimizer="adam", lr=1e-3, grad_accum=2, steps=2),
     }
@@ -95,7 +99,7 @@ def mismatches(got: dict, want: dict, rtol=1e-4, atol=1e-5) -> list:
     return [k for k in want if not np.allclose(got[k], want[k], rtol=rtol, atol=atol)]
 
 
-@pytest.mark.parametrize("name", ["lite", "full_fused"])
+@pytest.mark.parametrize("name", ["lite", "full_fused", "full_fused_remat_block"])
 def test_two_ranks_equal_one_process(ranks, one_process, name):
     (got0, got1), want = ranks[name], one_process[name]
     (a,), (b,), (w,) = got0["steps"], got1["steps"], want["steps"]

@@ -8,6 +8,13 @@ right, held on the CPU here:
   2^-25 does not move, yet was trained); a parameter frozen out of the
   optimizer's groups, one with a zero gradient and one whose update was
   large yet did not show still fail it.
+* `file_eval_checks`, the eval CLI on an f32 exported file of the learning
+  proof's weights (`onnx_phase`, `tf_phase`, `tflite_phase`): held to the
+  f32 model's eval on the same weights, while the bf16 `.npz`'s gap is held
+  to bf16's mask floor. A bf16 gap of 1.06e-03 (one card run in twelve
+  failed the former 1e-3 bound against the `.npz` on it) passes; a file
+  2e-3 off the f32 model, a wrong launch count, or a bf16 gap past the floor
+  fails.
 """
 
 import os
@@ -79,3 +86,27 @@ def test_stage_one_updates_tell_rounding_from_a_freeze():
     before = dict(record.held)
     opt.step()
     assert record.held == before
+
+
+class Metrics:
+    def __init__(self, miou, confusion):
+        self.miou, self.confusion = miou, confusion
+
+
+@pytest.mark.parametrize("file_d,npz_d,counts_ok,fails", [
+    (3e-4, 1.06e-3, True, 0),  # the run that failed the bound against the bf16 .npz
+    (2e-3, 1e-4, True, 1),
+    (3e-4, 1e-4, False, 1),
+    (3e-4, 0.03, True, 1),
+])
+def test_file_eval_checks_hold_the_file_to_the_f32_model(file_d, npz_d, counts_ok, fails,
+                                                         monkeypatch):
+    import numpy as np
+
+    monkeypatch.setattr(chip_smoke, "failures", [])
+    cm = np.diag([100, 50, 30, 20])
+    ref = Metrics(0.9, cm)
+    counts = {**chip_smoke.ZERO_LAUNCHES, "confusion_matrix_fused": 2 if counts_ok else 3}
+    chip_smoke.file_eval_checks("x.tflite", Metrics(0.9 + file_d, cm), Metrics(0.9 - npz_d, cm),
+                                ref, counts, 2)
+    assert len(chip_smoke.failures) == fails

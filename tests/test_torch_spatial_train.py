@@ -77,6 +77,10 @@ def cases():
         "lite_no_halo_backward": dict(b4, model_type="mobilenetv2_lite", variables=lite,
                                       mutation="halo_no_backward"),
         "full_1x2": dict(b2, model_type="mobilenetv2", variables=full),
+        # each block checkpointed: the recompute in the backward, after the
+        # forward's partition has ended, must re-enter it
+        "full_remat_block_1x2": dict(b2, model_type="mobilenetv2", variables=full,
+                                     remat="block"),
         # the other families' own row-block forms: MobileViT's gathered
         # attention, UNet's pools and 2x upsamples, Fast-SCNN's pyramid pooling
         "mobilevit_xxs_1x2": dict(b2, model_type="mobilevit_xxs",
@@ -125,8 +129,9 @@ def mismatches(got: dict, want: dict, rtol=1e-4, atol=1e-5) -> list:
     return [k for k in want if not np.allclose(got[k], want[k], rtol=rtol, atol=atol)]
 
 
-@pytest.mark.parametrize("name", ["lite", "full_1x2", "mobilevit_xxs_1x2", "unet_simple_1x2",
-                                  "fast_scnn_1x2", "unet_simple68_1x2"])
+@pytest.mark.parametrize("name", ["lite", "full_1x2", "full_remat_block_1x2",
+                                  "mobilevit_xxs_1x2", "unet_simple_1x2", "fast_scnn_1x2",
+                                  "unet_simple68_1x2"])
 def test_spatial_ranks_equal_one_process(ranks, one_process, name):
     got, want = ranks[name], one_process[name]
     a = got[0]
@@ -137,6 +142,15 @@ def test_spatial_ranks_equal_one_process(ranks, one_process, name):
     np.testing.assert_allclose(a["loss"], want["loss"], rtol=1e-5)
     np.testing.assert_allclose(a["jaccard"], want["jaccard"], rtol=1e-5)
     assert mismatches(a["variables"], want["variables"]) == []
+
+
+def test_remat_block_on_the_mesh_equals_no_remat(ranks):
+    """`remat="block"` on (1, 2): each rank's recompute re-enters the
+    forward's partition (models/remat.py), so the step is the plain one's,
+    loss and variables, within the bounds against one process."""
+    (a, *_), (b, *_) = ranks["full_remat_block_1x2"], ranks["full_1x2"]
+    np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
+    assert mismatches(a["variables"], b["variables"]) == []
 
 
 def test_labels_of_another_height_than_the_logits_raise(ranks, cases, tmp_path):

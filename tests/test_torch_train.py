@@ -509,21 +509,22 @@ def test_fit_reduces_lr_on_plateau_and_stops_early_or_on_nan(tmp_path):
     # --num_devices N trains since the data-parallel port (test_torch_parallel*.py),
     # and split spatially since spatial partitioning's (test_torch_spatial*.py)
     (["--no_augment", "--num_devices", "2", "--spatial_partition", "2"], "num_devices"),
+    # --remat trains since its port (models/remat.py, tests/test_torch_remat.py)
     (["--no_augment", "--remat"], "remat"),
 ])
 def test_unported_flags_raise(flags, match, toy_dataset, tmp_path):
-    """`--remat` raises naming its ROADMAP item. `--spatial_partition 2` on
-    one CPU process raises as the root CLI does: S must divide the device
-    count. With `--num_devices 2` it trains: two epochs of a (1, 2) mesh
-    on the toy set."""
+    """`--spatial_partition 2` on one CPU process raises as the root CLI
+    does: S must divide the device count. With `--num_devices 2` it trains:
+    two epochs of a (1, 2) mesh on the toy set; so does a bare `--remat`
+    (the whole backbone checkpointed) in one process."""
     args = parse_args(["--device", "cpu", "--log_dir", str(tmp_path), *flags])
     if match == "spatial_partition":
         with pytest.raises(SystemExit, match=r"--spatial_partition 2 must divide the device "
                                              r"count \(1\)"):
             main(args)
-    elif match == "num_devices":
+    else:
         root, list_path = toy_dataset
-        main(parse_args(["--device", "cpu", "--log_dir", str(tmp_path), *flags,
+        trainer = main(parse_args(["--device", "cpu", "--log_dir", str(tmp_path), *flags,
                          "--model_type", "mobilenetv2_lite", "--model_input_shape", "32",
                          "--batch_size", "4", "--transfer_epoch", "0", "--total_epoch", "2",
                          "--dataset_path", root, "--dataset_file", list_path,
@@ -531,9 +532,8 @@ def test_unported_flags_raise(flags, match, toy_dataset, tmp_path):
         records = [json.loads(line) for line in open(tmp_path / "history.jsonl")]
         assert [r["epoch"] for r in records] == [0, 1]
         assert all(np.isfinite(r["loss"]) for r in records)
-    else:
-        with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP"):
-            main(args)
+        if match == "remat":  # one process; a bare --remat is "full"
+            assert trainer.model.remat == "full"
 
 
 def test_cuda_device_without_a_card_is_an_error(toy_dataset, tmp_path):

@@ -79,10 +79,10 @@ def _jax_step(setup, fused, freeze_level, lr, l2_factor):
 
 
 def port_step(setup, fused, freeze_level, tmp_path, model_type="mobilenetv2", num_classes=C,
-              lr=LR, l2_factor=2e-5, use_subpixel=False):
+              lr=LR, l2_factor=2e-5, use_subpixel=False, remat=False):
     _, variables, images, labels, sw = setup
     model = build_segmentation_model_port(
-        model_type, num_classes, output_stride=16, use_subpixel=use_subpixel,
+        model_type, num_classes, output_stride=16, use_subpixel=use_subpixel, remat=remat,
         dtype=torch.float64, device="cpu")
     model.load_state_dict(from_jax_variables(variables, model), strict=True)
     for m in model.modules():

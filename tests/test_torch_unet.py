@@ -151,8 +151,11 @@ def test_nearest_nchw_equals_jax_indices(src, dst):
 def test_factory_refusals():
     with pytest.raises(ValueError, match="fused_mbconv"):
         build_segmentation_model("unet_simple", 21, fused_mbconv=True, device="meta")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_segmentation_model("unet_simple", 21, remat="full", device="meta")
+    # remat is dropped, as JAX's factory drops it (factory.py:274-277): no backbone
+    plain = build_segmentation_model("unet_simple", 21, device="meta")
+    for mode in ("full", "block", True):
+        m = build_segmentation_model("unet_simple", 21, remat=mode, device="meta")
+        assert type(m) is type(plain) and list(m.state_dict()) == list(plain.state_dict())
     with pytest.raises(ValueError, match="build_segmentation_model"):
         build_deeplab_model("unet_simple", 21, device="meta")
     # dropped, as JAX drops them: no ASPP, decoder or DeepLab head

@@ -31,9 +31,9 @@ class RowsDataset:
             yield images, labels, hw
 
 
-def build_model(model_type: str, num_classes: int, variables) -> torch.nn.Module:
+def build_model(model_type: str, num_classes: int, variables, remat=False) -> torch.nn.Module:
     """f32 parameters from a JAX variables tree, f64 activations, dropout off."""
-    model = build_segmentation_model(model_type, num_classes, output_stride=16,
+    model = build_segmentation_model(model_type, num_classes, output_stride=16, remat=remat,
                                      dtype=torch.float64, device="cpu")
     model.load_state_dict(from_jax_variables(variables, model), strict=True)
     for m in model.modules():
@@ -49,7 +49,7 @@ def run_case(mesh: Mesh, case: dict, log_dir: str) -> dict:
     checkpoint rank 0 saved, and the BN statistics after
     `recalibrate_batch_stats` over the val set (which rank 0 reads whole)."""
     c = case["num_classes"]
-    model = build_model(case["model_type"], c, case["variables"])
+    model = build_model(case["model_type"], c, case["variables"], case.get("remat", False))
     trainer = Trainer(model, c, get_loss_fn("crossentropy"), device=mesh.device,
                       use_sample_weights=True, l2_factor=2e-5, log_dir=log_dir,
                       fused_loss=case["fused"], mesh=mesh)
@@ -195,7 +195,7 @@ def spatial_train(mesh: Mesh, cases: list, log_dir: str) -> list:
     results = []
     for i, case in enumerate(cases):
         c = case["num_classes"]
-        model = build_model(case["model_type"], c, case["variables"])
+        model = build_model(case["model_type"], c, case["variables"], case.get("remat", False))
         tdir = f"{log_dir}/rank{mesh.rank}_{i}"
         trainer = Trainer(model, c, get_loss_fn("crossentropy"), device=mesh.device,
                           use_sample_weights=True, l2_factor=2e-5, log_dir=tdir, mesh=mesh)
