@@ -33,6 +33,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deeplabv3p_torch.utils.profiler import annotate
+
 
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:
@@ -416,21 +418,23 @@ def augment_batch(
     alike, and this rank applies its rows of them, so that a sample is
     augmented as one process augments it (JAX draws over the global batch
     with one key, train.py:452-462). The ranks of a spatial group augment
-    the same whole samples alike; each then keeps its rows."""
-    if cfg != AugmentConfig.identity():
-        b, h, w = images.shape[:3]
-        rank, world = (0, 1) if mesh is None else (mesh.data_index, mesh.data_size)
-        params = draw_augment_params(generator, b * world, h, w, cfg)
-        if world > 1:
-            params = params.rows(rank * b, (rank + 1) * b)
-        params = params.to(images.device)
-        if orig_hw is None:
-            orig_hw = torch.tensor([[h, w]], dtype=torch.float32,
-                                   device=images.device).expand(b, 2)
-        images, labels = apply_augment(params, images, labels, orig_hw.to(images.device), cfg)
-    images = _normalize(images)
-    labels = _clamp_labels(labels, num_classes, ignore_index)
-    return images, labels, adaptive_class_weights(labels)
+    the same whole samples alike; each then keeps its rows. All of it is the
+    span `deeplabv3p.augment`."""
+    with annotate("deeplabv3p.augment"):
+        if cfg != AugmentConfig.identity():
+            b, h, w = images.shape[:3]
+            rank, world = (0, 1) if mesh is None else (mesh.data_index, mesh.data_size)
+            params = draw_augment_params(generator, b * world, h, w, cfg)
+            if world > 1:
+                params = params.rows(rank * b, (rank + 1) * b)
+            params = params.to(images.device)
+            if orig_hw is None:
+                orig_hw = torch.tensor([[h, w]], dtype=torch.float32,
+                                       device=images.device).expand(b, 2)
+            images, labels = apply_augment(params, images, labels, orig_hw.to(images.device), cfg)
+        images = _normalize(images)
+        labels = _clamp_labels(labels, num_classes, ignore_index)
+        return images, labels, adaptive_class_weights(labels)
 
 
 def preprocess_eval_batch(

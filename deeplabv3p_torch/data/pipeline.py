@@ -296,7 +296,12 @@ def device_feed(batches, device, depth: int = 2):
     thread pins each host batch and starts its copy to `device` up to
     `depth` batches ahead of the consumer, so decode and transfer overlap
     the device's work. Yields tuples of tensors; exceptions from the worker
-    re-raise in the consumer; closing the generator stops the worker."""
+    re-raise in the consumer; closing the generator stops the worker.
+    Spans: `deeplabv3p.feed.produce` around each draw from `batches` and its
+    `to_device` on the worker, `deeplabv3p.feed.wait` around the consumer's
+    wait for the next item."""
+    from deeplabv3p_torch.utils.profiler import annotate
+
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     sentinel = object()
@@ -312,8 +317,14 @@ def device_feed(batches, device, depth: int = 2):
 
     def worker():
         try:
-            for batch in batches:
-                if not _put(to_device(batch, device)):
+            source = iter(batches)
+            while True:
+                with annotate("deeplabv3p.feed.produce"):
+                    batch = next(source, sentinel)
+                    if batch is sentinel:
+                        break
+                    item = to_device(batch, device)
+                if not _put(item):
                     return
         except BaseException as e:  # propagate to consumer
             _put(_FeedError(e))
@@ -324,7 +335,8 @@ def device_feed(batches, device, depth: int = 2):
     thread.start()
     try:
         while True:
-            item = q.get()
+            with annotate("deeplabv3p.feed.wait"):
+                item = q.get()
             if item is sentinel:
                 return
             if isinstance(item, _FeedError):

@@ -29,6 +29,7 @@ from deeplabv3p_torch.ops.conv import atrous_explicit_pad, conv2d_same
 from deeplabv3p_torch.ops.resize import resize_bilinear
 from deeplabv3p_torch.parallel import spatial
 from deeplabv3p_torch.parallel.mesh import AllReduceSum
+from deeplabv3p_torch.utils.profiler import annotate
 
 
 def _dtype(dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -131,14 +132,15 @@ class BatchNorm(nn.Module):
         return inv, bias - mean * inv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return self._train_forward(x)
-        dt = torch.promote_types(x.dtype, torch.float32)
-        y = F.batch_norm(
-            x.to(dt), self.running_mean.to(dt), self.running_var.to(dt),
-            self.weight.to(dt), self.bias.to(dt), False, 0.0, self.epsilon,
-        )
-        return y.to(self.dtype)
+        with annotate("deeplabv3p.bn"):
+            if self.training:
+                return self._train_forward(x)
+            dt = torch.promote_types(x.dtype, torch.float32)
+            y = F.batch_norm(
+                x.to(dt), self.running_mean.to(dt), self.running_var.to(dt),
+                self.weight.to(dt), self.bias.to(dt), False, 0.0, self.epsilon,
+            )
+            return y.to(self.dtype)
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))

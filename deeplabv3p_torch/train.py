@@ -81,6 +81,7 @@ from deeplabv3p_torch.parallel.mesh import (
 )
 from deeplabv3p_torch.parallel.spatial import height_of, own_rows, partitioned
 from deeplabv3p_torch.utils.checkpoint import check_weights_path
+from deeplabv3p_torch.utils.profiler import annotate
 from deeplabv3p_torch.utils.weights import from_jax_variables, to_jax_variables
 
 
@@ -171,64 +172,74 @@ def make_train_step(
         """(loss, metric input): the train-mode forward and the loss,
         L2 included (JAX `loss_of`); the metric input is the fused
         kernel's preds or the full-resolution NHWC logits. On a spatial
-        mesh, of this rank's rows (the labels too are returned)."""
-        set_train_mode(model, freeze_level)
+        mesh, of this rank's rows (the labels too are returned). Spans:
+        `deeplabv3p.train.forward` around the model, `deeplabv3p.train.loss`
+        around the loss tail."""
         sw = weights if use_sample_weights else None
-        if split:
-            b, h, w = labels.shape
-            hw = images.shape[1:3]
-            images, labels = own_rows(images, mesh), own_rows(labels, mesh)
-            sw = None if sw is None else own_rows(sw, mesh)
-            with partitioned(mesh, hw):
+        with annotate("deeplabv3p.train.forward"):
+            set_train_mode(model, freeze_level)
+            # images.permute(0, 3, 1, 2): NHWC -> channels_last NCHW, free
+            if split:
+                b, h, w = labels.shape
+                hw = images.shape[1:3]
+                images, labels = own_rows(images, mesh), own_rows(labels, mesh)
+                sw = None if sw is None else own_rows(sw, mesh)
+                with partitioned(mesh, hw):
+                    logits = model(images.permute(0, 3, 1, 2))
+                    h_out = height_of(logits)
+            elif fused_loss:
+                logits = model(images.permute(0, 3, 1, 2), skip_final_resize=True)
+            else:
                 logits = model(images.permute(0, 3, 1, 2))
-                h_out = height_of(logits)
-            if (h_out, logits.shape[-1]) != (h, w):  # one process raises too (the metric)
-                raise ValueError(f"logits {h_out}x{logits.shape[-1]} for labels {h}x{w}")
-            logits = logits.permute(0, 2, 3, 1)
-            loss = losses_lib.reduce_loss(loss_fn(labels, logits), sw, count=b * h * w)
+        with annotate("deeplabv3p.train.loss"):
+            if split:
+                if (h_out, logits.shape[-1]) != (h, w):  # one process raises too (the metric)
+                    raise ValueError(f"logits {h_out}x{logits.shape[-1]} for labels {h}x{w}")
+                logits = logits.permute(0, 2, 3, 1)
+                loss = losses_lib.reduce_loss(loss_fn(labels, logits), sw, count=b * h * w)
+                if l2_factor:
+                    loss = loss + losses_lib.l2_penalty(model, l2_factor) / mesh.spatial
+                return loss, (logits, labels)
+            if fused_loss:
+                loss_sum, metric_aux = fused_upsample_ce(
+                    logits.permute(0, 2, 3, 1), labels, labels.shape[1:3],
+                    sample_weights=sw, class_weights=fused_class_weights,
+                )
+                loss = loss_sum / labels.numel()  # reduce_loss's Keras mean
+            else:
+                metric_aux = logits.permute(0, 2, 3, 1)
+                loss = losses_lib.reduce_loss(loss_fn(labels, metric_aux), sw)
             if l2_factor:
-                loss = loss + losses_lib.l2_penalty(model, l2_factor) / mesh.spatial
-            return loss, (logits, labels)
-        x = images.permute(0, 3, 1, 2)  # NHWC -> channels_last NCHW, free
-        if fused_loss:
-            logits_lr = model(x, skip_final_resize=True)
-            loss_sum, metric_aux = fused_upsample_ce(
-                logits_lr.permute(0, 2, 3, 1), labels, labels.shape[1:3],
-                sample_weights=sw, class_weights=fused_class_weights,
-            )
-            loss = loss_sum / labels.numel()  # reduce_loss's Keras mean
-        else:
-            metric_aux = model(x).permute(0, 2, 3, 1)
-            loss = losses_lib.reduce_loss(loss_fn(labels, metric_aux), sw)
-        if l2_factor:
-            loss = loss + losses_lib.l2_penalty(model, l2_factor)
-        return loss, metric_aux
+                loss = loss + losses_lib.l2_penalty(model, l2_factor)
+            return loss, metric_aux
 
     def step_fn(state: TrainState, images, labels, weights, lr_scale: float = 1.0):
         loss, metric_aux = forward_loss(images, labels, weights)
         if split:
             metric_aux, labels = metric_aux
         if loss.requires_grad:  # else nothing trains (UNet, Fast-SCNN at level 2)
-            (loss / state.grad_accum if state.grad_accum > 1 else loss).backward()
+            with annotate("deeplabv3p.train.backward"):
+                (loss / state.grad_accum if state.grad_accum > 1 else loss).backward()
         state.step += 1
-        if state.step % state.grad_accum == 0:
-            if group is not None:
-                # each data group's loss is its own mean plus the L2 penalty
-                # (on a spatial mesh, the sum of its ranks' parts); every data
-                # group holds as many pixels and the same L2, so the gradients
-                # summed over the ranks and divided by the data groups are the
-                # global-batch mean's plus L2 once. A step that trains nothing
-                # has no gradient on any rank.
-                reduce_gradients([p for g in state.optimizer.param_groups
-                                  for p in g["params"]], group, mesh.data_size)
-            opt_lib.set_learning_rate(
-                state.optimizer, state.schedule(state.updates) * lr_scale)
-            state.optimizer.step()
-            state.optimizer.zero_grad(set_to_none=True)
-            state.updates += 1
-        state.avg = opt_lib.apply_average(average_type, state.avg, state.params, state.step)
+        with annotate("deeplabv3p.train.optimizer"):
+            if state.step % state.grad_accum == 0:
+                if group is not None:
+                    # each data group's loss is its own mean plus the L2 penalty
+                    # (on a spatial mesh, the sum of its ranks' parts); every data
+                    # group holds as many pixels and the same L2, so the gradients
+                    # summed over the ranks and divided by the data groups are the
+                    # global-batch mean's plus L2 once. A step that trains nothing
+                    # has no gradient on any rank.
+                    reduce_gradients([p for g in state.optimizer.param_groups
+                                      for p in g["params"]], group, mesh.data_size)
+                opt_lib.set_learning_rate(
+                    state.optimizer, state.schedule(state.updates) * lr_scale)
+                state.optimizer.step()
+                state.optimizer.zero_grad(set_to_none=True)
+                state.updates += 1
+            state.avg = opt_lib.apply_average(average_type, state.avg, state.params, state.step)
 
-        with torch.no_grad():
+        with annotate("deeplabv3p.train.metrics"), torch.no_grad():
             if group is not None:
                 return _global_metrics(loss.detach(), labels, metric_aux, fused_loss,
                                        num_classes, mesh)
@@ -309,11 +320,12 @@ def accumulate_confusion(eval_step, data, num_classes: int, device,
             cm += eval_step(batch[0], batch[1])
     finally:
         feed.close()
-    if group is not None:
-        import torch.distributed as dist
+    with annotate("deeplabv3p.eval.fetch"):
+        if group is not None:
+            import torch.distributed as dist
 
-        dist.all_reduce(cm, group=group)
-    return cm.cpu().numpy()
+            dist.all_reduce(cm, group=group)
+        return cm.cpu().numpy()
 
 
 def recalibrate_batch_stats(model, batches, num_classes: int, device, seed: int = 0,

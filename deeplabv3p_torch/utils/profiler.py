@@ -1,78 +1,91 @@
-"""Profiling and timing utilities (deeplabv3p_tpu/utils/profiler.py).
+"""Profiling utilities (deeplabv3p_tpu/utils/profiler.py).
 
 * `trace(log_dir)`: a context manager around `torch.profiler.profile`
   (the CPU, and the card's kernels when there is one) that writes a
   `*.pt.trace.json` into `log_dir`, which TensorBoard's torch profiler
   plugin and chrome://tracing load;
-* `annotate(name)`: a named region on that timeline
-  (`torch.profiler.record_function`), so custom phases (augment,
-  train_step, eval) show up on the trace;
-* `StepTimer`: per-step wall-clock aggregation with a percentile summary.
+* `annotate(name)`: a named span on that timeline. While a profiler
+  records, it is a `torch.profiler.record_function` range in the session
+  that records the card, so the host's spans and the card's kernels share
+  one timeline; otherwise it is one shared `contextlib.nullcontext()`
+  after a single flag read, a small part of what a bare `record_function`
+  costs with no profiler on;
+* `SPANS`: the program's own spans, where each sits and what reads it.
+
+A profiler records the spans of the threads it follows: the thread that
+started it and, through autograd's propagation of its state, the backward
+engine's. `device_feed`'s worker thread is followed only by a profiler that
+records all threads (`trace` asks for that), so its span is missing from a
+profile that does not.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Optional
 
-import numpy as np
 import torch
+
+# name -> (where the span sits, what reads it); the caller's spans tile a
+# train unit: feed wait, augment, forward, loss, backward, optimizer, metrics
+SPANS = {
+    "deeplabv3p.feed.wait": (
+        "data.pipeline.device_feed: the consumer's wait for the next batch",
+        "feed_idle_ms.eval"),
+    "deeplabv3p.feed.produce": (
+        "data.pipeline.device_feed's worker thread: one batch drawn from the source "
+        "and started on its way to the device",
+        "the host syncs of the feed thread (DeviceCachedDataset's index copy)"),
+    "deeplabv3p.augment": (
+        "data.augment.augment_batch, all of it",
+        "the ops augment_ms.train reads through the benchmark's own span"),
+    "deeplabv3p.train.forward": (
+        "train.make_train_step's forward_loss: set_train_mode and the model call",
+        "forward_ms.train"),
+    "deeplabv3p.train.loss": (
+        "forward_loss's loss tail: fused_upsample_ce or loss_fn + reduce_loss, "
+        "and l2_penalty",
+        "the breakdown's idle gaps"),
+    "deeplabv3p.train.backward": (
+        "the step's .backward() call; autograd's device thread runs the engine",
+        "backward_ms.train"),
+    "deeplabv3p.train.optimizer": (
+        "reduce_gradients, set_learning_rate, optimizer.step, zero_grad, apply_average",
+        "optimizer_ms.train"),
+    "deeplabv3p.train.metrics": (
+        "the step's no_grad jaccard block, _global_metrics included",
+        "the host syncs of the jaccard's bincount"),
+    "deeplabv3p.bn": (
+        "models.layers.BatchNorm.forward, train and eval",
+        "bn_ms.eval"),
+    "deeplabv3p.eval.fetch": (
+        "train.accumulate_confusion: the matrix's all_reduce and its copy to the host",
+        "host_syncs.eval"),
+}
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
 def trace(log_dir: str, enabled: bool = True):
-    """Profile the block into `log_dir` (the TensorBoard plugin's format);
-    nothing happens when not `enabled`."""
+    """Profile the block into `log_dir` (the TensorBoard plugin's format),
+    every thread's spans included; nothing happens when not `enabled`."""
     if not enabled:
         yield
         return
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir),
+                 experimental_config=_ExperimentalConfig(profile_all_threads=True)):
         yield
 
 
 def annotate(name: str):
-    """Named region on the profiler timeline."""
+    """Named span on the profiler timeline while a profiler records; the
+    shared null context otherwise."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
     return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Wall-clock step timing with warmup skip and percentile summary.
-
-    The time of a step is the host's, from entering the block to leaving
-    it: work the block queued on the card and did not wait for is not in
-    it. A caller timing CUDA work calls `torch.cuda.synchronize()` inside
-    the block, at its end."""
-
-    def __init__(self, warmup: int = 1):
-        self.warmup = warmup
-        self._times: list[float] = []
-        self._t0: Optional[float] = None
-        self._count = 0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.warmup:
-            self._times.append(dt)
-
-    def summary(self) -> dict:
-        if not self._times:
-            return {"steps": 0}
-        arr = np.asarray(self._times)
-        return {
-            "steps": len(arr),
-            "mean_ms": float(arr.mean() * 1e3),
-            "p50_ms": float(np.percentile(arr, 50) * 1e3),
-            "p90_ms": float(np.percentile(arr, 90) * 1e3),
-            "max_ms": float(arr.max() * 1e3),
-        }

@@ -3,8 +3,6 @@ profiler (deeplabv3p_torch/tools/train_phase_profile.py) against the JAX
 package's (deeplabv3p_tpu/utils/profiler.py,
 tools/evaluation/train_phase_profile.py) on the CPU:
 
-* `StepTimer`: both classes fed the same `time.perf_counter` sequence give
-  equal `summary()` dicts, `{"steps": 0}` included;
 * `trace` + `annotate` write a trace holding the annotation;
   `enabled=False` writes nothing;
 * train_phase_profile at b1, 32 px, `--iters 1` (one run of the port's
@@ -28,18 +26,15 @@ import json
 import os
 import runpy
 import sys
-import time
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
 from deeplabv3p_tpu.models.factory import build_deeplab_model
-from deeplabv3p_tpu.utils.profiler import StepTimer as JaxStepTimer
 from deeplabv3p_torch.tools import train_phase_profile as tpp
-from deeplabv3p_torch.utils.profiler import StepTimer, annotate, trace
+from deeplabv3p_torch.utils.profiler import annotate, trace
 from test_torch_model import one_torch_thread  # noqa: F401 (a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,25 +43,7 @@ PX, BATCH = 32, 1
 FLOP_RATIO = (1.03, 1.08)  # XLA's forward FLOPs over the port's
 
 
-# -- StepTimer, trace, annotate ---------------------------------------------------------
-
-@pytest.mark.parametrize("warmup,steps", [(1, 0), (1, 1), (1, 5), (0, 4), (3, 7)])
-def test_step_timer_summary_equals_jax(monkeypatch, warmup, steps):
-    clock = np.cumsum(np.random.default_rng(steps).uniform(1e-4, 0.05, 2 * steps + 1))
-
-    def summary(cls):
-        ticks = iter(clock.tolist())
-        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-        timer = cls(warmup=warmup)
-        for _ in range(steps):
-            with timer:
-                pass
-        return timer.summary()
-
-    got, want = summary(StepTimer), summary(JaxStepTimer)
-    assert got == want
-    assert got == {"steps": 0} if steps <= warmup else got["steps"] == steps - warmup
-
+# -- trace, annotate ------------------------------------------------------------------
 
 def test_trace_holds_the_annotation(tmp_path):
     with trace(str(tmp_path / "on")):
