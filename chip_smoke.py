@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout; one GPU
     python3 chip_smoke.py --aspp   # steps 1-2 and the ASPP kernel alone
+    python3 chip_smoke.py --bn     # steps 1-2 and training BatchNorm's kernel pair alone
     python3 chip_smoke.py --export # steps 1-2 and the export phase (15) alone
     python3 chip_smoke.py --onnx   # steps 1-2, the learning proof and the ONNX phase (15b)
     python3 chip_smoke.py --tf     # steps 1-2, the learning proof and the TF graph phase (15g)
@@ -38,7 +39,15 @@
    the inverted-residual kernel (csrc/mbconv.cu) at the 13 block shapes of
    the batch-8 512x512 OS16 body, the JAX tests' four, a ragged map and
    OS8's rate 4, bf16 and f32; torch.argmax (`mask_argmax`) on the card
-   against numpy's argmax on logits with planted ties and NaNs;
+   against numpy's argmax on logits with planted ties and NaNs; training
+   BatchNorm's kernel pair (csrc/batchnorm.cu) against its plain version at
+   every site shape of a mobilenetv2 OS16 b16 and an xception OS8 b8 step at
+   512x512 in bf16, two calls bit-equal, and its forward and backward times
+   by events beside the plain version's, the least bytes' bound (10 B an
+   element) and the two-pass design's 16 B,
+   summed over each step's sites (every training path below also checks
+   that each training-mode BN site ran the forward and backward kernel once
+   a step);
 4. the serving path: 8 requests through `DeepLab` (mobilenetv2, full ASPP +
    decoder head, 512x512, OS16, 21 VOC classes, bf16, seeded weights) as
    built by default (fused ASPP kernel), then 8 more with the fused decoder
@@ -293,6 +302,9 @@ INPUT = (512, 512)
 REQUEST_SHAPES = [(375, 500), (480, 640), (333, 517), (600, 400),
                   (512, 384), (281, 419), (720, 1280), (427, 640)]
 WARMUP = 3
+# training-mode BatchNorm's kernel pair, timed at every site of a training step
+# of the benchmark's two models at 512x512: (model, output stride, batch)
+BN_MODELS = (("mobilenetv2", 16, 16), ("xception", 8, 8))
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_SEED = 32, 16, 0
 # the CLI-defaults training set: every other pair at 720x1280, larger than the
 # input on both axes, so the random crop can fire
@@ -525,7 +537,45 @@ def check(ok: bool, what: str) -> None:
 
 ZERO_LAUNCHES = {"multirate_atrous_depthwise": 0, "fused_decoder_frontend": 0,
                  "upsample_ce_forward": 0, "upsample_ce_backward": 0,
-                 "confusion_matrix_fused": 0, "fused_inverted_residual": 0}
+                 "confusion_matrix_fused": 0, "fused_inverted_residual": 0,
+                 "batchnorm_train_forward": 0, "batchnorm_train_backward": 0}
+
+
+def bn_sites(model_type: str, freeze_level: int) -> int:
+    """The training-mode BatchNorm sites of `model_type` at `freeze_level`
+    (a model built on the meta device)."""
+    from deeplabv3p_torch.models.factory import build_segmentation_model, set_train_mode
+    from deeplabv3p_torch.models.layers import BatchNorm
+
+    model = set_train_mode(build_segmentation_model(model_type, 21, device="meta"),
+                           freeze_level)
+    return sum(1 for m in model.modules() if isinstance(m, BatchNorm) and m.training)
+
+
+def bn_remat_sites(model_type: str, remat: str) -> int:
+    """The training BN sites a `remat` recompute runs again a step: every
+    backbone site ("full"), or those inside the backbone's checkpointed
+    blocks ("block": all but the backbone's own BN children)."""
+    from deeplabv3p_torch.models.factory import build_segmentation_model
+    from deeplabv3p_torch.models.layers import BatchNorm
+
+    backbone = build_segmentation_model(model_type, 21, remat=remat, device="meta").backbone
+    sites = sum(1 for m in backbone.modules() if isinstance(m, BatchNorm))
+    own = sum(1 for m in backbone.children() if isinstance(m, BatchNorm))
+    return sites - (own if remat == "block" else 0)
+
+
+def bn_launches(model_type: str, stages, forwards: int = 0, remat: str = "off") -> dict:
+    """The training BatchNorm kernels' launch counts of `stages`, a list of
+    (freeze level, steps): a forward and a backward at every training-mode
+    site a step; plus `forwards` training forwards of the whole model with
+    no backward (`recalibrate_batch_stats`' batches), and the forward again
+    at each site a `remat` recompute runs (stages at freeze level 0)."""
+    n = sum(steps * bn_sites(model_type, level) for level, steps in stages)
+    again = (0 if remat == "off"
+             else sum(steps for _, steps in stages) * bn_remat_sites(model_type, remat))
+    return {"batchnorm_train_forward": n + again + forwards * bn_sites(model_type, 0),
+            "batchnorm_train_backward": n}
 
 
 def run_cli(torch, kernels, cli_main, args, quiet: bool = True):
@@ -812,6 +862,7 @@ def main() -> None:
         from deeplabv3p_torch.ops import kernels
         from deeplabv3p_torch.ops.kernels import _build
         from deeplabv3p_torch.ops.kernels import aspp as kaspp
+        from deeplabv3p_torch.ops.kernels import batchnorm as kbn
         from deeplabv3p_torch.ops.kernels import confusion as kconf
         from deeplabv3p_torch.ops.kernels import decoder as kdec
         from deeplabv3p_torch.ops.kernels import mbconv as kmb
@@ -851,6 +902,14 @@ def main() -> None:
             print("  ptxas:", line.strip())
 
     f32, bf16 = torch.float32, torch.bfloat16
+    if "--bn" in sys.argv[1:]:  # training BatchNorm's kernel pair alone
+        rows = bn_phase(torch, kbn)
+        print(json.dumps({"kernels": rows}))
+        if failures:
+            die(f"{len(failures)} check(s) failed: {failures}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
     if "--aspp" in sys.argv[1:]:  # the ASPP kernel alone
         aspp_records = aspp_checks(torch, kaspp)
         row = aspp_times(torch, kaspp, aspp_records, None)
@@ -1012,6 +1071,7 @@ def main() -> None:
     learn_shapes = body_block_shapes(LEARN_BATCH, (LEARN_HW, LEARN_HW))
     print(f"  ... and at the learning proof's {len(learn_shapes)} body shapes (256 px, b8):")
     mbconv_checks(torch, kmb, learn_shapes, others=())
+    bn_rows = bn_phase(torch, kbn)
 
     # -- 5. the serving path ---------------------------------------------------
     common = dict(model_type="mobilenetv2", classes_path=classes_path,
@@ -1303,6 +1363,11 @@ def main() -> None:
     city_row["path"] = f"fast_scnn eval b{EVAL_BATCH} {CITYSCAPES_HW[0]}x{CITYSCAPES_HW[1]}"
     kernels[-1]["at_other_shapes"] = [city_row]
     kernels.append(mbconv_times(torch, kmb, records["mbconv"], eval_launches[1], eval_state))
+    # training BN: each model's step timed above; launches on its training path
+    for row in bn_rows:
+        row["launches"] = (train_launches if row["path"].startswith("mobilenetv2")
+                           else x_train_launches)[row["name"]]
+    kernels += bn_rows
     # this slice's new shapes, each held and timed on its own path's run
     aspp_rows = [
         aspp_shape_row(torch, kaspp, records[key], served_more[model]["multirate_atrous_depthwise"],
@@ -1611,10 +1676,15 @@ def training_path(torch, kernels, train_main, train_args, classes_path, request)
     steps = 2 * (TRAIN_IMAGES // TRAIN_BATCH)
     print(f"  trained {steps} steps in {wall:.1f} s wall (set-up and first-call cuDNN "
           f"tuning included); launch counts {launches}")
+    half = steps // 2
+    bn = bn_launches("mobilenetv2", [(1, half), (0, half)])
     check(launches == {**ZERO_LAUNCHES, "upsample_ce_forward": steps,
-                       "upsample_ce_backward": steps},
-          f"training: each loss kernel launched once a step ({steps}), every other "
-          "kernel never")
+                       "upsample_ce_backward": steps, **bn},
+          f"training: each loss kernel launched once a step ({steps}); training BN's forward "
+          f"and backward kernels once a training-mode site a step ({half} x "
+          f"{bn_sites('mobilenetv2', 1)} at freeze level 1, {half} x "
+          f"{bn_sites('mobilenetv2', 0)} at level 0: {bn['batchnorm_train_backward']}); "
+          "every other kernel never")
     with open(os.path.join(log_dir, "history.jsonl")) as f:
         records = [json.loads(line) for line in f]
     check(len(records) == 2 and all(np.isfinite(r["loss"]) and r["steps"] == 2
@@ -1719,13 +1789,16 @@ def default_training_path(torch, kernels, train_main, train_args, classes_path):
             print(f"  {what}: {steps} steps in {wall:.1f} s wall (set-up, caching and first-call "
                   f"cuDNN tuning included); {len(seen)} augmented batches, {larger} samples "
                   f"larger than the input, the crop fired on {cropped}; launch counts {launches}")
-            want = dict(ZERO_LAUNCHES)
+            want = {**ZERO_LAUNCHES, **bn_launches(
+                args.model_type, [(args.freeze_level, steps // 2), (0, steps // 2)])}
             if "--fused_loss" in extra:
                 want.update(upsample_ce_forward=steps, upsample_ce_backward=steps)
                 fused_launches = launches
             check(launches == want, f"train CLI {what}: launch counts as the path runs them "
                                     f"(the loss kernels {want['upsample_ce_forward']} times "
-                                    "each, every other kernel never)")
+                                    f"each, training BN's kernels "
+                                    f"{want['batchnorm_train_backward']} times each: once a "
+                                    "training-mode site a step; every other kernel never)")
             check(len(seen) == steps, f"train CLI {what}: every batch augmented ({len(seen)})")
             if "--device_cache" in extra:
                 check(larger == 0, "train CLI --device_cache: orig_hw is the input shape, "
@@ -2002,15 +2075,20 @@ def model_training_path(torch, kernels, train_main, train_args, classes_path, ro
             "--classes_path", classes_path, "--log_dir", log_dir, "--device", "cuda"]
     print("  python -m deeplabv3p_torch.train " + " ".join(argv))
     torch.cuda.reset_peak_memory_stats()
-    trainer, wall, launches, _ = run_cli(torch, kernels, train_main, train_args(argv))
+    args = train_args(argv)
+    trainer, wall, launches, _ = run_cli(torch, kernels, train_main, args)
     steps = 2 * (images // MODEL_TRAIN_BATCH)
+    bn = bn_launches(model_type, [(args.freeze_level, steps // 2), (0, steps // 2)])
     print(f"  {model_type}: {steps} steps in {wall:.1f} s wall (set-up and first-call cuDNN "
           f"tuning included), peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
           f"launch counts {launches}  [{card_line()}]")
     check(launches == {**ZERO_LAUNCHES, "upsample_ce_forward": steps,
-                       "upsample_ce_backward": steps},
-          f"{model_type} training --fused_loss: each loss kernel once a step ({steps}), every "
-          "other kernel never")
+                       "upsample_ce_backward": steps, **bn},
+          f"{model_type} training --fused_loss: each loss kernel once a step ({steps}); "
+          f"training BN's kernels once a training-mode site a step ({steps // 2} x "
+          f"{bn_sites(model_type, args.freeze_level)} at freeze level "
+          f"{args.freeze_level}, {steps // 2} x {bn_sites(model_type, 0)} at level 0: "
+          f"{bn['batchnorm_train_backward']}); every other kernel never")
     losses = [r["loss"] for r in trainer.history]
     check(len(losses) == 2 and all(np.isfinite(losses)) and losses[1] < losses[0],
           f"{model_type} training: 2 epochs, finite losses, falling {[round(x, 5) for x in losses]}")
@@ -2133,9 +2211,12 @@ def learning_proof(torch, kernels, train_main, train_args):
     check(len(losses) == LEARN_EPOCHS and all(np.isfinite(losses)),
           f"learning proof: {len(losses)} epochs of finite loss, first {losses[0]:.4f}, last "
           f"{losses[-1]:.4f}; train jaccard last {trainer.history[-1]['jaccard']:.4f}")
-    check(train_launches == ZERO_LAUNCHES,
-          f"learning proof, training: no hand-written kernel on this path (unfused loss, "
-          f"training mode): {train_launches}")
+    bn = bn_launches("mobilenetv2", [(1, 2), (0, LEARN_EPOCHS - 2)],
+                     forwards=-(-8 // LEARN_BATCH))
+    check(train_launches == {**ZERO_LAUNCHES, **bn},
+          f"learning proof, training: training BN's kernels once a training-mode site a step "
+          f"and its forward once more a site of the recalibration's batch, no other kernel "
+          f"(unfused loss, training mode): {train_launches}")
     final = os.path.join(log_dir, "trained_final.npz")
 
     def evaluate(path, *extra):
@@ -2650,6 +2731,148 @@ def mbconv_checks(torch, kmb, body_shapes,
     return {"max_abs_err": worst, "shapes": body_shapes}
 
 
+def bn_site_shapes(torch, model_type: str, output_stride: int, batch: int) -> dict:
+    """{(N, C, H, W): count} of the BatchNorm inputs of one `model_type`
+    forward at 512x512 and `batch` (every site trains at freeze level 0):
+    an eval-mode forward on the card, whose shapes are training's."""
+    from deeplabv3p_torch.models.factory import build_deeplab_model
+    from deeplabv3p_torch.models.layers import BatchNorm
+
+    model = build_deeplab_model(model_type, 21, output_stride=output_stride,
+                                dtype=torch.bfloat16, device="cuda")
+    shapes: dict = {}
+
+    def note(_module, args):
+        shape = tuple(args[0].shape)
+        shapes[shape] = shapes.get(shape, 0) + 1
+
+    handles = [m.register_forward_pre_hook(note) for m in model.modules()
+               if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        model(torch.zeros(batch, 3, *INPUT, device="cuda"))
+    for h in handles:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def bn_phase(torch, kbn) -> list:
+    """Training-mode BatchNorm's kernel pair (csrc/batchnorm.cu) against its
+    plain version at every site shape of a step of BN_MODELS (bf16):
+    y, dx, dweight, dbias and the running buffers within `tolerance`, two
+    calls bit-equal; then forward and backward ms by events, kernel and
+    plain in turns, summed over the step's sites, beside the bound of the
+    least bytes (each input read once, each output written once: 4 B an
+    element forward, x in and y out, and 6 B backward, x and dy in and dx
+    out) and the two-pass design's 16 B (the forward reads x twice, the
+    backward x and dy twice). Returns the kernels' record rows, one a
+    direction a model."""
+    bf16 = torch.bfloat16
+    rows = []
+    for model_type, output_stride, batch in BN_MODELS:
+        shapes = bn_site_shapes(torch, model_type, output_stride, batch)
+        sites = sum(shapes.values())
+        print(f"batchnorm_train_forward / _backward (csrc/batchnorm.cu) vs plain, {model_type} "
+              f"OS{output_stride} b{batch} 512x512: {sites} sites, {len(shapes)} shapes")
+        tot = dict.fromkeys(("kf", "kb", "pf", "pb", "bf", "bb", "tf", "tb"), 0.0)
+        elements = worst = 0
+        for shape, count in sorted(shapes.items(), key=lambda kv: -kv[0][1] * kv[0][2]):
+            gen = torch.Generator().manual_seed(sum(shape))
+            c = shape[1]
+            x = (2.0 * torch.randn(shape, generator=gen) + 0.5).to("cuda", bf16).contiguous(
+                memory_format=torch.channels_last)
+            dy = torch.randn(shape, generator=gen).to("cuda", bf16).contiguous(
+                memory_format=torch.channels_last)
+            w = (0.5 + torch.rand(c, generator=gen)).cuda()
+            b = (0.3 * torch.randn(c, generator=gen)).cuda()
+            buffers = [(0.3 * torch.randn(c, generator=gen)).cuda(),
+                       (0.5 + torch.rand(c, generator=gen)).cuda()]
+            plain_buffers = [t.clone() for t in buffers]
+
+            def fwd(update=True):
+                return kbn.batchnorm_train_forward(x, w, b, *buffers, 1e-3, 0.999, update)
+
+            def plain_fwd():
+                return kbn.batchnorm_train_reference(x, w, b, *plain_buffers, 1e-3, 0.999)
+
+            y, saved = fwd()
+            dx, dw, db = kbn.batchnorm_train_backward(dy, x, w, saved)
+            y_ref, saved_ref = plain_fwd()
+            dx_ref, dw_ref, db_ref = kbn.batchnorm_train_backward_reference(dy, x, w, saved_ref)
+            torch.cuda.synchronize()
+            errs = []
+            for got, want, dtype in ((y, y_ref, bf16), (dx, dx_ref, bf16),
+                                     (dw, dw_ref, torch.float32), (db, db_ref, torch.float32),
+                                     (buffers[0], plain_buffers[0], torch.float32),
+                                     (buffers[1], plain_buffers[1], torch.float32)):
+                err, ref = max_err(got, want)
+                # f32 sums of up to 2^21 elements a channel in another order
+                tol = tolerance(ref, bf16) if dtype == bf16 else 1e-4 * max(1.0, ref)
+                errs.append(err / tol)
+            y2, saved2 = fwd(update=False)
+            again = kbn.batchnorm_train_backward(dy, x, w, saved2)
+            same = (torch.equal(y2, y) and torch.equal(saved2, saved)
+                    and all(torch.equal(a, b_) for a, b_ in zip(again, (dx, dw, db))))
+            worst = max(worst, max(errs))
+            check(max(errs) <= 1.0 and same,
+                  f"bn {shape} x{count}: y, dx, dweight, dbias, buffers within "
+                  f"{max(errs):.3f} of their tolerance; two calls bit-equal: {same}")
+            iters = max(5, min(200, int(4e8 / x.numel())))
+            kf, pf = ab_ms(lambda: fwd(False), plain_fwd, iters)
+            kb, pb = ab_ms(lambda: kbn.batchnorm_train_backward(dy, x, w, saved),
+                           lambda: kbn.batchnorm_train_backward_reference(dy, x, w, saved_ref),
+                           iters)
+            n = x.numel()
+            bf, bb = bound(4 * n, 0)[0], bound(6 * n, 0)[0]
+            for key, v in (("kf", kf), ("kb", kb), ("pf", pf), ("pb", pb), ("bf", bf),
+                           ("bb", bb), ("tf", bound(6 * n, 0)[0]), ("tb", bound(10 * n, 0)[0])):
+                tot[key] += count * v
+            elements += count * n
+            print(f"  {shape} x{count}: forward {kf * 1e3:.1f} us (plain {pf * 1e3:.1f}), "
+                  f"backward {kb * 1e3:.1f} us (plain {pb * 1e3:.1f}); bound {bf * 1e3:.1f} + "
+                  f"{bb * 1e3:.1f} us; plan {kbn.launch_plan(n // c, c, kbn.vector_width(bf16, c, x), kbn._sm_count(0))}"
+                  f" (lanes, row threads, tiles, blocks, rows a block)")
+            del x, dy, y, dx, y_ref, dx_ref, y2, again
+        torch.cuda.empty_cache()
+        card = card_line()
+        print(f"  {model_type} step, {sites} sites, {elements / 1e9:.3f} G elements: forward "
+              f"{tot['kf']:.3f} ms (plain {tot['pf']:.3f}), backward {tot['kb']:.3f} ms (plain "
+              f"{tot['pb']:.3f}); bound {tot['bf'] + tot['bb']:.3f} ms at 10 B an element "
+              f"({tot['bf']:.3f} + {tot['bb']:.3f}: each input read once), "
+              f"{tot['tf'] + tot['tb']:.3f} ms at the two-pass design's 16 B; kernel pair at "
+              f"{(tot['bf'] + tot['bb']) / (tot['kf'] + tot['kb']):.3f} of the 10 B bound, "
+              f"{(tot['tf'] + tot['tb']) / (tot['kf'] + tot['kb']):.3f} of the 16 B one  "
+              f"[{card}]")
+        if model_type == BN_MODELS[0][0]:  # the wrappers' host cost, at a small site
+            x = torch.randn(16, 64, 32, 32, device="cuda").to(bf16).contiguous(
+                memory_format=torch.channels_last)
+            w1, b0 = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+            bufs = [torch.zeros(64, device="cuda"), torch.ones(64, device="cuda")]
+            _, sv = kbn.batchnorm_train_forward(x, w1, b0, *bufs, 1e-3, 0.999)
+            xr = x.detach().requires_grad_(True)
+            ys = kbn.batchnorm_train(xr, w1, b0, *bufs, 1e-3, 0.999)
+            print(f"  host us a call at (16, 64, 32, 32): forward wrapper "
+                  f"{host_us(torch, lambda: kbn.batchnorm_train_forward(x, w1, b0, *bufs, 1e-3, 0.999), 500):.1f}"
+                  f", backward wrapper "
+                  f"{host_us(torch, lambda: kbn.batchnorm_train_backward(x, x, w1, sv), 500):.1f}"
+                  f", the autograd function's forward "
+                  f"{host_us(torch, lambda: kbn.batchnorm_train(xr, w1, b0, *bufs, 1e-3, 0.999), 500):.1f}"
+                  f" and backward "
+                  f"{host_us(torch, lambda: torch.autograd.grad(ys, xr, x, retain_graph=True), 500):.1f}"
+                  f"  [{card_line()}]")
+            del x, xr, ys
+        path = f"{model_type} OS{output_stride} b{batch} step, {sites} sites"
+        for name, ms, plain_ms, bound_ms, two_pass_ms in (
+                ("batchnorm_train_forward", tot["kf"], tot["pf"], tot["bf"], tot["tf"]),
+                ("batchnorm_train_backward", tot["kb"], tot["pb"], tot["bb"], tot["tb"])):
+            rows.append({"name": name, "path": path, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": "bytes",
+                         "two_pass_bound_ms": two_pass_ms, "library_ms": None,
+                         "max_err_over_tolerance": worst, "sites": sites, "launches": None})
+    return rows
+
+
 def eval_argv(weights, root, classes_path, out_dir, *extra):
     return ["--model_path", weights, "--model_type", "mobilenetv2", "--model_input_shape",
             f"{INPUT[0]}x{INPUT[1]}", "--output_stride", "16", "--batch_size", str(EVAL_BATCH),
@@ -3051,15 +3274,19 @@ def family_training_path(torch, kernels, train_main, train_args, classes_path, r
             "--classes_path", classes_path, "--log_dir", log_dir, "--device", "cuda"]
     print("  python -m deeplabv3p_torch.train " + " ".join(argv))
     torch.cuda.reset_peak_memory_stats()
+    args = train_args(argv)
     with StageOneUpdates(torch) as record:
-        trainer, wall, launches, _ = run_cli(torch, kernels, train_main, train_args(argv))
+        trainer, wall, launches, _ = run_cli(torch, kernels, train_main, args)
     steps = 2 * (images // MODEL_TRAIN_BATCH)
+    bn = bn_launches(model_type, [(args.freeze_level, steps // 2), (0, steps // 2)])
     losses = [r["loss"] for r in trainer.history]
     print(f"  {model_type}: {steps} steps in {wall:.1f} s wall (set-up and first-call cuDNN "
           f"tuning included), peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"epoch losses {[round(x, 5) for x in losses]}, L2 factor {trainer.l2_factor:g}; "
           f"launch counts {launches}  [{card_line()}]")
-    check(launches == ZERO_LAUNCHES, f"{model_type} training: no kernel on its path")
+    check(launches == {**ZERO_LAUNCHES, **bn},
+          f"{model_type} training: training BN's kernels once a site a step "
+          f"({bn['batchnorm_train_backward']}), no other kernel on its path")
     check(len(losses) == 2 and all(np.isfinite(losses)),
           f"{model_type} training: 2 epochs, finite losses")
     init = build_segmentation_model(model_type, num_classes, device="cpu")
@@ -4665,7 +4892,8 @@ def parallel_phase(torch) -> dict:
           f"ranks' start, (c) {tc - tb:.1f} s")
 
     train_want = {**ZERO_LAUNCHES, "upsample_ce_forward": PARALLEL_STEPS,
-                  "upsample_ce_backward": PARALLEL_STEPS}
+                  "upsample_ce_backward": PARALLEL_STEPS,
+                  **bn_launches("mobilenetv2", [(0, PARALLEL_STEPS)])}
     batches_a = PARALLEL_VAL // PARALLEL_VAL_BATCH
     configs = (("(a) one process b16", [a]), ("(b) gloo rank", b),
                ("(c) one-rank NCCL group", [c]))
@@ -4676,7 +4904,7 @@ def parallel_phase(torch) -> dict:
                 want_eval = batches_a // r["size"]
                 check(r["train_launches"] == train_want,
                       f"{who}: train launches {r['train_launches']} (each loss kernel once a "
-                      "step)")
+                      "step, training BN's kernels once a site a step)")
                 check(r["eval_launches"] == {**ZERO_LAUNCHES,
                                              "confusion_matrix_fused": want_eval},
                       f"{who}: eval launches {r['eval_launches']} (confusion once a batch "
@@ -5244,9 +5472,11 @@ def spatial_phase(torch, kaspp, kdec, kmb, kconf) -> dict:
             for r in ranks:
                 got = r[("train", shape, dt)]
                 who = f"train {shape} b{batch} {dt}, rank {r['rank']}"
-                check(got["launches"] == ZERO_LAUNCHES,
-                      f"{who}: launches {got['launches']} (no kernel: the inference kernels "
-                      f"carry no gradient, the fused loss is refused)")
+                check(got["launches"] == {**ZERO_LAUNCHES, **bn_launches(
+                    "mobilenetv2", [(0, SPATIAL_STEPS)])},
+                      f"{who}: launches {got['launches']} (training BN's kernels once a site "
+                      f"a step; no other kernel: the inference kernels carry no gradient, the "
+                      f"fused loss is refused)")
                 gap = parallel_gaps(got, want)
                 for i in range(SPATIAL_STEPS):
                     if f32:
@@ -5744,9 +5974,12 @@ def remat_phase(torch, kernels, train_main, train_args, classes_path, root) -> d
         steps = REMAT_WARMUP + timed
         check(all(np.isfinite(losses)) and model.remat == (None if mode == "off" else mode)
               and counts == {**ZERO_LAUNCHES, "upsample_ce_forward": steps,
-                             "upsample_ce_backward": steps},
-              f"remat {mode} b{batch}: {steps} finite losses, each loss kernel once a step: "
-              f"{counts}")
+                             "upsample_ce_backward": steps,
+                             **bn_launches(REMAT_MODEL, [(0, steps)], remat=mode)},
+              f"remat {mode} b{batch}: {steps} finite losses, each loss kernel once a step, "
+              f"training BN's backward once a site a step and its forward once more a "
+              f"recomputed site ({bn_remat_sites(REMAT_MODEL, mode) if mode != 'off' else 0} a "
+              f"step): {counts}")
         del metrics
         return peak, before, statistics.median(ms) if ms else None, counts
 
@@ -5834,9 +6067,12 @@ def remat_phase(torch, kernels, train_main, train_args, classes_path, root) -> d
     losses = [r["loss"] for r in trainer.history]
     check(trainer.model.remat == "block" and trainer.model.backbone.remat_blocks
           and len(losses) == 1 and all(np.isfinite(losses))
-          and counts == {**ZERO_LAUNCHES, "upsample_ce_forward": 2, "upsample_ce_backward": 2},
+          and counts == {**ZERO_LAUNCHES, "upsample_ce_forward": 2, "upsample_ce_backward": 2,
+                         **bn_launches("mobilenetv2", [(0, 2)], remat="block")},
           f"train CLI --remat block --fused_loss (mobilenetv2 b{TRAIN_BATCH}, 2 steps in "
-          f"{wall:.1f} s with its start): losses {losses}, each loss kernel once a step: {counts}")
+          f"{wall:.1f} s with its start): losses {losses}, each loss kernel once a step, "
+          f"training BN's kernels once a site a step and its forward again in a recompute: "
+          f"{counts}")
     del trainer
     torch.cuda.empty_cache()
     print(f"the remat phase took {time.perf_counter() - t0:.1f} s  [{card}]")

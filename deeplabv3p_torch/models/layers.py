@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from deeplabv3p_torch.models import remat
 from deeplabv3p_torch.ops.conv import atrous_explicit_pad, conv2d_same
+from deeplabv3p_torch.ops.kernels.batchnorm import batchnorm_train
 from deeplabv3p_torch.ops.resize import resize_bilinear
 from deeplabv3p_torch.parallel import spatial
 from deeplabv3p_torch.parallel.mesh import AllReduceSum
@@ -108,6 +109,12 @@ class BatchNorm(nn.Module):
     On a 2-D mesh `group` is every rank, so the statistics are over both
     axes, as in JAX; `n` counts this rank's elements, none for an empty
     block of rows.
+
+    On a CUDA tensor the training forward is one hand-written kernel pair
+    (`ops.kernels.batchnorm.batchnorm_train`: the same statistics, one
+    all-reduce of `[sum x, sum x^2, count]` with a group, the gradient's
+    sums all-reduced once in the backward); on the CPU it is the eager
+    formula below, which the kernels' plain versions are held to.
     """
 
     def __init__(self, num_features: int, epsilon: float = 1e-3,
@@ -143,6 +150,12 @@ class BatchNorm(nn.Module):
             return y.to(self.dtype)
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cuda":  # the kernel pair (ops/kernels/batchnorm.py), y in x's type
+            y = batchnorm_train(
+                x.to(torch.promote_types(x.dtype, self.dtype)), self.weight, self.bias,
+                self.running_mean, self.running_var, self.epsilon, self.momentum,
+                update=not remat.recomputing(), group=self.group)
+            return y.to(self.dtype)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = (0, 2, 3)
         if self.group is None:

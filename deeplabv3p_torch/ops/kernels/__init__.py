@@ -9,9 +9,13 @@ PyTorch version.
 | `upsample_ce_backward`        | `csrc/upsample_ce.cu` | `deeplabv3p_tpu/ops/pallas/upsample_ce.py` `_bwd_kernel` |
 | `confusion_matrix_fused`      | `csrc/confusion.cu` | `deeplabv3p_tpu/ops/pallas/confusion.py` `confusion_matrix_fused` |
 | `fused_inverted_residual`     | `csrc/mbconv.cu`  | `deeplabv3p_tpu/ops/pallas/mbconv.py` `fused_inverted_residual` |
+| `batchnorm_train_forward`     | `csrc/batchnorm.cu` | none: training-mode BatchNorm, which JAX leaves to XLA |
+| `batchnorm_train_backward`    | `csrc/batchnorm.cu` | none (its gradient) |
 
 `fused_upsample_ce` (in `upsample_ce.py`) is the differentiable loss tail
-that launches the two `upsample_ce_*` kernels.
+that launches the two `upsample_ce_*` kernels; `batchnorm_train` (in
+`batchnorm.py`) is `models.layers.BatchNorm`'s training forward on CUDA
+tensors, differentiable through the two `batchnorm_train_*` kernels.
 
 Five of the six have been designed again for the card since their first
 port (each source's note has the design, PERF.md the times):
@@ -35,6 +39,13 @@ from deeplabv3p_torch.ops.kernels._build import (  # noqa: F401
 from deeplabv3p_torch.ops.kernels.aspp import (  # noqa: F401
     multirate_atrous_depthwise,
     multirate_atrous_depthwise_reference,
+)
+from deeplabv3p_torch.ops.kernels.batchnorm import (  # noqa: F401
+    batchnorm_train,
+    batchnorm_train_backward,
+    batchnorm_train_backward_reference,
+    batchnorm_train_forward,
+    batchnorm_train_reference,
 )
 from deeplabv3p_torch.ops.kernels.confusion import (  # noqa: F401
     confusion_matrix_fused,

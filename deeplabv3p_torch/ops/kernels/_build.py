@@ -21,7 +21,8 @@ fake one (shapes and types only), so that `torch.export` keeps each as one
 graph node. They are defined with `Library.define` / `impl` rather than the
 `torch.library.custom_op` decorator, whose Python wrapper adds host time to
 every call (PERF.md). The loss tail and the confusion kernel run outside any
-model's forward and stay plain functions.
+model's forward and stay plain functions, as does training-mode BatchNorm
+(`batchnorm.py`: an autograd function, which no export traces).
 """
 
 from __future__ import annotations
@@ -189,6 +190,20 @@ def load_library() -> ctypes.CDLL:
         lib.fused_inverted_residual.restype = i
         lib.fused_inverted_residual_blocks_per_sm.argtypes = [i, i, i]  # dtype, cout, smem bytes
         lib.fused_inverted_residual_blocks_per_sm.restype = i
+        d = ctypes.c_double
+        bn_plan = [i, i, ll, i, i, i, i, i, i]  # dtype, vec, rows, channels, the plan (batchnorm.py)
+        lib.bn_forward.argtypes = [
+            p, p, p, p,              # x, y, partials, sums
+            p, p, p, p, p,           # weight, bias, saved, running mean / var
+            d, d, i, i,              # eps, momentum, update, phase
+            *bn_plan, p,
+        ]
+        lib.bn_backward.argtypes = [
+            p, p, p, p, p, p,        # dy, x, dx, partials, sums, total
+            p, p, i,                 # saved, weight, phase
+            *bn_plan, p,
+        ]
+        lib.bn_forward.restype = lib.bn_backward.restype = i
         _lib = lib
     return _lib
 

@@ -262,3 +262,36 @@ def run_all(mesh: Mesh, calls: list) -> list:
     """Each `(function name, args)` of this module in turn on this rank (one
     spawn for several checks)."""
     return [globals()[name](mesh, *args) for name, args in calls]
+
+
+def batchnorm_group_cases(mesh: Mesh, cases: list) -> list:
+    """For each case (x, dy, weight, bias, running mean, running var, each
+    rank's index into the global (N, C, H, W) batch): the eager BatchNorm's
+    training forward with `group` set, and the kernel pair's plain versions
+    with the same group (ops/kernels/batchnorm.py), each as (y, dx,
+    dweight, dbias, running mean, running var) on this rank's slice
+    (`slices[rank]`, an index of the global batch)."""
+    from deeplabv3p_torch.models.layers import BatchNorm
+    from deeplabv3p_torch.ops.kernels.batchnorm import batchnorm_train
+
+    out = []
+    for x, dy, weight, bias, mean, var, slices in cases:
+        rows = slices[mesh.rank]
+        x, dy = torch.from_numpy(x[rows].copy()), torch.from_numpy(dy[rows].copy())
+        sides = []
+        for eager in (True, False):
+            bn = BatchNorm(x.shape[1], epsilon=1e-3, dtype=x.dtype, momentum=0.9)
+            with torch.no_grad():
+                for t, v in ((bn.weight, weight), (bn.bias, bias), (bn.running_mean, mean),
+                             (bn.running_var, var)):
+                    t.copy_(torch.from_numpy(v))
+            bn.group = mesh.group
+            xr = x.clone().requires_grad_(True)
+            y = (bn._train_forward(xr) if eager else batchnorm_train(
+                xr, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.epsilon,
+                bn.momentum, group=mesh.group))
+            y.backward(dy)
+            sides.append([t.detach().numpy().copy() for t in (
+                y, xr.grad, bn.weight.grad, bn.bias.grad, bn.running_mean, bn.running_var)])
+        out.append(sides)
+    return out
